@@ -1,0 +1,32 @@
+"""ray_tpu_torch: the PyTorch/CUDA port of ray_tpu, beside the JAX package.
+
+The JAX package (``ray_tpu``) is the reference; this package imports
+nothing from it and nothing of JAX. Module paths mirror the reference so
+each port sits next to its counterpart by name
+(``ray_tpu_torch/llm/engine.py`` ↔ ``ray_tpu/llm/engine.py``).
+
+Ported so far: the paged-KV LLM serving path for GPT-J — the model
+(``models.gptj``), sampling (``models.sampling``), plain causal attention
+(``ops.attention``), paged decode/prefill attention with a hand-written
+Hopper kernel for decode (``ops.paged_attention``), and the engine
+(``llm``). ROADMAP.md lists what is still to port.
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; a missing GPU raises instead of falling back.
+"""
+
+from ray_tpu_torch.llm import (  # noqa: F401
+    CacheConfig,
+    EngineConfig,
+    KVBlockPool,
+    LLMEngine,
+    SamplingParams,
+)
+from ray_tpu_torch.models.gptj import (  # noqa: F401
+    GPTJ_6B,
+    GPTJConfig,
+    gptj_decode,
+    gptj_forward,
+    gptj_init,
+    params_from_jax,
+)

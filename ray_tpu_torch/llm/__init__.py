@@ -1,0 +1,16 @@
+"""ray_tpu_torch.llm: continuous-batching GPT-J serving over a paged KV
+cache, on one CUDA device (port of ``ray_tpu.llm``).
+
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+
+    engine = LLMEngine(model_cfg, params, EngineConfig(max_slots=8))
+    req = engine.submit(prompt_ids, SamplingParams(max_tokens=64,
+                                                   temperature=0.8))
+    for tok in engine.stream_tokens(req):   # a loop thread drives step()
+        ...
+"""
+
+from ray_tpu_torch.llm.cache import CacheConfig, KVBlockPool  # noqa: F401
+from ray_tpu_torch.llm.engine import EngineConfig, LLMEngine  # noqa: F401
+from ray_tpu_torch.llm.prefix_cache import PrefixCache, PrefixMatch  # noqa: F401
+from ray_tpu_torch.llm.scheduler import Request, SamplingParams, Scheduler  # noqa: F401

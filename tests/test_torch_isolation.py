@@ -1,0 +1,117 @@
+"""The port stands alone: ray_tpu_torch and chip_smoke.py import nothing of
+JAX or of the JAX package, and the port's entry points never fall back to
+the CPU when the card is missing."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ray_tpu"}
+
+
+def _port_files():
+    return sorted((REPO / "ray_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_top_names(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module.split(".")[0]
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    files = _port_files()
+    assert len(files) > 10
+    bad = [
+        f"{p.relative_to(REPO)}:{line} imports {name}"
+        for p in files
+        for line, name in _imported_top_names(p)
+        if name in FORBIDDEN
+    ]
+    assert bad == []
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys, ray_tpu_torch, ray_tpu_torch.llm.engine, ray_tpu_torch.ops._kernels\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
+        "print(bad); sys.exit(1 if bad else 0)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_engine_without_device_needs_cuda(monkeypatch):
+    from ray_tpu_torch.llm import LLMEngine
+    from ray_tpu_torch.models.gptj import GPTJConfig, gptj_init, params_from_jax
+
+    cfg = GPTJConfig(vocab_size=16, d_model=8, n_layers=1, n_heads=2, rotary_dim=2, dtype="float32")
+    params = gptj_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    # the reference's tree layout: stacked L axis, kernels (in, out)
+    tree = {
+        "embed": {"tokens": params.embed.weight.numpy()},
+        "blocks": {
+            "ln1": {"scale": params.blocks[0].ln1.scale[None].numpy(),
+                    "bias": params.blocks[0].ln1.bias[None].numpy()},
+            **{n: {"kernel": getattr(params.blocks[0], n).weight.T[None].numpy()}
+               for n in ("q", "k", "v", "attn_out")},
+            **{n: {"kernel": getattr(params.blocks[0], n).weight.T[None].numpy(),
+                   "bias": getattr(params.blocks[0], n).bias[None].numpy()}
+               for n in ("mlp_in", "mlp_out")},
+        },
+        "ln_f": {"scale": params.ln_f.scale.numpy(), "bias": params.ln_f.bias.numpy()},
+        "lm_head": {"kernel": params.lm_head.weight.T.numpy(), "bias": params.lm_head.bias.numpy()},
+    }
+    if not torch.cuda.is_available():
+        for make in (lambda: LLMEngine(cfg, params),
+                     lambda: gptj_init(cfg, torch.Generator()),
+                     lambda: params_from_jax(tree, cfg)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LLMEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LLMEngine(cfg, params, device="cuda:0")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gptj_init(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax(tree, cfg)
+    assert LLMEngine(cfg, params, device="cpu").device == torch.device("cpu")
+    # asked for the CPU, both entry points build real weights there
+    again = params_from_jax(tree, cfg, "cpu")
+    for (name, a), b in zip(params.named_parameters(), again.parameters()):
+        assert b.device.type == "cpu" and torch.equal(a, b), name
+
+
+def test_gptj_init_refuses_a_generator_on_another_device(monkeypatch):
+    """A CPU generator for a model on the card is refused before anything
+    is allocated (the card itself is faked: the check comes first)."""
+    from ray_tpu_torch.models.gptj import GPTJConfig, gptj_init
+
+    cfg = GPTJConfig(vocab_size=16, d_model=8, n_layers=1, n_heads=2, rotary_dim=2, dtype="float32")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    with pytest.raises(ValueError, match="generator is on cpu"):
+        gptj_init(cfg, torch.Generator().manual_seed(0))
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    from ray_tpu_torch.ops import _kernels
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _kernels.nvcc_path()

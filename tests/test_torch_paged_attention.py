@@ -1,0 +1,99 @@
+"""ray_tpu_torch.ops.paged_attention vs the JAX reference, on the CPU.
+
+The port's plain decode and prefill paths take the same numpy inputs as
+``ray_tpu.ops.paged_attention``'s XLA paths and its Pallas decode kernel
+(run in interpret mode, as tests/test_llm_engine.py runs it), fp32, atol
+2e-5 — the reference's own Pallas-vs-XLA tolerance. The CUDA kernel itself
+runs only on a GPU; chip_smoke.py holds it against the plain version there.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from ray_tpu.ops import paged_attention as ref_ops
+from ray_tpu_torch.ops import paged_attention as ops
+
+ATOL = 2e-5
+
+
+def _case(seed=0, slots=3, heads=4, d=16, blocks=12, bs=4, tmax=6):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(slots, heads, d).astype(np.float32)
+    kp = rng.randn(blocks, heads, bs, d).astype(np.float32)
+    vp = rng.randn(blocks, heads, bs, d).astype(np.float32)
+    bt = rng.randint(0, blocks, (slots, tmax)).astype(np.int32)
+    lens = rng.randint(1, tmax * bs + 1, slots).astype(np.int32)
+    return q, kp, vp, bt, lens
+
+
+def _port(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _jax(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("ref_impl", ["xla", "pallas"])
+def test_decode_matches_reference(seed, ref_impl):
+    case = _case(seed)
+    ref = np.asarray(ref_ops.paged_attention(*_jax(*case), impl=ref_impl))
+    out = ops.paged_attention(*_port(*case)).numpy()
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+
+
+def test_decode_impls_agree_and_auto_is_plain_on_cpu():
+    case = _port(*_case(3))
+    auto = ops.paged_attention(*case)
+    plain = ops.paged_attention(*case, impl="torch")
+    assert torch.equal(auto, plain)
+
+
+def test_prefill_matches_reference():
+    rng = np.random.RandomState(5)
+    chunk, heads, d, blocks, bs, tmax = 6, 4, 16, 12, 4, 6
+    q = rng.randn(chunk, heads, d).astype(np.float32)
+    kp = rng.randn(blocks, heads, bs, d).astype(np.float32)
+    vp = rng.randn(blocks, heads, bs, d).astype(np.float32)
+    table = rng.randint(0, blocks, tmax).astype(np.int32)
+    positions = (7 + np.arange(chunk)).astype(np.int32)
+    ref = np.asarray(ref_ops.paged_prefill_attention_xla(*_jax(q, kp, vp, table, positions)))
+    out = ops.paged_prefill_attention_torch(*_port(q, kp, vp, table, positions)).numpy()
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+
+
+def test_trash_padding_is_masked():
+    """Table entries past a slot's length point at trash block 0; their
+    contents must not change the output."""
+    q, kp, vp, _, _ = _case(11)
+    lens = np.array([5, 9, 1], np.int32)  # 2, 3 and 1 live blocks of 4
+    live = -(-lens // 4)
+    bt = np.random.RandomState(11).randint(1, kp.shape[0], (3, 6))  # never the trash block
+    bt = np.where(np.arange(6)[None, :] < live[:, None], bt, 0).astype(np.int32)
+    a = ops.paged_attention(*_port(q, kp, vp, bt, lens))
+    kp2, vp2 = kp.copy(), vp.copy()
+    kp2[0] = 1e3
+    vp2[0] = -1e3
+    b = ops.paged_attention(*_port(q, kp2, vp2, bt, lens))
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_zero_length_row_is_finite():
+    q, kp, vp, bt, lens = _case(2)
+    lens[1] = 0
+    out = ops.paged_attention(*_port(q, kp, vp, bt, lens))
+    assert torch.isfinite(out).all()
+
+
+def test_cuda_impl_on_cpu_tensor_raises():
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.paged_attention(*_port(*_case(0)), impl="cuda")
+
+
+def test_bad_impl_rejected():
+    with pytest.raises(ValueError, match="unknown paged attention impl"):
+        ops.paged_attention(*_port(*_case(0)), impl="pallas")
