@@ -10,7 +10,8 @@ full GPT-J-6B width (28 layers, bf16, random weights from a seed) — through
 the entry points a user calls. Phases, each of which raises on failure:
 
 1. device: name, compute capability, power limit;
-2. build: the ``-Xptxas -v`` register / shared-memory report;
+2. build: both kernels, in parallel, and their ``-Xptxas -v`` register /
+   shared-memory reports;
 3. K1 (paged decode attention) vs its plain version, fp32 and bf16;
 4. K1 timing beside the plain version, the library call and the bound;
 5. fp32 identity: a full-width, 2-layer engine is token-identical to the
@@ -21,7 +22,24 @@ the entry points a user calls. Phases, each of which raises on failure:
    launch count and every greedy token against the dense forward;
 7. decode profile: device busy time of a steady 8-slot decode step by
    kernel, against its wall time without the profiler, and the host time
-   of the step's Gumbel noise.
+   of the step's Gumbel noise;
+8. K2 (paged verify attention) vs its plain version, fp32 and bf16, at
+   every compiled window, and window index by window index vs K1;
+9. K2 timing beside the plain version, the library call, the bound and K1,
+   and at every compiled window;
+10. fp32 spec identity: a full-width, 2-layer speculating engine is
+    token-identical to dense ``gptj_decode`` — with a test-double drafter
+    that makes full, partial and zero acceptance happen, and with the
+    n-gram drafter;
+11. GPT-J-6B spec serve: the phase-6 weights behind a speculating engine
+    (spec_k=4, n-gram drafter) serving client threads; checks the audits,
+    both kernels' launch counts against the verify and plain decode steps,
+    and every greedy token against the dense forward;
+12. verify profile: device busy time of a steady 8-slot verify step by
+    kernel, against its wall time without the profiler, and the host time
+    of the step's Gumbel noise;
+13. library times (SDPA forward, forward+backward) and bounds for the
+    training slice's flash-attention kernels K3-K5, not ported yet.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it has
 the card's name and power limit, the one before that the kernels' record.
@@ -35,6 +53,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -43,18 +62,29 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
-from ray_tpu_torch.llm.model_runner import _row_noise
+from ray_tpu_torch.llm.model_runner import _row_noise, _window_noise
 from ray_tpu_torch.llm.scheduler import RUNNING
 from ray_tpu_torch.models.gptj import GPTJ_6B, GPTJConfig, gptj_decode, gptj_forward, gptj_init
 from ray_tpu_torch.ops import _kernels
-from ray_tpu_torch.ops.paged_attention import paged_attention, paged_attention_cuda
+from ray_tpu_torch.ops.paged_attention import (
+    KERNEL_WINDOWS,
+    paged_attention,
+    paged_attention_cuda,
+    paged_verify_attention,
+    paged_verify_attention_cuda,
+)
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and operations/s by input type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
-# slice shapes: GPT-J-6B decode at 8 slots, block 16, 128-entry tables
+# the kernels' sources, ray_tpu_torch/ops/csrc/<name>.cu
+KERNELS = ("paged_attention", "paged_verify_attention")
+
+# slice shapes: GPT-J-6B decode at 8 slots, block 16, 128-entry tables; the
+# verify window of spec_k = 4
 S, H, D, BS, T = 8, 16, 256, 16, 128
+W = 5
 NB = S * T + 1  # the serve phase's pool: 1025 blocks, block 0 the trash block
 
 # K1 vs plain: the fp32 pair differs only in summation order (the
@@ -167,6 +197,135 @@ def time_k1() -> dict:
     return rec
 
 
+def k2_inputs(dtype, base, seed, inactive=(), w=W):
+    """Random q/pools, window positions ``base[s] + arange(w)`` and per-slot
+    tables of distinct live blocks (the live length capped at T*BS), padded
+    with the trash block; slots in ``inactive`` get an all-trash table, as
+    the engine gives an empty slot."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    positions = (base[:, None] + torch.arange(w)[None, :]).int().cuda()
+    q = torch.randn(S, w, H, D, device="cuda", generator=g).to(dtype)
+    kp = torch.randn(NB, H, BS, D, device="cuda", generator=g).to(dtype)
+    vp = torch.randn(NB, H, BS, D, device="cuda", generator=g).to(dtype)
+    tables = (torch.randperm(NB - 1, device="cuda", generator=g)[: S * T] + 1).view(S, T)
+    n_live = (positions[:, -1] + 1).clamp(max=T * BS)
+    live = torch.arange(T, device="cuda")[None, :] < ((n_live + BS - 1) // BS)[:, None]
+    for s in inactive:
+        live[s] = False
+    tables = torch.where(live, tables, 0).int().contiguous()
+    return q, kp, vp, tables, positions.contiguous()
+
+
+def k2_bound_ms(dtype, positions) -> float:
+    """Least time for one call: each slot's live K/V rows (up to its last
+    query, capped at T*BS), q, the live table entries and the positions
+    read once, out written once; 4*D operations per (query, attended
+    row, head)."""
+    esize = torch.finfo(dtype).bits // 8
+    pos = positions.long().cpu()
+    w = pos.shape[1]
+    n_live = (pos[:, -1] + 1).clamp(max=T * BS)
+    live_entries = int(((n_live + BS - 1) // BS).sum())
+    nbytes = (2 * int(n_live.sum()) * H * D * esize + 2 * S * w * H * D * esize
+              + 4 * (live_entries + S * w))
+    ops = 4 * int((pos + 1).clamp(max=T * BS).sum()) * H * D
+    return max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]) * 1e3
+
+
+def check_k2() -> float:
+    """Phase 8: K2 vs its plain version and, window index by window index,
+    vs K1; returns the bf16 max abs error against the plain version."""
+    rng = np.random.RandomState(4)
+    # slot 0 inactive (base 0, all-trash table: only required finite), a
+    # window straddling a block edge, one whose last position is >= T*BS,
+    # base 1019, and random bases
+    base = torch.tensor([0, 13, T * BS - 2, 1019, *rng.randint(0, T * BS - W, S - 4)])
+    compared = torch.arange(S) != 0
+    err_bf16 = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        q, kp, vp, tables, positions = k2_inputs(dtype, base, seed=5, inactive=(0,))
+        ref = paged_verify_attention(q, kp, vp, tables, positions, impl="torch")
+        out = paged_verify_attention(q, kp, vp, tables, positions, impl="cuda")
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"K2 {dtype}: non-finite output")
+        err = (out.float() - ref.float()).abs()[compared.cuda()].max().item()
+        # each window index is a decode step at that position: K1 at
+        # lengths positions[:, i] + 1 on the same cache
+        err_k1 = 0.0
+        for i in range(W):
+            one = paged_attention(q[:, i].contiguous(), kp, vp, tables, positions[:, i] + 1,
+                                  impl="cuda")
+            err_k1 = max(err_k1, (out[:, i].float() - one.float()).abs().max().item())
+        print(f"K2 {dtype} S={S} W={W} bases={base.tolist()}: max_abs_err vs plain {err:.3g}, "
+              f"vs K1 per window index {err_k1:.3g} (tol {TOL[dtype]})")
+        if not (err <= TOL[dtype] and err_k1 <= TOL[dtype]):
+            raise AssertionError(f"K2 {dtype}: max abs error {err} / {err_k1} > {TOL[dtype]}")
+        if dtype == torch.bfloat16:
+            err_bf16 = err
+    # every compiled window width, in both dtypes, against the plain version
+    for dtype in (torch.float32, torch.bfloat16):
+        errs = []
+        for w in KERNEL_WINDOWS:
+            b = torch.tensor([0, 13, T * BS - 2, *rng.randint(0, T * BS - w, S - 3)])
+            qw, kp, vp, tables, pos = k2_inputs(dtype, b, seed=6, w=w)
+            ref = paged_verify_attention(qw, kp, vp, tables, pos, impl="torch")
+            out = paged_verify_attention(qw, kp, vp, tables, pos, impl="cuda")
+            errs.append((out.float() - ref.float()).abs().max().item())
+            if not errs[-1] <= TOL[dtype]:
+                raise AssertionError(f"K2 {dtype} W={w}: max abs error {errs[-1]}")
+        print(f"K2 {dtype} windows {list(KERNEL_WINDOWS)} vs plain: max_abs_err "
+              f"{[f'{e:.3g}' for e in errs]} (tol {TOL[dtype]})")
+    # a window the kernel is not compiled for raises on the card
+    try:
+        paged_verify_attention(torch.zeros(S, 9, H, D, device="cuda", dtype=kp.dtype), kp, vp, tables,
+                               torch.zeros(S, 9, dtype=torch.int32, device="cuda"))
+    except ValueError as e:
+        print(f"K2 W=9 refused: {e}")
+    else:
+        raise AssertionError("K2 took a window of 9 queries")
+    return err_bf16
+
+
+def time_k2(k1_ms: float) -> dict:
+    """Phase 9 at the verify shapes: 8 slots, windows at 1019-1023, bf16."""
+    dtype = torch.bfloat16
+    base = torch.full((S,), 1019)
+    q, kp, vp, tables, positions = k2_inputs(dtype, base, seed=7)
+    ms = cuda_ms(lambda: paged_verify_attention(q, kp, vp, tables, positions, impl="cuda"), 200)
+    plain_ms = cuda_ms(
+        lambda: paged_verify_attention(q, kp, vp, tables, positions, impl="torch"), 20)
+    # library yardstick: SDPA with q (S, H, W, D) over K/V gathered to dense
+    # beforehand (the gather is NOT timed) with the per-query position mask
+    n = int(positions[:, -1].max().item()) + 1
+    live = (n + BS - 1) // BS
+    idx = tables[:, :live].long()
+    kd = kp[idx].transpose(1, 2).reshape(S, H, live * BS, D)
+    vd = vp[idx].transpose(1, 2).reshape(S, H, live * BS, D)
+    key_pos = torch.arange(live * BS, device="cuda")
+    mask = (key_pos[None, None, :] <= positions[:, :, None])[:, None]  # (S, 1, W, keys)
+    qh = q.transpose(1, 2)  # (S, H, W, D)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kd, vd, attn_mask=mask), 200)
+    rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=k2_bound_ms(dtype, positions))
+    print(
+        f"K2 timing bf16 S={S} W={W} H={H} D={D} BS={BS} positions 1019-1023: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library (SDPA on pre-gathered K/V with the position mask, "
+        f"gather excluded) {library_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms (bytes); "
+        f"K2 / K1 at the same context {ms / k1_ms:.3f}"
+    )
+    # every compiled window at the same context: a kernel held to its byte
+    # bound takes about the same time at every W (K/V is read once per
+    # window); a kernel held by its per-query work grows with W
+    sweep = []
+    for w in KERNEL_WINDOWS:
+        qw, kp, vp, tables, pos = k2_inputs(dtype, torch.full((S,), 1024 - w), seed=7, w=w)
+        t = cuda_ms(lambda: paged_verify_attention(qw, kp, vp, tables, pos, impl="cuda"), 200)
+        sweep.append(f"W={w} {t:.4f} ms ({t / k1_ms:.2f}x K1, {t / k2_bound_ms(dtype, pos):.2f}x bound)")
+    print(f"K2 by window, bf16, last query at 1023: {'; '.join(sweep)}")
+    return rec
+
+
 def fp32_identity() -> None:
     """Phase 5: full width, 2 layers, fp32 — engine greedy == dense decode."""
     cfg = GPTJConfig(n_layers=2, dtype="float32")
@@ -204,6 +363,105 @@ def fp32_identity() -> None:
     )
 
 
+def serve_threads(eng: LLMEngine, first, make_rest, first_to_end: bool = False):
+    """``run_loop`` in a thread; ``first`` (prompt, params) is submitted
+    alone and its first token (with ``first_to_end``, all of it) streamed
+    before the others arrive, so its prompt blocks are in the prefix tree;
+    then every request of ``make_rest(first's tokens so far)`` is submitted
+    and streamed from its own thread. Every kernel's launch count and the
+    runner's step counts are set to 0 just before the loop starts. Returns
+    ({index: (prompt, params, request, streamed tokens)}, wall seconds)."""
+    results: dict[int, tuple] = {}
+    errors: list[BaseException] = []
+
+    def client(idx, prompt, sp):
+        try:
+            req = eng.submit(prompt, sp)
+            results[idx] = (prompt, sp, req, list(eng.stream_tokens(req, timeout=600)))
+        except BaseException as e:  # surfaced by the main thread below
+            errors.append(e)
+
+    # the main path's run starts here: every count from 0
+    paged_attention_cuda.launches = 0
+    paged_verify_attention_cuda.launches = 0
+    eng.runner.launches = dict.fromkeys(eng.runner.launches, 0)
+    stop = threading.Event()
+    loop = threading.Thread(target=eng.run_loop, args=(stop,), daemon=True)
+    t_start = time.perf_counter()
+    loop.start()
+    try:
+        req0 = eng.submit(*first)
+        stream0 = eng.stream_tokens(req0, timeout=600)
+        tok0 = list(stream0) if first_to_end else [next(stream0)]
+        rest = make_rest(tok0)
+        threads = [threading.Thread(target=lambda: results.__setitem__(0, (*first, req0, tok0 + list(stream0))))]
+        threads += [
+            threading.Thread(target=client, args=(idx, *item))
+            for idx, item in enumerate(rest, start=1)
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("serve: a client thread did not finish")
+        wall = time.perf_counter() - t_start
+    finally:
+        stop.set()
+        loop.join(timeout=60)
+    if errors:
+        raise errors[0]
+    if len(results) != 1 + len(rest):
+        raise AssertionError(f"serve: {len(results)} of {1 + len(rest)} requests returned")
+    return results, wall
+
+
+def check_served(eng: LLMEngine, results: dict, label: str) -> None:
+    """Every request ran to max_tokens, streamed what it recorded, with
+    in-range tokens and finite logprobs; both ledgers audit clean."""
+    V = eng.model_cfg.vocab_size
+    for idx, (prompt, sp, req, streamed) in sorted(results.items()):
+        if req.finish_reason != "length" or len(req.out) != sp.max_tokens or streamed != req.out:
+            raise AssertionError(f"{label}: request {idx} ended {req.finish_reason} with {len(req.out)} tokens")
+        if not all(0 <= t < V for t in req.out) or not np.isfinite(req.out_logprobs).all():
+            raise AssertionError(f"{label}: request {idx} has out-of-range tokens or non-finite logprobs")
+    audit, pc_audit = eng.pool.audit(), eng.prefix_cache.audit()
+    if not (audit["ok"] and pc_audit["ok"]):
+        raise AssertionError(f"{label}: audit failed {audit} {pc_audit}")
+
+
+def check_greedy(cfg, params, results: dict, label: str) -> None:
+    """Every greedy token against the dense forward over prompt + output."""
+    checked = excused = 0
+    for idx, (prompt, sp, req, _) in sorted(results.items()):
+        if sp.temperature > 0:
+            continue
+        seq = torch.tensor([prompt + req.out[:-1]], device="cuda")
+        logits = gptj_forward(cfg, params, seq)[0, len(prompt) - 1 :]  # predicts out[j]
+        top2 = logits.topk(2, dim=-1).values
+        for j, tok in enumerate(req.out):
+            checked += 1
+            if tok == int(logits[j].argmax()):
+                continue
+            gap = float(top2[j, 0] - top2[j, 1])
+            behind = float(top2[j, 0] - logits[j, tok])
+            if gap >= BF16_TOP2_MARGIN or behind >= BF16_TOP2_MARGIN:
+                raise AssertionError(
+                    f"{label}: request {idx} token {j} = {tok} is {behind:.4f} behind the dense "
+                    f"argmax (top-2 gap {gap:.4f}, margin {BF16_TOP2_MARGIN})"
+                )
+            excused += 1
+    print(
+        f"{label} greedy check: {checked} tokens against the dense bf16 forward, {excused} "
+        f"differ within the top-2 margin {BF16_TOP2_MARGIN}"
+    )
+
+
+def ttft_ms(results: dict) -> str:
+    ttft = sorted(r[2].first_token_t - r[2].arrival_t for r in results.values())
+    return f"{ttft[0] * 1e3:.1f}/{ttft[len(ttft) // 2] * 1e3:.1f}/{ttft[-1] * 1e3:.1f} ms"
+
+
 def serve_6b(card: str) -> dict:
     """Phase 6: GPT-J-6B, bf16, served by run_loop to several client threads."""
     cfg = GPTJ_6B
@@ -237,62 +495,14 @@ def serve_6b(card: str) -> dict:
         (head + toks(32), greedy),
         (toks(700), SamplingParams(max_tokens=32, temperature=0.7, top_p=0.9, seed=5)),
     ]
-    results: dict[int, tuple] = {}
-    errors: list[BaseException] = []
-
-    def client(idx, prompt, sp):
-        try:
-            req = eng.submit(prompt, sp)
-            results[idx] = (prompt, sp, req, list(eng.stream_tokens(req, timeout=600)))
-        except BaseException as e:  # surfaced by the main thread below
-            errors.append(e)
-
-    # the main path's run starts here: every count from 0
-    paged_attention_cuda.launches = 0
-    eng.runner.launches = dict.fromkeys(eng.runner.launches, 0)
     base = eng.stats()
-    stop = threading.Event()
-    loop = threading.Thread(target=eng.run_loop, args=(stop,), daemon=True)
-    t_start = time.perf_counter()
-    loop.start()
-    try:
-        # the first request's prompt is fully prefilled (and its blocks in
-        # the prefix tree) before the others arrive
-        req0 = eng.submit(*first)
-        stream0 = eng.stream_tokens(req0, timeout=600)
-        tok0 = [next(stream0)]
-        threads = [threading.Thread(target=lambda: results.__setitem__(0, (*first, req0, tok0 + list(stream0))))]
-        threads += [
-            threading.Thread(target=client, args=(idx, *item))
-            for idx, item in enumerate(rest, start=1)
-        ]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        if any(t.is_alive() for t in threads):
-            raise AssertionError("serve: a client thread did not finish")
-        t_end = time.perf_counter()
-    finally:
-        stop.set()
-        loop.join(timeout=60)
-    if errors:
-        raise errors[0]
+    results, wall = serve_threads(eng, first, lambda _: rest)
     st = eng.stats()
     k1_launches = paged_attention_cuda.launches
     decode_steps = eng.runner.launches["decode"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    if len(results) != 1 + len(rest):
-        raise AssertionError(f"serve: {len(results)} of {1 + len(rest)} requests returned")
-    for idx, (prompt, sp, req, streamed) in sorted(results.items()):
-        if req.finish_reason != "length" or len(req.out) != sp.max_tokens or streamed != req.out:
-            raise AssertionError(f"serve: request {idx} ended {req.finish_reason} with {len(req.out)} tokens")
-        if not all(0 <= t < V for t in req.out) or not np.isfinite(req.out_logprobs).all():
-            raise AssertionError(f"serve: request {idx} has out-of-range tokens or non-finite logprobs")
-    audit, pc_audit = eng.pool.audit(), eng.prefix_cache.audit()
-    if not (audit["ok"] and pc_audit["ok"]):
-        raise AssertionError(f"serve: audit failed {audit} {pc_audit}")
+    check_served(eng, results, "serve")
     pc = st["prefix_cache"]
     if pc["hit_tokens"] <= 0 or pc["cow_forks"] < 1:
         raise AssertionError(f"serve: expected prefix hits and a CoW fork, got {pc}")
@@ -301,46 +511,19 @@ def serve_6b(card: str) -> dict:
             f"serve: K1 launched {k1_launches} times over {decode_steps} decode steps "
             f"(expected {cfg.n_layers} per step)"
         )
+    check_greedy(cfg, params, results, "serve")
 
-    # every greedy token against the dense forward over prompt + output
-    checked = excused = 0
-    for idx, (prompt, sp, req, _) in sorted(results.items()):
-        if sp.temperature > 0:
-            continue
-        seq = torch.tensor([prompt + req.out[:-1]], device="cuda")
-        logits = gptj_forward(cfg, params, seq)[0, len(prompt) - 1 :]  # predicts out[j]
-        top2 = logits.topk(2, dim=-1).values
-        for j, tok in enumerate(req.out):
-            checked += 1
-            if tok == int(logits[j].argmax()):
-                continue
-            gap = float(top2[j, 0] - top2[j, 1])
-            behind = float(top2[j, 0] - logits[j, tok])
-            if gap >= BF16_TOP2_MARGIN or behind >= BF16_TOP2_MARGIN:
-                raise AssertionError(
-                    f"serve: request {idx} token {j} = {tok} is {behind:.4f} behind the dense "
-                    f"argmax (top-2 gap {gap:.4f}, margin {BF16_TOP2_MARGIN})"
-                )
-            excused += 1
-    print(
-        f"greedy check: {checked} tokens against the dense bf16 forward, {excused} differ "
-        f"within the top-2 margin {BF16_TOP2_MARGIN}"
-    )
-
-    ttft = sorted(r[2].first_token_t - r[2].arrival_t for r in results.values())
     n_tok = st["tokens_generated"] - base["tokens_generated"]
     d_steps = st["decode_steps"] - base["decode_steps"]
     step_ms = (st["decode_s"] - base["decode_s"]) / max(d_steps, 1) * 1e3
-    wall = t_end - t_start
     print(
         f"GPT-J-6B serve [{card}]: {len(results)} requests, {n_tok} tokens in {wall:.3f} s "
-        f"= {n_tok / wall:.2f} tokens/s; TTFT min/median/max "
-        f"{ttft[0] * 1e3:.1f}/{ttft[len(ttft) // 2] * 1e3:.1f}/{ttft[-1] * 1e3:.1f} ms; "
+        f"= {n_tok / wall:.2f} tokens/s; TTFT min/median/max {ttft_ms(results)}; "
         f"decode step {step_ms:.3f} ms over {d_steps} steps; K1 launches {k1_launches} = "
         f"{cfg.n_layers} x {decode_steps}; prefix hit tokens {pc['hit_tokens']}, cow forks "
         f"{pc['cow_forks']}, preemptions {st['preemptions']}; peak memory {peak_gb:.2f} GB"
     )
-    return dict(launches=k1_launches, engine=eng)
+    return dict(launches=k1_launches, engine=eng, params=params)
 
 
 def noise_host_ms(eng: LLMEngine, reqs) -> tuple[float, float]:
@@ -362,49 +545,80 @@ def noise_host_ms(eng: LLMEngine, reqs) -> tuple[float, float]:
     return ms(temp), ms([0.0] * len(reqs))
 
 
-def profile_decode(eng: LLMEngine, card: str) -> None:
-    """Phase 7: where a steady decode step's time goes — every slot decoding
-    after a 512-token prompt (half greedy, half sampled). Ten engine steps
-    are timed without the profiler (the wall time the idle share is read
-    against), then ten more under torch.profiler for the device time by
-    kernel."""
-    rng = np.random.RandomState(3)
-    V = eng.model_cfg.vocab_size
-    params = [
-        SamplingParams(max_tokens=64) if i % 2 == 0
-        else SamplingParams(max_tokens=64, temperature=0.8, top_k=50, top_p=0.95, seed=i)
-        for i in range(eng.cfg.max_slots)
-    ]
-    reqs = [eng.submit([int(t) for t in rng.randint(0, V, 512)], p) for p in params]
-    while not all(r.state == RUNNING for r in reqs):
-        eng.step()
-    steps = 10
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        eng.step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+def profile_steps(eng: LLMEngine, steps: int, before_step=lambda: None):
+    """``steps`` engine steps timed without the profiler (the wall time an
+    idle share is read against: the profiler slows the host), then ``steps``
+    more under torch.profiler. Returns (wall ms/step, profiled wall ms/step,
+    the device kernels' averages)."""
+
+    def run() -> float:
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
+            before_step()
             eng.step()
         torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    if not all(r.state == RUNNING for r in reqs):
-        raise AssertionError("decode profile: a request finished inside the timed steps")
-    noise_ms, noise_greedy_ms = noise_host_ms(eng, reqs)
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    wall_ms = run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_wall_ms = run()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return wall_ms, prof_wall_ms, kernels
+
+
+def print_device_split(kernels, steps: int, wall_ms: float, attn: str, attn_key: str) -> None:
+    """Device busy per step against the unprofiled wall, split into cuBLAS
+    GEMMs, the attention kernel (``attn_key`` in its name) and the rest,
+    with the six longest kernels."""
 
     def dev_ms(events) -> float:
         return sum(e.self_device_time_total for e in events) / 1e3 / steps
 
     busy = dev_ms(kernels)
-    k1 = dev_ms([e for e in kernels if "paged_decode_kernel" in e.key])
+    if busy == 0:
+        print("  device time not measured (the profiler saw no device activity)")
+        return
+    k = dev_ms([e for e in kernels if attn_key in e.key])
     # cuBLAS names its GEMM kernels nvjet_*, *gemm*, *xmma* or cutlass_*
     gemm_words = ("gemm", "nvjet", "xmma", "cutlass")
     gemm = dev_ms([e for e in kernels if any(w in e.key.lower() for w in gemm_words)])
     n_launch = sum(e.count for e in kernels) / steps
+    print(
+        f"  device busy {busy:.3f} ms/step (idle share {1 - busy / wall_ms:.3f} of the "
+        f"unprofiled step), {n_launch:.0f} device ops/step; GEMM {gemm:.3f} ms, "
+        f"{attn} {k:.3f} ms, other {busy - gemm - k:.3f} ms per step"
+    )
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  {dev_ms([e]):8.3f} ms/step  {e.count // steps:5d}/step  {e.key[:90]}")
+
+
+def steady_batch(eng: LLMEngine, max_tokens: int):
+    """Phase 7's traffic: every slot running after a 512-token prompt, even
+    slots greedy, odd slots sampled."""
+    rng = np.random.RandomState(3)
+    V = eng.model_cfg.vocab_size
+    params = [
+        SamplingParams(max_tokens=max_tokens) if i % 2 == 0
+        else SamplingParams(max_tokens=max_tokens, temperature=0.8, top_k=50, top_p=0.95, seed=i)
+        for i in range(eng.cfg.max_slots)
+    ]
+    reqs = [eng.submit([int(t) for t in rng.randint(0, V, 512)], p) for p in params]
+    while not all(r.state == RUNNING for r in reqs):
+        eng.step()
+    return reqs
+
+
+def profile_decode(eng: LLMEngine, card: str) -> None:
+    """Phase 7: where a steady decode step's time goes — every slot decoding
+    after a 512-token prompt (half greedy, half sampled); device time by
+    kernel against the step's wall time without the profiler."""
+    reqs = steady_batch(eng, 64)
+    steps = 10
+    wall_ms, prof_wall_ms, kernels = profile_steps(eng, steps)
+    if not all(r.state == RUNNING for r in reqs):
+        raise AssertionError("decode profile: a request finished inside the timed steps")
+    noise_ms, noise_greedy_ms = noise_host_ms(eng, reqs)
     n_sampled = sum(r.params.temperature > 0 for r in reqs)
     print(
         f"decode profile [{card}]: {len(reqs)} slots ({n_sampled} sampled) at context "
@@ -412,19 +626,302 @@ def profile_decode(eng: LLMEngine, card: str) -> None:
         f"{prof_wall_ms:.3f} ms/step with it; host Gumbel noise {noise_ms:.3f} ms/step "
         f"for this batch, {noise_greedy_ms:.3f} ms/step all greedy"
     )
-    if busy == 0:
-        print("  device time not measured (the profiler saw no device activity)")
-    else:
-        print(
-            f"  device busy {busy:.3f} ms/step (idle share {1 - busy / wall_ms:.3f} of the "
-            f"unprofiled step), {n_launch:.0f} device ops/step; GEMM {gemm:.3f} ms, "
-            f"K1 {k1:.3f} ms, other {busy - gemm - k1:.3f} ms per step"
-        )
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-            print(f"  {dev_ms([e]):8.3f} ms/step  {e.count // steps:5d}/step  {e.key[:90]}")
+    print_device_split(kernels, steps, wall_ms, "K1", "paged_decode_kernel")
     for r in reqs:
         eng.cancel(r.id)
     eng.step()
+
+
+class DenseDrafter:
+    """Test double for phase 10: proposes each request's dense greedy
+    continuation, always confident, with one token deliberately wrong in
+    every row on every third call (at index (call // 3 + row) % k), so
+    full, partial and zero acceptance all run whatever the random model
+    does. ``designed`` counts the windows by the acceptance the double
+    built in."""
+
+    def __init__(self, k: int, truth: dict):
+        self.k = k
+        self.truth = truth  # prompt tuple -> dense continuation
+        self.calls = 0
+        self.designed = {"full": 0, "partial": 0, "zero": 0}
+        self.last_matched = np.zeros(0, bool)
+
+    def propose(self, contexts):
+        rows = []
+        for r, ctx in enumerate(contexts):
+            prompt = next(p for p in self.truth if tuple(ctx[: len(p)]) == p)
+            done = len(ctx) - len(prompt)
+            row = (self.truth[prompt][done:] + [0] * self.k)[: self.k]
+            if self.calls % 3 == 2:
+                j = (self.calls // 3 + r) % self.k
+                row[j] = (row[j] + 1) % GPTJ_6B.vocab_size
+                self.designed["zero" if j == 0 else "partial"] += 1
+            else:
+                self.designed["full"] += 1
+            rows.append(row)
+        self.calls += 1
+        self.last_matched = np.ones(len(contexts), bool)
+        return np.asarray(rows, np.int32)
+
+
+def fp32_spec_identity() -> None:
+    """Phase 10: full width, 2 layers, fp32, spec_k=4 — the speculating
+    engine's greedy output equals dense decode token for token, first with
+    the test-double drafter (full, partial and zero acceptance), then with
+    the real n-gram drafter on a prompt with a periodic tail."""
+    cfg = GPTJConfig(n_layers=2, dtype="float32")
+    params = gptj_init(cfg, torch.Generator(device="cuda").manual_seed(3), "cuda")
+    ecfg = EngineConfig(max_slots=4, block_size=16, max_blocks_per_seq=32, num_blocks=129,
+                        prefill_chunk=64, spec_k=4)
+    rng = np.random.RandomState(5)
+
+    def toks(n):
+        return [int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+
+    def dense(prompt, n):
+        out = gptj_decode(cfg, params, torch.tensor([prompt], device="cuda"), n)
+        return out[0, len(prompt):].tolist()
+
+    n_new = 32
+    prompts = [toks(40), toks(77), toks(130), toks(9)]
+    truth = {tuple(p): dense(p, n_new) for p in prompts}
+    eng = LLMEngine(cfg, params, ecfg)
+    double = DenseDrafter(ecfg.spec_k, truth)
+    eng._drafter = double
+    reqs = [eng.submit(p, SamplingParams(max_tokens=n_new)) for p in prompts]
+    while not all(r.finished for r in reqs):
+        eng.step()
+    for p, r in zip(prompts, reqs):
+        if r.out != truth[tuple(p)]:
+            raise AssertionError(f"fp32 spec engine {r.out} != dense decode {truth[tuple(p)]}")
+    st = eng.stats()
+    if not (0 < st["spec_accepted"] < st["spec_proposed"]) or min(double.designed.values()) < 1:
+        raise AssertionError(f"fp32 spec: acceptance not exercised: {st}, {double.designed}")
+    if not (eng.pool.audit()["ok"] and eng.prefix_cache.audit()["ok"]):
+        raise AssertionError("fp32 spec engine: pool or prefix-cache audit failed")
+    print(
+        f"fp32 spec identity (test-double drafter): {len(reqs)} requests x {n_new} tokens equal "
+        f"dense gptj_decode; {st['verify_steps']} verify steps, windows designed "
+        f"{double.designed}, accepted {st['spec_accepted']} of {st['spec_proposed']}"
+    )
+    pattern = toks(7)
+    prompt = toks(30) + pattern * 6  # a periodic tail
+    want = dense(prompt, n_new)
+    eng = LLMEngine(cfg, params, ecfg)
+    out = eng.generate(prompt, SamplingParams(max_tokens=n_new))
+    st = eng.stats()
+    if out != want:
+        raise AssertionError(f"fp32 spec engine (n-gram) {out} != dense decode {want}")
+    if st["verify_steps"] < 1:
+        raise AssertionError(f"fp32 spec (n-gram): no verify step ran: {st}")
+    print(
+        f"fp32 spec identity (n-gram drafter, periodic tail): {n_new} tokens equal dense "
+        f"gptj_decode; {st['verify_steps']} verify steps, accepted {st['spec_accepted']} of "
+        f"{st['spec_proposed']}"
+    )
+
+
+def spec_serve_6b(params, card: str) -> dict:
+    """Phase 11: GPT-J-6B, bf16, phase 6's weights, speculating (spec_k=4,
+    n-gram drafter), served by run_loop to client threads."""
+    cfg = GPTJ_6B
+    torch.cuda.reset_peak_memory_stats()
+    eng = LLMEngine(
+        cfg, params,
+        EngineConfig(max_slots=8, block_size=16, max_blocks_per_seq=128, num_blocks=1025,
+                     prefill_chunk=256, spec_k=4),
+    )
+    eng.warmup()
+    V = cfg.vocab_size
+    rng = np.random.RandomState(6)
+
+    def toks(n):
+        return [int(t) for t in rng.randint(0, V, n)]
+
+    n_new = 48
+    greedy = SamplingParams(max_tokens=n_new)
+    head = toks(256)  # shared head: 16 full blocks
+    pat = [toks(12), toks(9), toks(5)]
+    first_prompt = head + toks(100)
+    first = (first_prompt, greedy)
+
+    def make_rest(first_out):
+        # the first request has finished: one client sends its prompt again
+        # (a regeneration) after another sent prompt + its output, so the
+        # regeneration drafts from that request's cached path
+        # (PrefixCache.paths); the others have periodic tails, shared heads,
+        # or neither, greedy and seeded-sampled mixed
+        return [
+            (first_prompt + first_out[:40], greedy),
+            (first_prompt, greedy),
+            (head + pat[0] * 8, greedy),
+            (head + toks(128) + pat[1] * 6,
+             SamplingParams(max_tokens=n_new, temperature=0.8, top_k=50, top_p=0.95, seed=7)),
+            (toks(300) + pat[2] * 10, greedy),
+            (toks(64), greedy),
+            (head[:200] + toks(100) + pat[0] * 5,
+             SamplingParams(max_tokens=n_new, temperature=1.0, seed=11)),
+            (toks(512) + pat[1] * 6, greedy),
+            (head + toks(32), SamplingParams(max_tokens=n_new, temperature=0.7, top_p=0.9, seed=5)),
+        ]
+
+    base = eng.stats()
+    results, wall = serve_threads(eng, first, make_rest, first_to_end=True)
+    st = eng.stats()
+    k1_launches = paged_attention_cuda.launches
+    k2_launches = paged_verify_attention_cuda.launches
+    decode_steps = eng.runner.launches["decode"]
+    verify_steps = eng.runner.launches["verify"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    check_served(eng, results, "spec serve")
+    if verify_steps < 1 or k2_launches != cfg.n_layers * verify_steps:
+        raise AssertionError(
+            f"spec serve: K2 launched {k2_launches} times over {verify_steps} verify steps "
+            f"(expected {cfg.n_layers} per step)"
+        )
+    if k1_launches != cfg.n_layers * decode_steps:
+        raise AssertionError(
+            f"spec serve: K1 launched {k1_launches} times over {decode_steps} plain decode "
+            f"steps (expected {cfg.n_layers} per step)"
+        )
+    check_greedy(cfg, params, results, "spec serve")
+
+    def delta(key):
+        return st[key] - base[key]
+
+    n_tok = delta("tokens_generated")
+    v_steps, d_steps = delta("verify_steps"), delta("decode_steps")
+    proposed, accepted = delta("spec_proposed"), delta("spec_accepted")
+    cfg_k = eng.cfg.spec_k
+    # host noise of a verify step at this traffic's mix: 8 slots, window 5,
+    # the sampled slots' share of the requests
+    sampled = [sp for _, sp, _, _ in results.values() if sp.temperature > 0]
+    temps = [sp.temperature for sp in sampled] + [0.0] * (S - len(sampled))
+    seeds, counters = list(range(S)), [n_new // 2] * S
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        _window_noise(seeds, counters, temps[:S], W, V, eng.device)
+    torch.cuda.synchronize()
+    noise_ms = (time.perf_counter() - t0) * 1e3 / 20
+    print(
+        f"GPT-J-6B spec serve [{card}]: {len(results)} requests, {n_tok} tokens in {wall:.3f} s "
+        f"= {n_tok / wall:.2f} tokens/s; TTFT min/median/max {ttft_ms(results)}; "
+        f"{v_steps} verify steps at {delta('verify_s') / max(v_steps, 1) * 1e3:.3f} ms, "
+        f"{d_steps} plain decode steps at {delta('decode_s') / max(d_steps, 1) * 1e3:.3f} ms; "
+        f"acceptance {accepted}/{proposed} = {accepted / max(proposed, 1):.3f}, "
+        f"{delta('spec_emitted') / max(v_steps, 1):.2f} tokens per verify step "
+        f"({delta('spec_emitted') * cfg_k / max(proposed, 1):.2f} per slot window); drafting "
+        f"{delta('spec_draft_seconds') / max(v_steps, 1) * 1e3:.3f} ms per verify step "
+        f"({delta('spec_draft_seconds') * 1e3:.1f} ms in all); host noise "
+        f"{noise_ms:.3f} ms per verify step ({len(sampled[:S])} of {S} slots sampled, W={W}); "
+        f"K2 launches {k2_launches} = {cfg.n_layers} x {verify_steps}, K1 launches "
+        f"{k1_launches} = {cfg.n_layers} x {decode_steps}; prefix hit tokens "
+        f"{st['prefix_cache']['hit_tokens']}, preemptions {st['preemptions']}; peak memory "
+        f"{peak_gb:.2f} GB"
+    )
+    return dict(launches=k2_launches, engine=eng)
+
+
+class ConfidentDrafter:
+    """Test double for phase 12: proposes each context's last token k times,
+    always confident, so the gate opens for every slot."""
+
+    def __init__(self, k: int):
+        self.k = k
+        self.last_matched = np.zeros(0, bool)
+
+    def propose(self, contexts):
+        self.last_matched = np.ones(len(contexts), bool)
+        return np.asarray([[ctx[-1]] * self.k for ctx in contexts], np.int32)
+
+
+def profile_verify(eng: LLMEngine, card: str) -> None:
+    """Phase 12: where a steady verify step's time goes — phase 7's traffic
+    on phase 11's speculating engine. The test-double drafter is always
+    confident and the acceptance backoff is held off before each step, so
+    every timed step is a verify step over all 8 slots (W = spec_k + 1);
+    the double's drafting costs nothing, so the wall time holds no n-gram
+    search (phase 11 reports that). Device time by kernel against the
+    step's wall time without the profiler."""
+    eng._drafter = ConfidentDrafter(eng.cfg.spec_k)
+    reqs = steady_batch(eng, 256)
+    steps = 10
+    before = dict(eng.runner.launches)
+
+    def hold_off_backoff():
+        eng._spec_skip = 0
+
+    wall_ms, prof_wall_ms, kernels = profile_steps(eng, steps, hold_off_backoff)
+    verified = eng.runner.launches["verify"] - before["verify"]
+    decoded = eng.runner.launches["decode"] - before["decode"]
+    if verified != 2 * steps or decoded != 0:
+        raise AssertionError(f"verify profile: {verified} verify and {decoded} decode steps, "
+                             f"expected {2 * steps} and 0")
+    if not all(r.state == RUNNING for r in reqs):
+        raise AssertionError("verify profile: a request finished inside the timed steps")
+    w = eng.cfg.spec_k + 1
+    seeds = [r.params.seed & 0xFFFFFFFF for r in reqs]
+    counters = [len(r.out) for r in reqs]
+    temps = [r.params.temperature for r in reqs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        _window_noise(seeds, counters, temps, w, eng.model_cfg.vocab_size, eng.device)
+    torch.cuda.synchronize()
+    noise_ms = (time.perf_counter() - t0) * 1e3 / 20
+    n_sampled = sum(t > 0 for t in temps)
+    print(
+        f"verify profile [{card}]: {len(reqs)} slots ({n_sampled} sampled), W={w}, at context "
+        f"~{reqs[0].seq_len}: {wall_ms:.3f} ms/step wall without the profiler, "
+        f"{prof_wall_ms:.3f} ms/step with it; host Gumbel noise {noise_ms:.3f} ms/step "
+        f"for this batch"
+    )
+    print_device_split(kernels, steps, wall_ms, "K2", "paged_verify_kernel")
+    for r in reqs:
+        eng.cancel(r.id)
+    eng.step()
+
+
+def flash_yardsticks() -> None:
+    """Phase 12: library times for the training slice's kernels K3-K5 (no
+    kernel yet), at bench.py's training shape: batch 26, 16 heads, seq 1024,
+    head dim 64, bf16, causal. One SDPA backward computes dq, dk and dv
+    together, so it stands for K4 and K5 at once. Bounds: K3 reads q, k, v
+    and writes out and the fp32 lse; K4 (dq) reads q, k, v, dO, lse and
+    delta and writes dq; K5 (dk, dv) reads the same and writes dk and dv.
+    Causal operations: 2*S*S*D per head per matmul, halved; K3 does 2
+    matmuls, K4 3 (S, dP, dQ), K5 4 (S, dV, dP, dK)."""
+    B, Hh, Sq, Dh = 26, 16, 1024, 64
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v, do = (torch.randn(B, Hh, Sq, Dh, device="cuda", generator=g, dtype=torch.bfloat16)
+                   for _ in range(4))
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 50)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        torch.autograd.grad(out, (q, k, v), do)
+
+    fwd_bwd_ms = cuda_ms(fwd_bwd, 50)
+    tensor = B * Hh * Sq * Dh * 2  # bytes of one bf16 (B, H, S, D) tensor
+    row = B * Hh * Sq * 4  # bytes of one fp32 (B, H, S) lse or delta
+    matmul = 2 * B * Hh * Sq * Sq * Dh / 2  # one causal matmul's operations
+
+    def bound(nbytes, ops):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
+        return f"{max(t_bytes, t_ops):.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}: " \
+               f"{nbytes / 1e6:.1f} MB = {t_bytes:.4f} ms, {ops / 1e9:.1f} GFLOP = {t_ops:.4f} ms)"
+
+    print(f"flash yardsticks bf16 B={B} H={Hh} S={Sq} D={Dh} causal: SDPA forward "
+          f"{fwd_ms:.4f} ms, forward+backward {fwd_bwd_ms:.4f} ms (backward ~"
+          f"{fwd_bwd_ms - fwd_ms:.4f} ms, one call for dq, dk and dv)")
+    print(f"  K3 bound {bound(4 * tensor + row, 2 * matmul)}")
+    print(f"  K4 bound {bound(5 * tensor + 2 * row, 3 * matmul)}")
+    print(f"  K5 bound {bound(6 * tensor + 2 * row, 4 * matmul)}")
 
 
 def main() -> int:
@@ -441,10 +938,13 @@ def main() -> int:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi: {card}")
 
     phase("2 build")
+    # one nvcc per kernel source, all started together
     t0 = time.perf_counter()
-    _kernels.build("paged_attention")
-    print(f"built paged_attention in {time.perf_counter() - t0:.1f} s")
-    print(_kernels.build_log("paged_attention").strip())
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_kernels.build, KERNELS))
+    print(f"built {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    for src in KERNELS:
+        print(_kernels.build_log(src).strip())
 
     phase("3 K1 vs plain")
     err = check_k1()
@@ -460,25 +960,61 @@ def main() -> int:
     served = serve_6b(card)
 
     phase("7 decode profile")
-    profile_decode(served["engine"], card)
+    profile_decode(served.pop("engine"), card)
+    torch.cuda.empty_cache()
 
-    kernels = [dict(
-        name="paged_decode_attention",
-        route="cuda",
-        source="ray_tpu_torch/ops/csrc/paged_attention.cu",
-        replaces="ray_tpu/ops/paged_attention.py:203",
-        launches=served["launches"],
-        max_abs_err=err,
-        ms=timing["ms"],
-        plain_ms=timing["plain_ms"],
-        bound_ms=timing["bound_ms"],
-        bound_by="bytes",
-        library_ms=timing["library_ms"],
-    )]
+    phase("8 K2 vs plain")
+    err2 = check_k2()
+
+    phase("9 K2 timing")
+    timing2 = time_k2(timing["ms"])
+
+    phase("10 fp32 spec identity")
+    fp32_spec_identity()
+    torch.cuda.empty_cache()
+
+    phase("11 GPT-J-6B spec serve")
+    spec = spec_serve_6b(served.pop("params"), card)
+
+    phase("12 verify profile")
+    profile_verify(spec.pop("engine"), card)
+    torch.cuda.empty_cache()
+
+    phase("13 flash-attention yardsticks (K3-K5)")
+    flash_yardsticks()
+
+    kernels = [
+        dict(
+            name="paged_decode_attention",
+            route="cuda",
+            source="ray_tpu_torch/ops/csrc/paged_attention.cu",
+            replaces="ray_tpu/ops/paged_attention.py:203",
+            launches=served["launches"],
+            max_abs_err=err,
+            ms=timing["ms"],
+            plain_ms=timing["plain_ms"],
+            bound_ms=timing["bound_ms"],
+            bound_by="bytes",
+            library_ms=timing["library_ms"],
+        ),
+        dict(
+            name="paged_verify_attention",
+            route="cuda",
+            source="ray_tpu_torch/ops/csrc/paged_verify_attention.cu",
+            replaces="ray_tpu/ops/paged_attention.py:304",
+            launches=spec["launches"],
+            max_abs_err=err2,
+            ms=timing2["ms"],
+            plain_ms=timing2["plain_ms"],
+            bound_ms=timing2["bound_ms"],
+            bound_by="bytes",
+            library_ms=timing2["library_ms"],
+        ),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    # the cards this run used: one, whatever the machine exposes
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))
     return 0
 
 

@@ -7,9 +7,10 @@ each port sits next to its counterpart by name
 
 Ported so far: the paged-KV LLM serving path for GPT-J — the model
 (``models.gptj``), sampling (``models.sampling``), plain causal attention
-(``ops.attention``), paged decode/prefill attention with a hand-written
-Hopper kernel for decode (``ops.paged_attention``), and the engine
-(``llm``). ROADMAP.md lists what is still to port.
+(``ops.attention``), paged decode/verify/prefill attention with
+hand-written Hopper kernels for decode and speculative verification
+(``ops.paged_attention``), and the engine with its drafters (``llm``).
+ROADMAP.md lists what is still to port.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; a missing GPU raises instead of falling back.
@@ -20,7 +21,10 @@ from ray_tpu_torch.llm import (  # noqa: F401
     EngineConfig,
     KVBlockPool,
     LLMEngine,
+    NGramDrafter,
     SamplingParams,
+    SmallModelDrafter,
+    make_drafter,
 )
 from ray_tpu_torch.models.gptj import (  # noqa: F401
     GPTJ_6B,

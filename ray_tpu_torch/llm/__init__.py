@@ -1,9 +1,10 @@
 """ray_tpu_torch.llm: continuous-batching GPT-J serving over a paged KV
-cache, on one CUDA device (port of ``ray_tpu.llm``).
+cache, on one CUDA device, with speculative decoding (port of
+``ray_tpu.llm``).
 
     from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
 
-    engine = LLMEngine(model_cfg, params, EngineConfig(max_slots=8))
+    engine = LLMEngine(model_cfg, params, EngineConfig(max_slots=8, spec_k=4))
     req = engine.submit(prompt_ids, SamplingParams(max_tokens=64,
                                                    temperature=0.8))
     for tok in engine.stream_tokens(req):   # a loop thread drives step()
@@ -11,6 +12,7 @@ cache, on one CUDA device (port of ``ray_tpu.llm``).
 """
 
 from ray_tpu_torch.llm.cache import CacheConfig, KVBlockPool  # noqa: F401
+from ray_tpu_torch.llm.drafter import NGramDrafter, SmallModelDrafter, make_drafter  # noqa: F401
 from ray_tpu_torch.llm.engine import EngineConfig, LLMEngine  # noqa: F401
 from ray_tpu_torch.llm.prefix_cache import PrefixCache, PrefixMatch  # noqa: F401
 from ray_tpu_torch.llm.scheduler import Request, SamplingParams, Scheduler  # noqa: F401

@@ -15,15 +15,20 @@ scheduler. ``step()`` is the whole design:
 4. run ONE batched decode step across every running slot, sample per-slot
    tokens (per-request temperature/top-k/top-p/seed), stream them out,
    finish requests that hit ``max_tokens``/stop tokens, preempting the
-   youngest when the block pool runs dry.
+   youngest when the block pool runs dry. With ``spec_k > 0`` the decode
+   step is speculative: a drafter proposes ``spec_k`` tokens per slot, ONE
+   verify call (``model_runner.verify_step``) scores all ``spec_k + 1``
+   window positions, and each slot emits its accepted prefix plus one
+   correction/bonus token — greedy output stays token-identical to plain
+   decode.
 
 Threading: ``step()`` serializes on an internal lock — any number of
 submitter threads can feed the engine while one loop thread
 (``run_loop``) turns the crank.
 
-Not ported yet (ROADMAP.md): speculative decoding (``spec_k > 0``),
-tensor parallelism (``tp > 1``), weight hot-swap, overload shedding, the
-watchdog, and the metrics/events/phase/tracing hooks.
+Not ported yet (ROADMAP.md): tensor parallelism (``tp > 1``), weight
+hot-swap, overload shedding, the watchdog, and the metrics/events/phase/
+tracing hooks (the speculative path's included).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.llm.cache import CacheConfig, KVBlockPool
+from ray_tpu_torch.llm.drafter import make_drafter
 from ray_tpu_torch.llm.model_runner import PagedModelRunner, _row_noise, _sample_rows
 from ray_tpu_torch.llm.prefix_cache import PrefixCache
 from ray_tpu_torch.llm.scheduler import (
@@ -53,6 +59,7 @@ from ray_tpu_torch.llm.scheduler import (
     SamplingParams,
     Scheduler,
 )
+from ray_tpu_torch.ops.paged_attention import KERNEL_WINDOWS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,11 +67,25 @@ class EngineConfig:
     """Engine geometry. ``num_blocks`` includes the reserved trash block;
     ``max_blocks_per_seq * block_size`` caps a sequence (prompt + output).
 
-    Decode attention runs the CUDA kernel on the card and its plain version
-    on the CPU (``ops.paged_attention``). The prefix cache is always on:
-    KV blocks are shared across requests through a radix tree over block
-    contents. ``spec_k`` and ``tp`` exist so a reference configuration is
-    refused loudly: only 0 and 1 are ported."""
+    Decode and verify attention run the CUDA kernels on the card and their
+    plain versions on the CPU (``ops.paged_attention``). The prefix cache is
+    always on: KV blocks are shared across requests through a radix tree
+    over block contents. ``tp`` exists so a reference configuration is
+    refused loudly: only 1 is ported.
+
+    Speculative decoding: ``spec_k > 0`` turns it on — each step a drafter
+    proposes ``spec_k`` tokens per running slot and the target model
+    verifies all of them plus a bonus position in ONE call (``llm.drafter``
+    module doc). ``spec_drafter`` is ``"ngram"`` (model-free prompt lookup;
+    ``NGRAM_MAX`` caps the matched n-gram) or ``"model"`` (a small draft
+    model passed to ``LLMEngine`` as ``draft_model_cfg``/``draft_params``;
+    ``spec_draft_ctx`` fixes its context window). Greedy output is
+    token-identical either way. Adversarial (low-acceptance) workloads are
+    bounded by backoff: when a verify step accepts less than ``MIN_ACCEPT``
+    of its drafts, the engine plain-decodes for exponentially more steps
+    (doubling up to ``BACKOFF_MAX``) before probing speculation again. On
+    the card ``spec_k + 1`` must be a window the verify kernel is compiled
+    for (``ops.paged_attention.KERNEL_WINDOWS``)."""
 
     max_slots: int = 4
     num_blocks: int = 128
@@ -73,23 +94,43 @@ class EngineConfig:
     prefill_chunk: int = 32
     tp: int = 1
     spec_k: int = 0
+    spec_drafter: str = "ngram"
+    spec_draft_ctx: int = 16
+
+
+# Speculation constants, the reference's EngineConfig defaults: the longest
+# n-gram the drafter matches, the acceptance share below which the engine
+# backs off to plain decode, and the longest backoff in plain-decode steps.
+NGRAM_MAX = 3
+MIN_ACCEPT = 0.3
+BACKOFF_MAX = 32
 
 
 class LLMEngine:
-    def __init__(self, model_cfg, params, engine_cfg: Optional[EngineConfig] = None, device=None):
+    def __init__(
+        self,
+        model_cfg,
+        params,
+        engine_cfg: Optional[EngineConfig] = None,
+        draft_model_cfg=None,
+        draft_params=None,
+        device=None,
+    ):
         self.cfg = engine_cfg or EngineConfig()
         if self.cfg.spec_k < 0:
             raise ValueError("spec_k must be >= 0")
-        if self.cfg.spec_k > 0:
-            raise NotImplementedError(
-                "speculative decoding (spec_k > 0) is not ported yet: ROADMAP.md, "
-                "queue A, slice 2"
-            )
         if self.cfg.tp > 1:
             raise NotImplementedError(
                 "tensor parallelism (tp > 1) is not ported yet: ROADMAP.md, queue A"
             )
         self.device = resolve_device(device)
+        kd = self.cfg.spec_k
+        if self.device.type == "cuda" and kd > 0 and kd + 1 not in KERNEL_WINDOWS:
+            # refuse here, not at the first verify step inside run_loop
+            raise ValueError(
+                f"spec_k={kd}: the verify kernel is compiled for windows of "
+                f"{KERNEL_WINDOWS} queries, and spec_k + 1 must be one of them"
+            )
         pdev = params.lm_head.weight.device
         if pdev != self.device:
             raise ValueError(f"params are on {pdev}, the engine runs on {self.device}")
@@ -110,6 +151,22 @@ class LLMEngine:
         )
         self.prefix_cache = PrefixCache(self.pool)
         self.scheduler = Scheduler(self.pool, self.cfg.max_slots, prefix_cache=self.prefix_cache)
+        self._drafter = None
+        if self.cfg.spec_k > 0:
+            self._drafter = make_drafter(
+                self.cfg.spec_drafter,
+                self.cfg.spec_k,
+                self.cfg.max_slots,
+                ngram_max=NGRAM_MAX,
+                draft_cfg=draft_model_cfg,
+                draft_params=draft_params,
+                draft_ctx=self.cfg.spec_draft_ctx,
+            )
+            # prefix-aware drafting: the n-gram drafter extends its lookup
+            # past the local context into the shared radix paths (drafts
+            # affect throughput only; verification keeps output exact)
+            if hasattr(self._drafter, "corpus"):
+                self._drafter.corpus = self.prefix_cache.paths
         self._lock = threading.Lock()
         self._requests: dict[str, Request] = {}
         self._step_n = 0
@@ -118,6 +175,14 @@ class LLMEngine:
         self._preemptions = 0
         self._decode_steps = 0
         self._decode_s = 0.0  # wall time of decode steps, host sync included
+        self._verify_steps = 0
+        self._verify_s = 0.0  # wall time of verify steps, host sync included
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_emitted = 0  # tokens emitted by verify steps
+        self._spec_draft_s = 0.0
+        self._spec_skip = 0  # plain-decode steps left before re-probing
+        self._spec_backoff = 0  # current backoff length (0 = speculating)
         # model-length cap: the paged table width (rotary GPT-J has no
         # absolute position table)
         self.max_model_len = cache_cfg.max_seq_len
@@ -159,9 +224,11 @@ class LLMEngine:
             )
         # the request must be able to COMPLETE with the pool to itself —
         # admission's worst case is a re-admission one token before the end
-        # plus one block of headroom; an oversized request would otherwise
-        # pass validation, never be admitted, and livelock the FIFO head
-        worst = min(total - 1 + self.pool.cfg.block_size, self.pool.cfg.max_seq_len)
+        # plus one block of headroom (or, speculating, plus the window's k
+        # provisional positions); an oversized request would otherwise pass
+        # validation, never be admitted, and livelock the FIFO head
+        headroom = max(self.pool.cfg.block_size, self.cfg.spec_k)
+        worst = min(total - 1 + headroom, self.pool.cfg.max_seq_len)
         usable = self.pool.cfg.num_blocks - 1
         if self.pool.blocks_for(worst) > usable:
             raise ValueError(
@@ -230,17 +297,44 @@ class LLMEngine:
         return list(req.out)
 
     def warmup(self) -> None:
-        """Drive every step path once — prefill, decode and the block fork
-        (trash block onto itself) — so kernels are built and libraries
-        initialized before the first real request."""
+        """Drive every step path once — prefill, decode, the block fork
+        (trash block onto itself) and, speculating, verify — so kernels are
+        built and libraries initialized before the first real request. A
+        speculating engine decodes through ``verify_step`` whenever its
+        drafter is confident, so the plain decode path (the gate's and the
+        backoff's) is driven with the backoff forced on, and ``verify_step``
+        directly on a dummy batch: whether a generate ever verifies depends
+        on the drafter finding a match in the warmup output. The dummy
+        batch's all-zero block tables send every provisional write to the
+        reserved trash block — real pool contents are untouched."""
         self.generate([0], SamplingParams(max_tokens=2))
         with self._lock:
             z = np.zeros(1, np.int64)
             self.runner.fork_blocks(self.pool.k, self.pool.v, z, z)
+        if self._drafter is None:
+            return
+        with self._lock:
+            self._spec_skip = 1 << 30  # force the plain-decode path
+        self.generate([0], SamplingParams(max_tokens=2))
+        with self._lock:
+            self._spec_skip = 0
+            self._spec_backoff = 0
+            S, W = self.cfg.max_slots, self.cfg.spec_k + 1
+            self.runner.verify_step(
+                self.pool.k, self.pool.v,
+                np.zeros((S, W), np.int64),
+                np.zeros(S, np.int64),
+                np.zeros((S, self.pool.cfg.max_blocks_per_seq), np.int32),
+                np.zeros(S, np.float32),
+                np.zeros(S, np.int64),
+                np.ones(S, np.float32),
+                np.zeros(S, np.int64),
+                np.zeros(S, np.int64),
+            )
 
     def stats(self) -> dict:
         with self._lock:
-            return {
+            s = {
                 "running": self.scheduler.num_running,
                 "waiting": self.scheduler.num_waiting,
                 "kv_utilization": self.pool.utilization(),
@@ -253,6 +347,15 @@ class LLMEngine:
                 "decode_s": self._decode_s,
                 "prefix_cache": self.prefix_cache.stats(),
             }
+            if self._drafter is not None:
+                s["spec_proposed"] = self._spec_proposed
+                s["spec_accepted"] = self._spec_accepted
+                s["spec_acceptance_rate"] = self._spec_accepted / max(self._spec_proposed, 1)
+                s["spec_emitted"] = self._spec_emitted
+                s["spec_draft_seconds"] = self._spec_draft_s
+                s["verify_steps"] = self._verify_steps
+                s["verify_s"] = self._verify_s
+            return s
 
     def run_loop(self, stop: threading.Event, idle_sleep_s: float = 0.002) -> None:
         """Drive ``step()`` until ``stop`` is set (run it in a thread)."""
@@ -273,7 +376,13 @@ class LLMEngine:
             sched.admit()
             self._apply_cow()
             did = self._prefill_one()
-            did = self._decode_all() or did
+            if self._drafter is not None and self._spec_skip == 0:
+                did = self._spec_decode_all() or did
+            else:
+                did_decode = self._decode_all()
+                if did_decode and self._spec_skip > 0:
+                    self._spec_skip -= 1  # backoff ticks on real decodes
+                did = did_decode or did
             # prune finished requests: callers keep their own references;
             # cancel() of a pruned id is a no-op, correct for finished work
             self._requests = {k: r for k, r in self._requests.items() if not r.finished}
@@ -337,15 +446,16 @@ class LLMEngine:
             self._emit(req, int(tok[0]), float(lp[0]))
         return True
 
-    def _grow_all(self) -> None:
-        """Ensure every RUNNING slot has cache room for the position the
-        next step writes, evicting the youngest when the pool is dry."""
+    def _grow_all(self, extra: int = 0) -> None:
+        """Ensure every RUNNING slot has cache room for the position(s) the
+        next step writes (plus ``extra`` provisional speculative ones),
+        evicting the youngest when the pool is dry."""
         sched = self.scheduler
         for req in list(sched.running):
             if req.state != RUNNING:
                 continue
             before = sched.preempt_count
-            sched.grow_for_decode(req)  # False: req itself was preempted
+            sched.grow_for_decode(req, extra=extra)  # False: req itself was preempted
             self._preemptions += sched.preempt_count - before
 
     def _decode_all(self) -> bool:
@@ -388,6 +498,93 @@ class LLMEngine:
         self._decode_s += time.perf_counter() - t0
         for i, req in active:
             self._emit(req, int(host[0, i]), float(host[1, i]))
+        return True
+
+    def _spec_decode_all(self) -> bool:
+        """One speculative step over every RUNNING slot: draft k tokens per
+        slot, verify k+1 positions in one call, emit the accepted prefix +
+        correction/bonus, roll the ledger back."""
+        sched = self.scheduler
+        kd = self.cfg.spec_k
+        active = [(i, r) for i, r in enumerate(sched.slots) if r is not None and r.state == RUNNING]
+        if not active:
+            return False
+        # pure-Python n-gram search over up to scan_window tokens per slot,
+        # every step, under the engine lock (as in the reference); its time
+        # is reported as spec_draft_seconds
+        t0 = time.perf_counter()
+        draft = self._drafter.propose([r.prompt + r.out for _, r in active])
+        self._spec_draft_s += time.perf_counter() - t0
+        # drafter confidence gate: when NO slot's proposal is backed by a
+        # real match (NGramDrafter.last_matched), the whole window would be
+        # a doomed probe — plain-decode this step instead of paying a w-wide
+        # verify to learn it. Model drafters have no such signal and rely
+        # on the acceptance backoff alone.
+        matched = getattr(self._drafter, "last_matched", None)
+        if matched is not None and not bool(matched.any()):
+            return self._decode_all()
+        draft_by_id = {r.id: draft[row] for row, (_, r) in enumerate(active)}
+        # memory next: the window provisionally writes positions
+        # seq_len-1 .. seq_len-1+k; the youngest gets evicted when dry
+        self._grow_all(extra=kd)
+        active = [(i, r) for i, r in active if r.state == RUNNING]
+        if not active:
+            return False
+        t0 = time.perf_counter()
+        S, W = self.cfg.max_slots, kd + 1
+        tokens = np.zeros((S, W), np.int64)
+        base_pos = np.zeros(S, np.int64)
+        tables = np.zeros((S, self.pool.cfg.max_blocks_per_seq), np.int32)
+        temp = np.zeros(S, np.float32)
+        top_k = np.zeros(S, np.int64)
+        top_p = np.ones(S, np.float32)
+        seeds = np.zeros(S, np.int64)
+        counters = np.zeros(S, np.int64)
+        for i, req in active:
+            tokens[i, 0] = req.out[-1] if req.out else req.prompt[-1]
+            tokens[i, 1:] = draft_by_id[req.id]
+            base_pos[i] = req.seq_len - 1  # the fed token's position
+            tables[i] = self.pool.table_row(req.id)
+            p = req.params
+            temp[i] = p.temperature
+            top_k[i] = p.top_k
+            top_p[i] = p.top_p
+            seeds[i] = p.seed & 0xFFFFFFFF
+            counters[i] = len(req.out)
+        n_acc, out, out_lp = self.runner.verify_step(
+            self.pool.k, self.pool.v, tokens, base_pos, tables,
+            temp, top_k, top_p, seeds, counters,
+        )
+        # ONE host sync for the batch: counts and tokens (< 2^53) ride in
+        # float64 beside the logprobs
+        host = torch.cat([n_acc.double()[:, None], out.double(), out_lp.double()], 1).cpu().numpy()
+        self._verify_steps += 1
+        self._verify_s += time.perf_counter() - t0
+        accepted = 0
+        for i, req in active:
+            n = int(host[i, 0])
+            accepted += n
+            for j in range(n + 1):
+                self._emit(req, int(host[i, 1 + j]), float(host[i, 1 + W + j]))
+                self._spec_emitted += 1
+                if req.finished:
+                    # stop token / length cap hit inside the window: the
+                    # rest of the acceptance is after-the-end, discard it
+                    break
+            if not req.finished:
+                # ledger rollback: return the rejected tail's provisional
+                # blocks (device k/v needs none — see cache.shrink_to)
+                self.pool.shrink_to(req.id, req.seq_len)
+        proposed = kd * len(active)
+        self._spec_proposed += proposed
+        self._spec_accepted += accepted
+        if accepted / proposed < MIN_ACCEPT:
+            # low acceptance: back off to plain decode, doubling the pause
+            # while probes keep failing (EngineConfig docstring)
+            self._spec_backoff = min(max(self._spec_backoff * 2, 2), BACKOFF_MAX)
+            self._spec_skip = self._spec_backoff
+        else:
+            self._spec_backoff = 0
         return True
 
     def _emit(self, req: Request, tok: int, logp: float = float("nan")) -> None:

@@ -15,11 +15,22 @@ threads donated pool buffers through its jitted steps.
   ``start..start+chunk`` (tail-padded; padded positions scatter to the
   trash block). Returns the last valid position's logits. Its attention
   is plain PyTorch, as the reference computes it in XLA.
+* ``verify_step`` — (slots, k+1) speculative-decode verification: each
+  slot feeds its last emitted token plus ``k`` drafted tokens, their k/v
+  scatter PROVISIONALLY into the pool, one multi-query paged attention per
+  layer (``ops.paged_verify_attention``, the hand-written verify kernel on
+  the card) yields all ``k+1`` positions' logits, and
+  ``models.sampling.speculative_verify_logprobs`` accepts a prefix + one
+  correction/bonus token per slot. Rejected positions need no device
+  rollback — they sit beyond the sequence length, everything masks by
+  position, and the next window overwrites them first (the block LEDGER
+  rolls back host-side via ``cache.shrink_to``).
 * ``fork_blocks`` — copy-on-write block copies for the prefix cache.
 
 Every step reads its inputs as host numpy arrays and copies them to the
 device without waiting for the device; the only host sync of a decode
-step is the engine's read of the sampled tokens.
+step is the engine's read of the sampled tokens (of a verify step, the
+engine's read of the accepted counts and window tokens).
 """
 
 from __future__ import annotations
@@ -28,8 +39,17 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.models.gptj import GPTJ, GPTJConfig, _apply_rotary, _rotary_sincos
-from ray_tpu_torch.models.sampling import gumbel_noise, row_generator, sample_tokens_logprobs
-from ray_tpu_torch.ops.paged_attention import paged_attention, paged_prefill_attention_torch
+from ray_tpu_torch.models.sampling import (
+    gumbel_noise,
+    row_generator,
+    sample_tokens_logprobs,
+    speculative_verify_logprobs,
+)
+from ray_tpu_torch.ops.paged_attention import (
+    paged_attention,
+    paged_prefill_attention_torch,
+    paged_verify_attention,
+)
 
 
 def _rotary_rows(x: torch.Tensor, positions: torch.Tensor, rotary_dim: int) -> torch.Tensor:
@@ -60,16 +80,40 @@ def _row_noise(seeds, counters, temp, vocab: int, device) -> torch.Tensor:
     return gumbel_noise(gens, vocab, device)
 
 
-def _sample_rows(logits, noise, temp, top_k, top_p):
-    """Per-row sampling: (tokens (n,), logprobs (n,)), the chosen-token
-    behavior logprob riding along (``models.sampling`` module doc)."""
-    dev = logits.device
-    return sample_tokens_logprobs(
-        logits,
-        noise,
+def _window_noise(seeds, counters, temp, w: int, vocab: int, device) -> torch.Tensor:
+    """(slots, w, vocab) Gumbel noise for verify windows: window index i of
+    slot s keyed by (seeds[s], counters[s] + i), the key the plain decode
+    path uses at that output index. Greedy slots draw nothing; a sampled
+    slot draws ``w`` rows on the host."""
+    seeds, counters, temp = (np.repeat(np.asarray(a), w) for a in (seeds, counters, temp))
+    counters = counters + np.tile(np.arange(w), len(counters) // w)
+    return _row_noise(seeds, counters, temp, vocab, device).view(-1, w, vocab)
+
+
+def _knobs(temp, top_k, top_p, dev):
+    """Host per-slot sampling knobs as device tensors, copied without
+    waiting for the device."""
+    return (
         torch.tensor(np.asarray(temp), dtype=torch.float32).to(dev, non_blocking=True),
         torch.tensor(np.asarray(top_k), dtype=torch.int64).to(dev, non_blocking=True),
         torch.tensor(np.asarray(top_p), dtype=torch.float32).to(dev, non_blocking=True),
+    )
+
+
+def _sample_rows(logits, noise, temp, top_k, top_p):
+    """Per-row sampling: (tokens (n,), logprobs (n,)), the chosen-token
+    behavior logprob riding along (``models.sampling`` module doc)."""
+    return sample_tokens_logprobs(logits, noise, *_knobs(temp, top_k, top_p, logits.device))
+
+
+def _verify_rows(logits, draft, noise, temp, top_k, top_p):
+    """Per-slot speculative verification, batched over slots (same
+    per-request determinism as ``_sample_rows``: window token i keys off
+    (seed, counter + i) through ``_window_noise``). logits: (S, W, V);
+    draft: (S, W-1). Returns (n_accepted (S,), out_tokens (S, W),
+    out_logprobs (S, W))."""
+    return speculative_verify_logprobs(
+        logits, draft, noise, *_knobs(temp, top_k, top_p, logits.device)
     )
 
 
@@ -96,8 +140,8 @@ class PagedModelRunner:
         self.block_size = block_size
         self.device = params.lm_head.weight.device
         #: step calls per site; a decode step launches the paged decode
-        #: kernel once per layer
-        self.launches = {"decode": 0, "prefill": 0, "fork": 0}
+        #: kernel once per layer, a verify step the paged verify kernel
+        self.launches = {"decode": 0, "prefill": 0, "fork": 0, "verify": 0}
 
     def _dev(self, a, dtype) -> torch.Tensor:
         return torch.tensor(np.asarray(a), dtype=dtype).to(self.device, non_blocking=True)
@@ -138,6 +182,57 @@ class PagedModelRunner:
             att = layer.attn_out(att.to(x.dtype).reshape(x.shape[0], cfg.d_model))
             x = x + att + layer.mlp(h)  # parallel residual
         return _sample_rows(p.logits(x), noise, temp, top_k, top_p)
+
+    # -- speculative verification step -------------------------------------
+
+    @torch.no_grad()
+    def verify_step(self, k_pool, v_pool, tokens, base_pos, tables, temp, top_k, top_p,
+                    seeds, counters):
+        """tokens: (slots, w) host array — each slot's last emitted token
+        plus its w-1 drafts; base_pos: (slots,) the position of tokens[:,
+        0]; the rest as ``decode_step``, per slot. Writes the window's k/v
+        into the pools in place and returns (n_accepted (slots,), window
+        tokens (slots, w), their logprobs (slots, w)) as device tensors."""
+        self.launches["verify"] += 1
+        cfg, p = self.cfg, self.params
+        S, W = np.shape(tokens)
+        # the host noise first, so the layers queue behind it
+        noise = _window_noise(seeds, counters, temp, W, cfg.vocab_size, self.device)
+        tok = self._dev(tokens, torch.int64)
+        base = self._dev(base_pos, torch.int64)
+        tbl = self._dev(tables, torch.int32)
+        bs, tmax = self.block_size, tbl.shape[1]
+        positions = base[:, None] + torch.arange(W, device=self.device)[None, :]  # (S, W)
+        pos_flat = positions.reshape(-1)
+        # window positions can run past the table's reach (a slot one emit
+        # away from the length cap still feeds its drafts): the reference
+        # clamps the gather, as XLA does, and scatters the overflow rows to
+        # the trash block; torch indexing would raise where XLA clamps, so
+        # the clamp is explicit. The engine never emits from those rows.
+        valid = pos_flat < tmax * bs
+        logical = (pos_flat // bs).clamp_max(tmax - 1)
+        rows = torch.arange(S, device=self.device).repeat_interleave(W)
+        phys = torch.where(valid, tbl.long()[rows, logical], 0)
+        off = pos_flat % bs
+        # inactive slots carry base 0 and an all-trash table: their queries
+        # attend positions 0..i of trash block 0 (finite, discarded)
+        pos32 = positions.int()
+        # the GEMMs below see S*W rows where a decode step's see S, so
+        # cuBLAS may pick other kernels: in bf16 a verify and a plain step
+        # can round differently and part at near-ties; fp32 stays identical
+        x = p.embed(tok.reshape(-1))  # (S*W, d)
+        for li, layer in enumerate(p.blocks):
+            h = layer.ln1(x)
+            q, k, v = self._qkv_rows(layer, h, pos_flat)
+            _scatter_kv(k_pool[li], k, phys, off)
+            _scatter_kv(v_pool[li], v, phys, off)
+            att = paged_verify_attention(
+                q.view(S, W, cfg.n_heads, cfg.head_dim), k_pool[li], v_pool[li], tbl, pos32
+            )
+            att = layer.attn_out(att.to(x.dtype).reshape(S * W, cfg.d_model))
+            x = x + att + layer.mlp(h)  # parallel residual
+        logits = p.logits(x).view(S, W, -1)
+        return _verify_rows(logits, tok[:, 1:], noise, temp, top_k, top_p)
 
     # -- copy-on-write block fork (llm.prefix_cache) -----------------------
 

@@ -1,7 +1,6 @@
 """Cross-request prefix cache: a radix tree of shared KV blocks (copy of
 ``ray_tpu/llm/prefix_cache.py`` without its metrics and events hooks; the
-weight-swap flush and the drafting corpus come with the features that use
-them, see ROADMAP.md).
+weight-swap flush comes with the feature that uses it, see ROADMAP.md).
 
 Prefill work becomes proportional to the *uncached suffix*: a tree keyed
 by block contents maps token blocks to resident physical KV blocks, and
@@ -24,6 +23,8 @@ off.
 * **LRU eviction under pressure** — evictable leaf blocks go first, before
   any live request is preempted; node removal and the pool release happen
   together, so the tree never holds a dangling block id.
+* **drafting corpus** — ``paths`` lists the most recently used root-to-leaf
+  token sequences for the n-gram drafter (``llm.drafter``).
 
 All tree mutations happen under the engine lock; the internal lock makes
 reads (stats, audit) safe from other threads. Lock order is always
@@ -198,6 +199,30 @@ class PrefixCache:
                 freed += 1
             self.evicted_blocks += freed
         return freed
+
+    # -- drafting corpus ---------------------------------------------------
+
+    def paths(self, max_paths: int = 8) -> list:
+        """Root-to-leaf token sequences, most recently used first — the
+        cross-request drafting corpus (``NGramDrafter.corpus``): a warm
+        request's continuation often literally already sits on a cached
+        path another request prefilled. Bounded by ``max_paths`` so the
+        per-step drafting cost stays constant."""
+        with self._lock:
+            leaves = [n for n in self._by_block.values() if not n.children]
+            leaves.sort(key=lambda n: n.last_used, reverse=True)
+            out = []
+            for leaf in leaves[:max_paths]:
+                rev = []
+                node = leaf
+                while node is not None and node.block != -1:
+                    rev.append(node.tokens)
+                    node = node.parent
+                seq: list[int] = []
+                for toks in reversed(rev):
+                    seq.extend(toks)
+                out.append(seq)
+            return out
 
     # -- introspection -----------------------------------------------------
 

@@ -2,8 +2,10 @@
 
 Greedy / temperature / top-k / top-p over a batch of next-token logit
 rows, every knob a scalar or a per-row tensor (one continuous-batching
-decode step mixes requests with different sampling params).
-``temperature <= 0`` means greedy (argmax) for that row.
+decode step mixes requests with different sampling params), and the
+speculative-decode verification of drafted windows
+(``speculative_verify``). ``temperature <= 0`` means greedy (argmax) for
+that row.
 
 Randomness is keyed by (seed, absolute output index), as in the
 reference: the token at output index ``i`` of a request depends only on
@@ -141,3 +143,77 @@ def token_logprobs(
     temp, kk, pp = _broadcast_knobs(b, temperature, top_k, top_p, logits.device)
     masked = _filtered_logits(logits, temp, kk, pp)
     return _chosen_logprob(logits, masked, temp, tokens.long())
+
+
+def speculative_verify_logprobs(
+    logits: torch.Tensor,
+    draft: torch.Tensor,
+    noise: torch.Tensor,
+    temperature=0.0,
+    top_k=0,
+    top_p=1.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``speculative_verify`` that also returns (slots, w) logprobs of the
+    emitted tokens: window index ``i``'s entry scores ``out[:, i]`` under
+    the exact per-index filtered distribution (the ``sample_tokens_logprobs``
+    convention), so spec-decode output carries the same behavior logprobs
+    as the plain decode path. Validity mirrors ``out``: entries past
+    ``n_accepted`` are conditioned on a rejected prefix and are discarded
+    with their tokens.
+
+    Batched over slots (the reference vmaps its per-sequence version):
+    logits (slots, w, v); draft (slots, w-1); noise (slots, w, v), window
+    index ``i`` of a slot drawn from ``row_generator(seed, counter + i)``;
+    the knobs are scalars or (slots,) tensors, shared by a slot's window.
+    Returns (n_accepted (slots,), out (slots, w), logprobs (slots, w))."""
+    logits = logits.float()
+    s, w, v = logits.shape
+    temp, kk, pp = _broadcast_knobs(s, temperature, top_k, top_p, logits.device)
+    tok, logp = sample_tokens_logprobs(
+        logits.reshape(s * w, v),
+        noise.reshape(s * w, v),
+        temp.repeat_interleave(w),
+        kk.repeat_interleave(w),
+        pp.repeat_interleave(w),
+    )
+    out, logp = tok.view(s, w), logp.view(s, w)
+    # the accepted prefix: the leading run of draft[i] == out[i]; an empty
+    # draft (w == 1) sums to 0, the window then being just the bonus position
+    accept = draft.to(out.device, out.dtype) == out[:, : w - 1]
+    n_acc = accept.long().cumprod(-1).sum(-1)
+    return n_acc, out, logp
+
+
+def speculative_verify(
+    logits: torch.Tensor,
+    draft: torch.Tensor,
+    noise: torch.Tensor,
+    temperature=0.0,
+    top_k=0,
+    top_p=1.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Accept/reject each slot's drafted window against target logits.
+
+    ``logits``: (slots, w, vocab), the target model's logits at each
+    window's w positions (position i conditioned on the draft tokens
+    before it); ``draft``: (slots, w-1), the drafter's proposals;
+    ``noise``: (slots, w, vocab) Gumbel noise, window index i of a slot
+    drawn from ``row_generator(seed, counter + i)`` where ``counter`` is
+    the output index of the window's FIRST token.
+
+    Sample-then-match (as in the reference): window index i draws
+    ``out[i]`` with the same generator AND filtered distribution the plain
+    decode path's per-row sampler uses at that output index, then the
+    drafted prefix is accepted while ``draft[i] == out[i]``. ``out[i]`` is
+    only CONDITIONALLY valid: its logits assumed the draft prefix before
+    it, which holds exactly up through the first mismatch, so callers emit
+    ``out[:n_accepted + 1]`` (accepted prefix + one correction/bonus token)
+    and ignore the rest.
+
+    Greedy (``temperature <= 0``) accepts while ``draft[i] == argmax``: the
+    emitted chain is exactly the sequential argmax chain. Either way the
+    emitted token at output index i depends only on (seed, i, prefix):
+    identical to non-speculative decode, whatever the drafter proposed and
+    wherever the window boundaries fell."""
+    n_acc, out, _ = speculative_verify_logprobs(logits, draft, noise, temperature, top_k, top_p)
+    return n_acc, out

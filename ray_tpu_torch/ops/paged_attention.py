@@ -1,5 +1,6 @@
 """Paged attention over a block-table KV cache (port of
-``ray_tpu/ops/paged_attention.py``): decode and chunked prefill.
+``ray_tpu/ops/paged_attention.py``): decode, speculative verification and
+chunked prefill.
 
 The engine's KV cache is a fixed pool of physical blocks per layer
 
@@ -8,7 +9,7 @@ The engine's KV cache is a fixed pool of physical blocks per layer
 and each decode slot owns a block table mapping its logical block index
 to a physical block id.
 
-Two entry points:
+Three entry points:
 
 * ``paged_attention`` — one query per slot (the decode step), dispatching
   between the hand-written CUDA kernel (``csrc/paged_attention.cu``) and
@@ -19,6 +20,11 @@ Two entry points:
   - ``impl="cuda"``: the kernel, whatever the device (a CPU tensor raises);
   - ``impl="torch"``: the plain version (tests and the chip check use it
     as the reference).
+
+* ``paged_verify_attention`` — ``w`` consecutive queries per slot (the
+  speculative-decode verify step), query ``(s, i)`` attending every cache
+  position ``<= positions[s, i]``; the same dispatch between the kernel
+  ``csrc/paged_verify_attention.cu`` and ``paged_verify_attention_torch``.
 
 * ``paged_prefill_attention_torch`` — chunked prefill for ONE sequence.
   The reference computes it in XLA outside any Pallas kernel, so it has no
@@ -65,6 +71,27 @@ def paged_attention_torch(q, k_pool, v_pool, block_tables, lengths):
     return torch.einsum("shk,shkd->shd", probs, v.float()).to(q.dtype)
 
 
+def paged_verify_attention_torch(q, k_pool, v_pool, block_tables, positions):
+    """Multi-query verification attention. q: (slots, w, heads, d); pools:
+    (num_blocks, heads, block, d); block_tables: (slots, tmax) int32;
+    positions: (slots, w) int32 — the absolute cache position of each query
+    (its own k/v already written). Query (s, i) attends every cache
+    position ``<= positions[s, i]``, causal across the window because the
+    window's positions are consecutive. Returns (slots, w, heads, d) in
+    q.dtype, fp32 softmax accumulation."""
+    s, w, h, d = q.shape
+    scale = d**-0.5
+    idx = block_tables.long()
+    k = k_pool[idx].transpose(1, 2).reshape(s, h, -1, d)  # (slots, heads, tmax*block, d)
+    v = v_pool[idx].transpose(1, 2).reshape(s, h, -1, d)
+    logits = torch.einsum("swhd,shkd->swhk", q.float(), k.float()) * scale
+    cache_pos = torch.arange(k.shape[2], device=q.device)
+    mask = cache_pos[None, None, None, :] <= positions.long()[:, :, None, None]
+    logits = logits.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("swhk,shkd->swhd", probs, v.float()).to(q.dtype)
+
+
 def paged_prefill_attention_torch(q, k_pool, v_pool, block_table, positions):
     """Chunked-prefill attention for ONE sequence: each chunk query at
     ``positions[i]`` attends causally over the sequence's paged cache
@@ -83,18 +110,20 @@ def paged_prefill_attention_torch(q, k_pool, v_pool, block_table, positions):
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel (csrc/paged_attention.cu)
+# CUDA kernels (csrc/paged_attention.cu, csrc/paged_verify_attention.cu)
 # ---------------------------------------------------------------------------
 
-#: head dims the kernel is compiled for (GPT-J's 256), and its dtypes
+#: head dims the kernels are compiled for (GPT-J's 256), and their dtypes
 #: (code passed to C)
 KERNEL_HEAD_DIMS = (256,)
+#: window widths (spec_k + 1) the verify kernel is compiled for
+KERNEL_WINDOWS = tuple(range(2, 9))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @functools.cache
 def _decode_fn():
-    """The kernel's C entry point; ``_kernels.load`` serializes the build."""
+    """K1's C entry point; ``_kernels.load`` serializes the build."""
     fn = _kernels.load("paged_attention").paged_decode_attention
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
@@ -103,41 +132,66 @@ def _decode_fn():
     return fn
 
 
-def _check_kernel_args(q, k_pool, v_pool, block_tables, lengths):
-    tensors = dict(q=q, k_pool=k_pool, v_pool=v_pool, block_tables=block_tables, lengths=lengths)
+@functools.cache
+def _verify_fn():
+    """K2's C entry point."""
+    fn = _kernels.load("paged_verify_attention").paged_verify_attention
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_kernel_args(kernel, q, k_pool, v_pool, block_tables, per_query, per_query_name):
+    """Device, dtype, shape and contiguity checks shared by both kernels:
+    q is (slots, [w,] heads, d) and ``per_query`` (lengths or positions)
+    is int32 of q's leading shape, (slots,) or (slots, w)."""
+    tensors = {
+        "q": q, "k_pool": k_pool, "v_pool": v_pool, "block_tables": block_tables,
+        per_query_name: per_query,
+    }
     for name, t in tensors.items():
         if not t.is_cuda:
-            raise ValueError(f"paged decode kernel needs CUDA tensors; {name} is on {t.device}")
+            raise ValueError(f"{kernel} needs CUDA tensors; {name} is on {t.device}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
-            raise ValueError(f"paged decode kernel needs contiguous {name}")
+            raise ValueError(f"{kernel} needs contiguous {name}")
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"paged decode kernel takes float32 or bfloat16, got {q.dtype}")
+        raise TypeError(f"{kernel} takes float32 or bfloat16, got {q.dtype}")
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise TypeError(f"pool dtypes {k_pool.dtype}/{v_pool.dtype} differ from q {q.dtype}")
-    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise TypeError("block_tables and lengths must be int32")
-    if q.dim() != 3 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+    if block_tables.dtype != torch.int32 or per_query.dtype != torch.int32:
+        raise TypeError(f"block_tables and {per_query_name} must be int32")
+    if q.dim() < 3 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, pools {tuple(k_pool.shape)}/{tuple(v_pool.shape)}")
-    s, h, d = q.shape
+    h, d = q.shape[-2:]
     _, ph, _, pd = k_pool.shape
     if (ph, pd) != (h, d):
         raise ValueError(f"pool heads/head_dim {(ph, pd)} differ from q {(h, d)}")
     if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"paged decode kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {d}")
-    if block_tables.dim() != 2 or block_tables.shape[0] != s or tuple(lengths.shape) != (s,):
+        raise ValueError(f"{kernel} takes head_dim in {KERNEL_HEAD_DIMS}, got {d}")
+    s = q.shape[0]
+    if block_tables.dim() != 2 or block_tables.shape[0] != s or per_query.shape != q.shape[:-2]:
         raise ValueError(
-            f"block_tables {tuple(block_tables.shape)} / lengths {tuple(lengths.shape)} "
-            f"do not match {s} slots"
+            f"block_tables {tuple(block_tables.shape)} / {per_query_name} "
+            f"{tuple(per_query.shape)} do not match q {tuple(q.shape)}"
         )
 
 
+def _launched(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
 def paged_attention_cuda(q, k_pool, v_pool, block_tables, lengths):
-    """The hand-written decode kernel; same contract as
+    """K1, the hand-written decode kernel; same contract as
     ``paged_attention_torch``. Builds the kernel on first use. Launches on
     the current stream; ``paged_attention_cuda.launches`` counts launches."""
-    _check_kernel_args(q, k_pool, v_pool, block_tables, lengths)
+    if q.dim() != 3:
+        raise ValueError(f"paged decode kernel takes q (slots, heads, d), got {tuple(q.shape)}")
+    _check_kernel_args("paged decode kernel", q, k_pool, v_pool, block_tables, lengths, "lengths")
     s, h, d = q.shape
     num_blocks, _, block_size, _ = k_pool.shape
     out = torch.empty_like(q)
@@ -151,8 +205,7 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, lengths):
             s, h, d, num_blocks, block_size, block_tables.shape[1],
             d**-0.5, _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"paged_decode_attention launch failed with CUDA error {err}")
+    _launched("paged_decode_attention", err)
     paged_attention_cuda.launches += 1
     return out
 
@@ -160,9 +213,49 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, lengths):
 paged_attention_cuda.launches = 0
 
 
+def paged_verify_attention_cuda(q, k_pool, v_pool, block_tables, positions):
+    """K2, the hand-written verify kernel; same contract as
+    ``paged_verify_attention_torch``, for windows of ``KERNEL_WINDOWS``
+    consecutive positions (the kernel takes the last query's position as
+    the slot's live length). Builds the kernel on first use. Launches on
+    the current stream; ``paged_verify_attention_cuda.launches`` counts
+    launches."""
+    if q.dim() != 4:
+        raise ValueError(f"paged verify kernel takes q (slots, w, heads, d), got {tuple(q.shape)}")
+    _check_kernel_args("paged verify kernel", q, k_pool, v_pool, block_tables, positions, "positions")
+    s, w, h, d = q.shape
+    if w not in KERNEL_WINDOWS:
+        raise ValueError(f"paged verify kernel takes windows of {KERNEL_WINDOWS} queries, got {w}")
+    num_blocks, _, block_size, _ = k_pool.shape
+    out = torch.empty_like(q)
+    if s == 0:
+        return out
+    fn = _verify_fn()
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            s, w, h, d, num_blocks, block_size, block_tables.shape[1],
+            d**-0.5, _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream,
+        )
+    _launched("paged_verify_attention", err)
+    paged_verify_attention_cuda.launches += 1
+    return out
+
+
+paged_verify_attention_cuda.launches = 0
+
+
 # ---------------------------------------------------------------------------
-# dispatcher
+# dispatchers
 # ---------------------------------------------------------------------------
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in ("auto", "cuda", "torch"):
+        raise ValueError(
+            f"unknown paged attention impl {impl!r}; expected 'auto', 'cuda' or 'torch'"
+        )
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, lengths, impl: str = "auto"):
@@ -171,10 +264,20 @@ def paged_attention(q, k_pool, v_pool, block_tables, lengths, impl: str = "auto"
     q: (slots, heads, head_dim); k_pool/v_pool: (num_blocks, heads,
     block_size, head_dim); block_tables: (slots, tmax) int32; lengths:
     (slots,) int32. ``impl``: auto | cuda | torch."""
-    if impl not in ("auto", "cuda", "torch"):
-        raise ValueError(
-            f"unknown paged attention impl {impl!r}; expected 'auto', 'cuda' or 'torch'"
-        )
+    _check_impl(impl)
     if impl == "torch" or (impl == "auto" and not q.is_cuda):
         return paged_attention_torch(q, k_pool, v_pool, block_tables, lengths)
     return paged_attention_cuda(q, k_pool, v_pool, block_tables, lengths)
+
+
+def paged_verify_attention(q, k_pool, v_pool, block_tables, positions, impl: str = "auto"):
+    """Multi-query verification attention over a paged KV cache (module
+    doc): ``w`` consecutive queries per slot, causal by absolute position.
+
+    q: (slots, w, heads, head_dim); k_pool/v_pool: (num_blocks, heads,
+    block_size, head_dim); block_tables: (slots, tmax) int32; positions:
+    (slots, w) int32. ``impl``: auto | cuda | torch."""
+    _check_impl(impl)
+    if impl == "torch" or (impl == "auto" and not q.is_cuda):
+        return paged_verify_attention_torch(q, k_pool, v_pool, block_tables, positions)
+    return paged_verify_attention_cuda(q, k_pool, v_pool, block_tables, positions)

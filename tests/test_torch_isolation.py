@@ -54,7 +54,7 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_engine_without_device_needs_cuda(monkeypatch):
-    from ray_tpu_torch.llm import LLMEngine
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine
     from ray_tpu_torch.models.gptj import GPTJConfig, gptj_init, params_from_jax
 
     cfg = GPTJConfig(vocab_size=16, d_model=8, n_layers=1, n_heads=2, rotary_dim=2, dtype="float32")
@@ -85,6 +85,9 @@ def test_engine_without_device_needs_cuda(monkeypatch):
         LLMEngine(cfg, params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LLMEngine(cfg, params, device="cuda:0")
+    # a speculating engine is ported: it too needs the card, and says so
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LLMEngine(cfg, params, EngineConfig(spec_k=2))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gptj_init(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -106,6 +109,28 @@ def test_gptj_init_refuses_a_generator_on_another_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     with pytest.raises(ValueError, match="generator is on cpu"):
         gptj_init(cfg, torch.Generator().manual_seed(0))
+
+
+def test_spec_engine_on_the_card_refuses_windows_the_kernel_lacks(monkeypatch):
+    """On the card spec_k + 1 must be a compiled verify window: an engine
+    that could only fail at its first verify step is refused at construction
+    (the card is faked: the check comes before anything is allocated). The
+    CPU path takes any spec_k."""
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.models.gptj import GPTJConfig, gptj_init
+    from ray_tpu_torch.ops.paged_attention import KERNEL_WINDOWS
+
+    cfg = GPTJConfig(vocab_size=16, d_model=8, n_layers=1, n_heads=2, rotary_dim=2, dtype="float32")
+    params = gptj_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    big = KERNEL_WINDOWS[-1]  # spec_k + 1 one past the widest window
+    assert LLMEngine(cfg, params, EngineConfig(spec_k=big), device="cpu")._drafter is not None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    with pytest.raises(ValueError, match="compiled for windows"):
+        LLMEngine(cfg, params, EngineConfig(spec_k=big))
+    # a compiled window passes the check and stops only at the CPU weights
+    with pytest.raises(ValueError, match="params are on cpu"):
+        LLMEngine(cfg, params, EngineConfig(spec_k=KERNEL_WINDOWS[-1] - 1))
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

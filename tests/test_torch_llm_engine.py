@@ -215,8 +215,8 @@ def test_submit_validation(port_params, engine):
     tiny_pool = _engine(port_params, num_blocks=5)  # 4 usable blocks
     with pytest.raises(ValueError, match="usable blocks"):
         tiny_pool.submit(_prompt(20), SamplingParams(max_tokens=10))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _engine(port_params, spec_k=2)
+    spec = _engine(port_params, spec_k=2)  # speculative decoding is ported
+    assert spec.stats()["spec_proposed"] == 0 and spec._drafter.k == 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _engine(port_params, tp=2)
     assert engine.stats()["waiting"] == 0

@@ -1,10 +1,11 @@
 """ray_tpu_torch.ops.paged_attention vs the JAX reference, on the CPU.
 
-The port's plain decode and prefill paths take the same numpy inputs as
-``ray_tpu.ops.paged_attention``'s XLA paths and its Pallas decode kernel
-(run in interpret mode, as tests/test_llm_engine.py runs it), fp32, atol
-2e-5 — the reference's own Pallas-vs-XLA tolerance. The CUDA kernel itself
-runs only on a GPU; chip_smoke.py holds it against the plain version there.
+The port's plain decode, verify and prefill paths take the same numpy
+inputs as ``ray_tpu.ops.paged_attention``'s XLA paths and its Pallas decode
+and verify kernels (run in interpret mode, as tests/test_llm_engine.py and
+tests/test_llm_spec.py run them), fp32, atol 2e-5 — the reference's own
+Pallas-vs-XLA tolerance. The CUDA kernels themselves run only on a GPU;
+chip_smoke.py holds them against the plain versions there.
 """
 
 import numpy as np
@@ -97,3 +98,67 @@ def test_cuda_impl_on_cpu_tensor_raises():
 def test_bad_impl_rejected():
     with pytest.raises(ValueError, match="unknown paged attention impl"):
         ops.paged_attention(*_port(*_case(0)), impl="pallas")
+
+
+# ---------------------------------------------------------------------------
+# multi-query verify attention (the speculative-decode window)
+# ---------------------------------------------------------------------------
+
+
+def _verify_case(seed=0, slots=3, w=4, heads=4, d=16, blocks=12, bs=4, tmax=6, base=None):
+    """tests/test_llm_spec.py's shapes: consecutive windows of w positions."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(slots, w, heads, d).astype(np.float32)
+    kp = rng.randn(blocks, heads, bs, d).astype(np.float32)
+    vp = rng.randn(blocks, heads, bs, d).astype(np.float32)
+    bt = rng.randint(0, blocks, (slots, tmax)).astype(np.int32)
+    if base is None:
+        base = rng.randint(0, tmax * bs - w, slots)
+    pos = (np.asarray(base)[:, None] + np.arange(w)[None, :]).astype(np.int32)
+    return q, kp, vp, bt, pos
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("ref_impl", ["xla", "pallas"])
+def test_verify_matches_reference(seed, ref_impl):
+    case = _verify_case(seed)
+    ref = np.asarray(ref_ops.paged_verify_attention(*_jax(*case), impl=ref_impl))
+    out = ops.paged_verify_attention(*_port(*case)).numpy()
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+
+
+def test_verify_window_past_the_table_matches_reference():
+    """A slot one emit away from the length cap feeds positions past
+    tmax*bs: the live cache ends at the table's reach."""
+    case = _verify_case(3, base=[6 * 4 - 2, 5, 6 * 4 - 4])  # last positions 25, 8, 23
+    assert case[4][:, -1].max() >= 6 * 4
+    ref = np.asarray(ref_ops.paged_verify_attention(*_jax(*case), impl="xla"))
+    out = ops.paged_verify_attention(*_port(*case)).numpy()
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+
+
+def test_verify_window_index_is_a_decode_step():
+    """Window index i equals single-query decode attention at length
+    positions[:, i] + 1 — the verify op IS w stacked decode steps."""
+    q, kp, vp, bt, pos = _port(*_verify_case(5))
+    out = ops.paged_verify_attention(q, kp, vp, bt, pos)
+    for i in range(q.shape[1]):
+        one = ops.paged_attention_torch(q[:, i], kp, vp, bt, pos[:, i] + 1)
+        torch.testing.assert_close(out[:, i], one, rtol=0, atol=ATOL)
+
+
+def test_verify_inactive_slot_is_finite():
+    """An empty slot carries base 0 and an all-trash table."""
+    q, kp, vp, bt, pos = _verify_case(9, base=[0, 7, 3])
+    bt[0] = 0
+    out = ops.paged_verify_attention(*_port(q, kp, vp, bt, pos))
+    assert torch.isfinite(out).all()
+
+
+def test_verify_impls_and_errors():
+    case = _port(*_verify_case(2))
+    assert torch.equal(ops.paged_verify_attention(*case), ops.paged_verify_attention(*case, impl="torch"))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.paged_verify_attention(*case, impl="cuda")
+    with pytest.raises(ValueError, match="unknown paged attention impl"):
+        ops.paged_verify_attention(*case, impl="pallas")

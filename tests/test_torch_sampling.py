@@ -5,7 +5,9 @@ and are compared with the reference on the same numpy logits. Sampled
 TOKENS are compared only in distribution: the port draws from
 ``torch.Generator``s keyed by (seed, output index) and cannot reproduce
 ``jax.random``'s bits, so the check is that the port's sampling
-frequencies match the reference's filtered softmax.
+frequencies match the reference's filtered softmax. The same holds for
+speculative verification: greedy windows match the reference exactly,
+sampled ones in distribution.
 """
 
 import numpy as np
@@ -16,7 +18,7 @@ import jax
 import jax.numpy as jnp
 
 from ray_tpu.models import sampling as ref
-from ray_tpu_torch.llm.model_runner import _row_noise, _sample_rows
+from ray_tpu_torch.llm.model_runner import _row_noise, _sample_rows, _window_noise
 from ray_tpu_torch.models import sampling as port
 
 # moderate temperatures over unit-scale logits keep every tail probability
@@ -147,3 +149,88 @@ def test_sampled_frequencies_match_reference_distribution():
     bound = 5 * np.sqrt(p * (1 - p) / n) + 1e-3
     assert np.all(np.abs(freq - p) <= bound), (freq, p)
     assert np.all(freq[p == 0] == 0)
+
+
+# ---------------------------------------------------------------------------
+# speculative verification
+# ---------------------------------------------------------------------------
+
+
+def _window_drafts(logits):
+    """Drafts against the greedy chain: all right, one wrong at index 2,
+    all wrong, and random."""
+    s, w, v = logits.shape
+    am = logits.argmax(-1)[:, : w - 1]
+    draft = am.copy()
+    draft[1, 2] = (am[1, 2] + 1) % v
+    draft[2] = (am[2] + 1) % v
+    draft[3] = np.random.RandomState(0).randint(0, v, w - 1)
+    return draft.astype(np.int32)
+
+
+def test_greedy_verify_matches_reference():
+    logits = np.random.RandomState(10).randn(4, 5, 50).astype(np.float32)
+    draft = _window_drafts(logits)
+    noise = torch.zeros(4, 5, 50)
+    n_acc, out, lp = port.speculative_verify_logprobs(
+        torch.from_numpy(logits), torch.from_numpy(draft), noise, 0.0)
+    for s in range(4):
+        r_n, r_out, r_lp = ref.speculative_verify_logprobs(
+            jnp.asarray(logits[s]), jnp.asarray(draft[s]), jnp.uint32(s), jnp.int32(3), 0.0)
+        assert int(n_acc[s]) == int(r_n)
+        assert out[s].tolist() == np.asarray(r_out).tolist()
+        np.testing.assert_allclose(lp[s].numpy(), np.asarray(r_lp), atol=1e-5)
+    assert n_acc.tolist() == [4, 2, 0, int(n_acc[3])]
+
+
+def test_greedy_verify_ignores_the_seed():
+    logits = torch.from_numpy(np.random.RandomState(1).randn(2, 3, 10).astype(np.float32))
+    gr = logits.argmax(-1)
+    for seed in (0, 1, 2):
+        noise = _window_noise([seed, seed + 7], [0, 4], [0.0, 0.0], 3, 10, "cpu")
+        n, out = port.speculative_verify(logits, gr[:, :2], noise, temperature=0.0)
+        assert n.tolist() == [2, 2] and torch.equal(out, gr)
+
+
+def test_verify_index_draws_like_plain_sampling():
+    """Window index i of a slot is the plain path's draw at output index
+    counter + i: same generator, same filtered distribution, same
+    logprob."""
+    logits = np.random.RandomState(12).randn(3, 4, 40).astype(np.float32)
+    seeds, counters = [5, 9, 2], [0, 7, 30]
+    temp = np.float32([0.9, 1.3, 0.0])
+    top_k = np.int64([0, 6, 0])
+    top_p = np.float32([0.8, 1.0, 1.0])
+    noise = _window_noise(seeds, counters, temp, 4, 40, "cpu")
+    draft = torch.from_numpy(logits.argmax(-1)[:, :3])
+    _, out, lp = port.speculative_verify_logprobs(
+        torch.from_numpy(logits), draft, noise, torch.from_numpy(temp),
+        torch.from_numpy(top_k), torch.from_numpy(top_p))
+    for s in range(3):
+        for i in range(4):
+            tok, want = _sample(logits[s, i][None], [seeds[s]], [counters[s] + i], temp[s],
+                                top_k[s], top_p[s])
+            assert int(out[s, i]) == int(tok[0])
+            np.testing.assert_allclose(float(lp[s, i]), float(want[0]), rtol=1e-6)
+
+
+def test_verified_position_reproduces_target_distribution():
+    """Port of the reference's test of the same name: sample-then-match
+    must reproduce the target softmax in distribution whatever token was
+    drafted — empirical frequencies of the first window token over 1500
+    seeds against the analytic target. ~3 sigma of a binomial at n=1500 is
+    ~0.04; the bias this guards against (accepting only on a match) is
+    >> 0.1."""
+    v, n = 16, 1500
+    logits = np.random.RandomState(0).randn(2, v).astype(np.float32) * 1.5
+    target = np.asarray(jax.nn.softmax(jnp.asarray(logits[0])))
+    draft_tok = int(np.argmax(target))  # high-probability draft: mostly accepts
+    seeds = np.arange(n)
+    noise = _window_noise(seeds, np.zeros(n), np.ones(n), 2, v, "cpu")
+    n_acc, out = port.speculative_verify(
+        torch.from_numpy(np.repeat(logits[None], n, 0)),
+        torch.full((n, 1), draft_tok), noise, temperature=1.0)
+    emp = np.bincount(out[:, 0].numpy(), minlength=v) / n
+    np.testing.assert_allclose(emp, target, atol=0.05)
+    # acceptance tracks p(draft)
+    assert abs(n_acc.float().mean().item() - target[draft_tok]) < 0.05
