@@ -221,7 +221,7 @@ def _block(cfg: GPTJConfig, x, layer: GPTJBlock, positions):
     b, s, d = x.shape
     h = layer.ln1(x)
     q, k, v = _project_qkv(cfg, h, layer, positions)
-    att = causal_attention(q, k, v).transpose(1, 2).reshape(b, s, d)
+    att = causal_attention(q, k, v, impl="xla").transpose(1, 2).reshape(b, s, d)
     return x + layer.attn_out(att) + layer.mlp(h), k, v
 
 

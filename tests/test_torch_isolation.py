@@ -1,4 +1,4 @@
-"""The port stands alone: ray_tpu_torch and chip_smoke.py import nothing of
+"""The port stands alone: ray_tpu_torch, chip_smoke.py and chip_mutants.py import nothing of
 JAX or of the JAX package, and the port's entry points never fall back to
 the CPU when the card is missing."""
 
@@ -16,7 +16,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ray_tpu"}
 
 
 def _port_files():
-    return sorted((REPO / "ray_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted((REPO / "ray_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_mutants.py"]
 
 
 def _imported_top_names(path: Path):
@@ -44,6 +44,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, ray_tpu_torch, ray_tpu_torch.llm.engine, ray_tpu_torch.ops._kernels\n"
+        "import ray_tpu_torch.models.gpt, ray_tpu_torch.parallel\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
@@ -140,3 +141,44 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _kernels.nvcc_path()
+
+
+def test_training_entry_points_without_device_need_cuda(monkeypatch):
+    from ray_tpu_torch.models.gpt import GPTConfig, gpt_init
+    from ray_tpu_torch.parallel import adamw, build_train_step
+
+    cfg = GPTConfig(vocab_size=16, seq_len=8, d_model=8, n_layers=1, n_heads=2, dtype="float32")
+    params = gpt_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    init_fn, _ = build_train_step(lambda p, t: p.embed.weight.sum(), adamw(1e-4))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gpt_init(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_fn(params)
+    state = init_fn(params, "cpu")
+    assert state.step == 0 and all(p.device.type == "cpu" for p in state.params.parameters())
+
+
+def test_flash_on_a_card_raises_for_a_head_dim_the_kernels_lack(monkeypatch):
+    """Tensors that say they are on the card take the kernel path: a head dim
+    of 256 raises there and never falls back to the plain version."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops.attention import causal_attention
+
+    q = torch.zeros(1, 2, 16, 256)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    for run in (lambda: fa.flash_attention(q, q, q), lambda: causal_attention(q, q, q),
+                lambda: causal_attention(q, q, q, impl="flash")):
+        with pytest.raises(ValueError, match="head_dim in"):
+            run()
+    assert fa.flash_fwd_cuda.launches == 0
+
+
+def test_engine_refuses_the_training_gpt():
+    from ray_tpu_torch.llm import LLMEngine
+    from ray_tpu_torch.models.gpt import GPTConfig, gpt_init
+
+    cfg = GPTConfig(vocab_size=16, seq_len=8, d_model=8, n_layers=1, n_heads=2, dtype="float32")
+    params = gpt_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        LLMEngine(cfg, params, device="cpu")
