@@ -30,39 +30,56 @@ from ray_tpu_torch.models.gpt import gpt_init
 from ray_tpu_torch.ops import _kernels
 from ray_tpu_torch.ops import flash_attention as fa
 
-# each copy: the line that masks the diagonal tile, and what replaces it
+# each copy: the line that masks the diagonal tile of the bf16 kernel the
+# 406M step runs, and what replaces it
 MUTANTS = {
     "K3 without its causal mask": (
-        "if (j == qi && 8 * nt + 2 * t + (e & 1) > r0 + g + 8 * h) x = kNegInf;", ""),
+        "if (8 * (i >> 2) + 2 * t + (i & 1) > r0 + g + 8 * ((i >> 1) & 1)) s[i] = -INFINITY;", ""),
     "K4 without its causal mask": (
         "const bool dead = j == qi && 8 * nt + 2 * t + (e & 1) > r0 + g + 8 * h;",
         "const bool dead = false;"),
     "K5 without its causal mask": (
-        "const bool live = q0 + qc < seq && (i != kj || key <= qc);",
-        "const bool live = q0 + qc < seq;"),
+        "if ((diag && key > qc) || q0 + qc >= seq) pt[e] = 0.f;",
+        "if (q0 + qc >= seq) pt[e] = 0.f;"),
 }
 
 
-def build_mutants() -> dict:
-    """One nvcc per copy, all started together: {name: library path}."""
-    src = (_kernels.CSRC / "flash_attention.cu").read_text()
-    out = _kernels.BUILD_DIR / "mutants"
+def edited_source(edits) -> str:
+    """flash_attention.cu with each (old, new) of ``edits`` replaced; each
+    old text must occur exactly once."""
+    text = (_kernels.CSRC / "flash_attention.cu").read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise AssertionError(f"{old!r} is not in flash_attention.cu once")
+        text = text.replace(old, new)
+    return text
+
+
+def build_sources(sources: dict, subdir: str) -> dict:
+    """One nvcc per CUDA source text, all started together, into
+    ``ray_tpu_torch/_build/<subdir>/``: {name: (library path, the
+    compiler's output with its -Xptxas -v report)}."""
+    out = _kernels.BUILD_DIR / subdir
     out.mkdir(parents=True, exist_ok=True)
 
     def build(item):
-        i, (name, (line, repl)) = item
-        if src.count(line) != 1:
-            raise AssertionError(f"{name}: the masking line is not in flash_attention.cu once")
-        cu, so = out / f"flash_attention_m{i}.cu", out / f"flash_attention_m{i}.so"
-        cu.write_text(src.replace(line, repl))
+        i, (name, text) = item
+        cu, so = out / f"{subdir}_{i}.cu", out / f"{subdir}_{i}.so"
+        cu.write_text(text)
         cmd = [_kernels.nvcc_path(), *_kernels.NVCC_FLAGS, "-o", str(so), str(cu)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed building {name}:\n{proc.stdout}{proc.stderr}")
-        return name, so
+        return name, (so, proc.stdout + proc.stderr)
 
-    with ThreadPoolExecutor(len(MUTANTS)) as pool:
-        return dict(pool.map(build, enumerate(MUTANTS.items())))
+    with ThreadPoolExecutor(len(sources)) as pool:
+        return dict(pool.map(build, enumerate(sources.items())))
+
+
+def build_mutants() -> dict:
+    """{name: library path} of each copy."""
+    built = build_sources({name: edited_source([edit]) for name, edit in MUTANTS.items()}, "mutants")
+    return {name: so for name, (so, _) in built.items()}
 
 
 def use_library(path) -> None:

@@ -42,10 +42,13 @@ weights from a seed), plain and speculating, and GPT training at bench.py's
 13. library times (SDPA forward, forward+backward) and bounds for the
     training slice's flash-attention kernels K3-K5;
 14. K3-K5 (flash forward, dQ, dK/dV) vs their plain versions, fp32 and
-    bf16, head dims 64 and 128, seq 1024 and a ragged 1000;
+    bf16, head dims 64 and 128, seq 1024, a ragged 1000 and 1001 (lse and
+    delta rows then start off 16-byte boundaries); an operand off a
+    16-byte boundary is refused;
 15. K3-K5 at the training shape: vs their plain versions there (the
     kernels line's errors), their timing beside the plain versions, the
-    library calls and the bounds, and their ``-Xptxas -v`` reports;
+    library calls and the bounds, their achieved TFLOP/s and ratio to the
+    library call, and their ``-Xptxas -v`` reports;
 16. fp32 training identity: a narrow GPT takes 3 AdamW steps through K3-K5
     and 3 through the einsum attention, under remat "full" and "attn";
     losses and parameters agree;
@@ -942,7 +945,8 @@ def flash_yardsticks() -> dict:
     q, k, v, dO, lse and delta and writes dq; K5 (dk, dv) reads the same and
     writes dk and dv. Causal operations: 2*S*S*D per head per matmul,
     halved; K3 does 2 matmuls, K4 3 (S, dP, dQ), K5 4 (S, dV, dP, dK).
-    Returns the library times and each kernel's (bound ms, bound by)."""
+    Returns the library times, each kernel's (bound ms, bound by) and its
+    operations."""
     g = torch.Generator(device="cuda").manual_seed(8)
     q, k, v, do = (torch.randn(TRAIN_B, TRAIN_H, TRAIN_S, TRAIN_D, device="cuda", generator=g,
                                dtype=torch.bfloat16) for _ in range(4))
@@ -969,7 +973,8 @@ def flash_yardsticks() -> dict:
         print(f"  {name} bound {bounds[name][0]:.4f} ms ({bounds[name][1]}: {nbytes / 1e6:.1f} MB "
               f"= {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, {ops / 1e9:.1f} GFLOP = "
               f"{ops / PEAK_OPS_PER_S[torch.bfloat16] * 1e3:.4f} ms)")
-    return dict(fwd_ms=fwd_ms, bwd_ms=fwd_bwd_ms - fwd_ms, bounds=bounds)
+    return dict(fwd_ms=fwd_ms, bwd_ms=fwd_bwd_ms - fwd_ms, bounds=bounds,
+                ops={name: ops for name, (_, ops) in work.items()})
 
 
 def flash_kernels_run(q, k, v, do):
@@ -1022,14 +1027,23 @@ def flash_errors(q, k, v, do) -> dict:
 
 def check_flash() -> None:
     """Phase 14: K3-K5 vs their plain versions (``flash_errors``) at d 64
-    and 128, fp32 and bf16, at seq 1024 and a ragged 1000 (bh = 2 x 16).
-    Phase 15 checks the training shape itself."""
+    and 128, fp32 and bf16, at seq 1024, a ragged 1000 and 1001 (the lse
+    and delta rows of head bh start at bh x 1001 x 4 bytes, off 16-byte
+    boundaries) (bh = 2 x 16). Phase 15 checks the training shape itself.
+    An operand that starts off a 16-byte boundary is refused."""
     for dtype in (torch.float32, torch.bfloat16):
         for d in KERNEL_HEAD_DIMS:
-            for seq in (1024, 1000):
+            for seq in (1024, 1000, 1001):
                 g = torch.Generator(device="cuda").manual_seed(seq + d)
                 flash_errors(*(torch.randn(32, seq, d, device="cuda", generator=g).to(dtype)
                                for _ in range(4)))
+    q = torch.zeros(2 * 64 * 64 + 1, device="cuda", dtype=torch.bfloat16)[1:].view(2, 64, 64)
+    try:
+        flash_fwd_cuda(q, q, q)
+    except ValueError as e:
+        print(f"flash operand off a 16-byte boundary refused: {e}")
+    else:
+        raise AssertionError("flash forward took an operand off a 16-byte boundary")
     # a head dim the kernels lack raises on the card
     try:
         flash_attention(*(torch.zeros(1, 2, 16, 256, device="cuda"),) * 3)
@@ -1050,7 +1064,8 @@ def flash_build_report() -> None:
             kind = next(k for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if f"{k}_kernel" in name)
             dtype = torch.bfloat16 if "nv_bfloat16" in name else torch.float32
             d = 128 if "Li128E" in name else 64
-            current = (f"{kind} {'bf16' if dtype == torch.bfloat16 else 'fp32'} d={d}: "
+            current = (f"{kind}{' (wgmma)' if 'wgmma' in name else ''} "
+                       f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} d={d}: "
                        f"{kernel_smem_bytes(kind, d, dtype)} B dynamic shared memory")
         elif current and "spill stores" in line:
             current += ", " + line.split(",", 1)[1].strip()
@@ -1062,12 +1077,14 @@ def flash_build_report() -> None:
 def time_flash(yard: dict) -> dict:
     """Phase 15 at the training shape (bh 416, seq 1024, d 64, bf16): the
     kernels against their plain versions there (``flash_errors``), then
-    each kernel 200 launches between CUDA events, beside its bound, its
-    plain version (``flash_bwd_reference`` computes dq, dk and dv in one
-    call, so K4 and K5 share that time) and the library call (SDPA forward
-    for K3; SDPA's backward, one call for dq, dk and dv, for K4 and K5).
-    Returns each kernel's record for the kernels line, its max abs error
-    the one at this shape."""
+    each kernel, after an idle second, 200 launches between CUDA events,
+    beside its bound, its plain version (``flash_bwd_reference`` computes
+    dq, dk and dv in one call, so K4 and K5 share that time) and the
+    library call (SDPA forward for K3; SDPA's backward, one call for dq,
+    dk and dv, for K4 and K5).
+    Prints each kernel's achieved TFLOP/s (phase 13's operations over its
+    time) and its time over the library call's. Returns each kernel's
+    record for the kernels line, its max abs error the one at this shape."""
     g = torch.Generator(device="cuda").manual_seed(9)
     q, k, v, do = (torch.randn(TRAIN_B * TRAIN_H, TRAIN_S, TRAIN_D, device="cuda", generator=g,
                                dtype=torch.bfloat16) for _ in range(4))
@@ -1075,10 +1092,19 @@ def time_flash(yard: dict) -> dict:
     torch.cuda.empty_cache()
     out, lse = flash_fwd_cuda(q, k, v)
     delta = (do.float() * out.float()).sum(-1)
+
+    def idle_then_ms(fn) -> float:
+        # each kernel from an idle card: right after 200 launches of K3 or
+        # K5, K4 (the same binary) times 1-5% slower than after an idle
+        # second, and the cause is not measured (chip_flash_probe.py)
+        torch.cuda.synchronize()
+        time.sleep(1.0)
+        return cuda_ms(fn, 200)
+
     ms = {
-        "K3": cuda_ms(lambda: flash_fwd_cuda(q, k, v), 200),
-        "K4": cuda_ms(lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta), 200),
-        "K5": cuda_ms(lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta), 200),
+        "K3": idle_then_ms(lambda: flash_fwd_cuda(q, k, v)),
+        "K4": idle_then_ms(lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta)),
+        "K5": idle_then_ms(lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta)),
     }
     plain_fwd = cuda_ms(lambda: flash_fwd_reference(q, k, v), 10, warmup=1)
     plain_bwd = cuda_ms(lambda: flash_bwd_reference(q, k, v, out, lse, do), 5, warmup=1)
@@ -1090,8 +1116,9 @@ def time_flash(yard: dict) -> dict:
         recs[name] = dict(max_abs_err=errs[name], ms=ms[name], plain_ms=plain[name],
                           library_ms=library[name], bound_ms=bound_ms, bound_by=bound_by)
         print(f"{name} timing bf16 bh={TRAIN_B * TRAIN_H} S={TRAIN_S} D={TRAIN_D}: kernel "
-              f"{ms[name]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {ms[name] / bound_ms:.2f}x), "
-              f"plain {plain[name]:.4f} ms, library {library[name]:.4f} ms")
+              f"{ms[name]:.4f} ms ({yard['ops'][name] / ms[name] / 1e9:.1f} TFLOP/s), bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {ms[name] / bound_ms:.2f}x), plain {plain[name]:.4f} ms, "
+              f"library {library[name]:.4f} ms (kernel/library {ms[name] / library[name]:.3f}x)")
     print("flash build report (-Xptxas -v):")
     flash_build_report()
     return recs

@@ -23,31 +23,52 @@
 // bytes (219.8 MB, 0.0656 ms at 3.35 TB/s, against 55.8 GFLOP = 0.0565 ms),
 // K4 its operations (83.8 GFLOP = 0.0847 ms at 989 TFLOP/s), K5 its
 // operations (111.7 GFLOP = 0.1129 ms). All three sit near the card's ridge,
-// so a fast version needs both the tensor cores and overlapped loads.
+// so a fast version needs both the tensor cores at wgmma's rate and loads
+// that overlap the products.
 //
 // Design: the TPU grid's sequential minor axis becomes a loop inside one CTA.
 // Tiles are 64 rows on both sides; a CTA has 4 warps, each owning 16 rows of
 // the CTA's own tile, so the online-softmax state and the accumulators of a
-// row live in registers of one warp (the mma.sync m16n8 accumulator layout:
-// lane g*4+t holds rows g and g+8, columns 2t and 2t+1 of each 8-column
-// slice), and row reductions are two quad shuffles.
+// row live in registers of one warp (lane g*4+t holds rows g and g+8,
+// columns 2t and 2t+1 of each 8-column slice: the mma.sync m16n8 layout,
+// which is also each warp's part of the wgmma m64nN accumulator), and row
+// reductions are two quad shuffles.
 //   K3, K4: one CTA per (bh, Q tile), looping over the KV tiles up to the
 //   diagonal; only the diagonal tile is masked.
 //   K5: one CTA per (bh, KV tile), looping over the Q tiles from the diagonal
 //   (i_first in the reference) to the end; it computes S^T = K Q^T so the
 //   row-owned layout holds the tile's keys, and writes dK and dV once, with
 //   no atomics.
-// Products: in bf16, mma.sync m16n8k16 with fp32 accumulation, the operand
-// fragments read from padded shared memory (8 elements of padding per row
-// spread a fragment's rows over the banks); P and dS are rounded to bf16
-// before the second product of a kernel, as tensor cores require. In fp32,
-// plain fp32 FMA chains (no TF32), so the fp32 results differ from the plain
-// version by summation order only. Tiles are loaded synchronously with
-// 16-byte vector loads; rows past seq load as zeros, are masked (keys past a
-// valid query are causally dead; queries past seq are masked explicitly in
-// K5) and are never written. Offsets into (bh, seq, D) tensors are 64-bit.
-// Not done yet (later PRs): cp.async/TMA double buffering, ldmatrix, wgmma
-// and warp specialisation.
+// Rows past seq load as zeros, are masked (keys past a valid query are
+// causally dead; queries past seq are masked explicitly in K5) and are never
+// written. Offsets into (bh, seq, D) tensors are 64-bit.
+//
+// bf16 K3 and K5 (flash_fwd_kernel_wgmma, flash_bwd_dkv_kernel_wgmma) are
+// built for Hopper: the CTA is one warpgroup; its stationary tile (Q in K3,
+// K and V in K5) is loaded once and the moving tiles (K/V in K3; Q, dO and
+// their lse/delta rows in K5) come through a 2-stage ring of cp.async copies
+// (zero-filled past seq), the next tile in flight while one computes. Tiles
+// sit in shared memory in the wgmma 128-byte-swizzle layout. Every product
+// is a wgmma with fp32 accumulation: the score products (S, and K5's dP^T)
+// take both operands from shared memory, K-major; the second products (O +=
+// P V; dV += P^T dO, dK += dS^T Q) take P or dS from registers, rounded to
+// bf16 straight from the accumulator layout (two adjacent 8-column slices
+// are one k16 A fragment), and B from shared memory through the transpose
+// bit. No P or dS tile goes through shared memory. The softmax runs in
+// log2 units (exp2 of one FMA per score). Their grid is 1-D and head-major:
+// the CTAs of one head run side by side, so each K/V (K3) or Q/dO (K5) tile,
+// which 1-16 CTAs of the head read, comes from L2 after its first read.
+// With bh on the fastest axis instead, the CTAs in flight together belong
+// to different heads, and their tile reads (905 MB per launch at the
+// training shape, 8.3x the two tensors they come from) find little in L2:
+// on an H100, K3 takes about 1.8x as long that way and K5 about 1.2x
+// (chip_flash_probe.py times both orders; PERF.md).
+// bf16 K4 and every fp32 kernel keep the first design: mma.sync m16n8k16
+// (bf16) or plain fp32 FMA chains (fp32: no TF32, so the fp32 results differ
+// from the plain version by summation order only), operands read from
+// padded shared memory (8 elements of padding per row), tiles loaded
+// synchronously with 16-byte vector loads. P and dS are rounded to bf16
+// before the second product of a bf16 kernel, as tensor cores require.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -445,12 +466,448 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 }
 
 // ---------------------------------------------------------------------------
+// Hopper building blocks of the bf16 K3 and K5: cp.async tile loads into the
+// wgmma 128-byte-swizzle layout, shared-memory matrix descriptors, and wgmma
+// with both operands in shared memory (SS) or A in registers (RS).
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kSwzCols = kBlock * 128;  // bytes of one 64-row x 128-byte swizzle column
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A swizzled tile holds 64 rows of D bf16 as D / 64 columns of 64 rows x
+// 128 bytes (one swizzle atom is 8 rows x 128 bytes, 1024-byte aligned);
+// 16-byte chunk c of row r sits at chunk (c ^ r) & 7 of its 128-byte row,
+// the layout the hardware's 128-byte swizzle expects.
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return (c >> 3) * kSwzCols + r * 128 + (((c ^ r) & 7) << 4);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// makes this thread's landed copies visible to wgmma (the async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Rows [row0, row0 + 64) of a row-major (seq, D) bf16 matrix into the
+// swizzled tile at dst, as 16-byte cp.async copies; rows past seq are
+// zero-filled (src-size 0, from a valid address).
+template <int D>
+__device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* __restrict__ src, int row0,
+                                                int seq) {
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int n = 0; n < kBlock * kChunks / kThreads; ++n) {
+    const int i = threadIdx.x + n * kThreads;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool valid = row0 + r < seq;
+    cp_async16(dst + swizzled(r, c), src + (int64_t)(valid ? row0 + r : 0) * D + c * 8, valid);
+  }
+}
+
+// 64 fp32 row statistics from row0: lse by threads 0-63, delta by 64-127,
+// as 4-byte copies (a row's base bh * seq * 4 bytes is 16-byte aligned only
+// when seq % 4 == 0); rows past seq read 0
+__device__ __forceinline__ void load_rows_async(uint32_t dst, const float* __restrict__ lse,
+                                                const float* __restrict__ delta, int row0, int seq) {
+  const int r = threadIdx.x & (kBlock - 1);
+  const bool valid = row0 + r < seq;
+  const float* src = threadIdx.x < kBlock ? lse : delta;
+  cp_async4(dst + (threadIdx.x < kBlock ? 0 : kBlock * 4) + 4 * r, src + (valid ? row0 + r : 0), valid);
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), 128-byte swizzle
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+// K-major operand (64 rows x 16 k, k contiguous): k slice kk of a swizzled
+// tile; 8-row groups 1024 bytes apart, the slice 32 bytes into its column
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return make_desc(tile + (kk >> 2) * kSwzCols + (kk & 3) * 32, 16, 1024);
+}
+// MN-major operand (16 k rows x all D columns, the columns contiguous; used
+// with the transpose bit): rows 16 kk .. 16 kk + 15 of a swizzled tile;
+// 8-row groups 1024 bytes apart, 64-column blocks kSwzCols apart
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return make_desc(tile + kk * 16 * 128, kSwzCols, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from touching registers an in-flight wgmma reads or
+// writes: reads of an accumulator stay after the wait, and an A fragment
+// stays allocated until it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define RT_F8(d, i)                                                                           \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (+)= A B for a 64 x 64 x 16 product, A and B K-major in shared memory;
+// d[4 * nt + e] is row 16 w + g + 8 (e >> 1), column 8 nt + 2 t + (e & 1)
+// for warp w, lane 4 g + t
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : RT_F8(d, 0), RT_F8(d, 8), RT_F8(d, 16), RT_F8(d, 24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A B for a 64 x N x 16 product, A (4 bf16x2 registers: the mma.sync
+// m16n8k16 A fragment of each warp's 16 rows) from registers, B MN-major in
+// shared memory (the transpose bit)
+template <int N>
+__device__ void wgmma_rs_mn(float (&d)[N / 2], const uint32_t* a, uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<64>(float (&d)[32], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : RT_F8(d, 0), RT_F8(d, 8), RT_F8(d, 16), RT_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<128>(float (&d)[64], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : RT_F8(d, 0), RT_F8(d, 8), RT_F8(d, 16), RT_F8(d, 24), RT_F8(d, 32), RT_F8(d, 40),
+        RT_F8(d, 48), RT_F8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+#undef RT_F8
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A 64 x 64 tile held in the accumulator layout as bf16 A fragments: k
+// slice kk (columns 16 kk .. 16 kk + 15) is 8-column slices 2 kk and
+// 2 kk + 1, i.e. x[8 kk .. 8 kk + 7]
+__device__ __forceinline__ void to_a_frags(const float (&x)[32], uint32_t (&a)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    a[i] = *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// the generic pointer and shared address of dynamic shared memory rounded
+// up to 1024 bytes (swizzle atoms must be 1024-byte aligned)
+struct AlignedSmem {
+  unsigned char* ptr;
+  uint32_t addr;
+};
+__device__ __forceinline__ AlignedSmem aligned_smem(unsigned char* raw) {
+  const uint32_t a = smem_addr(raw);
+  const uint32_t pad = ((a + 1023u) & ~1023u) - a;
+  return {raw + pad, a + pad};
+}
+
+// ---------------------------------------------------------------------------
+// K3, bf16 on Hopper. A 1-D grid of bh x Q tiles, head-major so that the
+// CTAs of one head run together and its K/V tiles come from L2; within a
+// head the longest rows first. Shared memory: Q, then the two stages' K and
+// V tiles.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
+                       int seq, float scale) {
+  constexpr int kTile = kBlock * D * 2;  // bytes of a (64, D) bf16 tile
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sq = aligned_smem(smem_raw).addr;
+
+  const int nq = (seq + kBlock - 1) / kBlock;
+  const int bh = blockIdx.x / nq;
+  const int qi = nq - 1 - blockIdx.x % nq;
+  const int q0 = qi * kBlock;
+  const int64_t base = (int64_t)bh * seq * D;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;  // this warp's first row in the tile
+  const float sl2 = scale * kLog2e;        // scores to log2 units
+
+  load_tile_async<D>(sq, q + base, q0, seq);
+  load_tile_async<D>(sq + kTile, k + base, 0, seq);
+  load_tile_async<D>(sq + 2 * kTile, v + base, 0, seq);
+  cp_async_commit();
+
+  float m[2] = {-INFINITY, -INFINITY};  // running row max, log2 units
+  float l[2] = {0.f, 0.f};              // this thread's part of the row sums
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int j = 0; j <= qi; ++j) {
+    const uint32_t sk = sq + (1 + 2 * (j & 1)) * kTile, sv = sk + kTile;
+    if (j < qi) {  // tile j + 1 into the other stage, in flight while j computes
+      const uint32_t nk = sq + (1 + 2 * ((j + 1) & 1)) * kTile;
+      load_tile_async<D>(nk, k + base, (j + 1) * kBlock, seq);
+      load_tile_async<D>(nk + kTile, v + base, (j + 1) * kBlock, seq);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // Q and tile j have landed
+    fence_async_smem();
+    __syncthreads();
+
+    float s[32];  // S = Q K^T
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(s, desc_k(sq, kk), desc_k(sk, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    if (j == qi) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if (8 * (i >> 2) + 2 * t + (i & 1) > r0 + g + 8 * ((i >> 1) & 1)) s[i] = -INFINITY;  // key > query
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mnew = fmaxf(m[h], quad_max(mx[h]) * sl2);  // finite: key 0 of a row is live
+      corr[h] = fast_exp2(m[h] - mnew);
+      m[h] = mnew;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      s[i] = fast_exp2(fmaf(s[i], sl2, -m[h]));
+      l[h] += s[i];
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+
+    uint32_t pa[16];  // P, bf16, as A fragments
+    to_a_frags(s, pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBlock / 16; ++kk) wgmma_rs_mn<D>(o, pa + 4 * kk, desc_mn(sv, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + g + 8 * h;
+    const float lh = fmaxf(quad_sum(l[h]), 1e-30f);
+    if (row >= seq) continue;
+    const float inv = 1.f / lh;
+    bf16* dst = out + base + (int64_t)row * D + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) store2(dst + 8 * nt, o[4 * nt + 2 * h] * inv, o[4 * nt + 2 * h + 1] * inv);
+    if (t == 0) lse[(int64_t)bh * seq + row] = (m[h] + log2f(lh)) * kLn2;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5, bf16 on Hopper. A 1-D grid of bh x KV tiles, head-major as K3's;
+// within a head the first KV tiles (the most live Q tiles) first. Shared
+// memory: K, V, the two stages' Q and dO tiles, then the two stages' lse
+// and delta rows.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int seq, float scale) {
+  constexpr int kTile = kBlock * D * 2;
+  constexpr int kRows = 2 * kBlock * 4;  // bytes of a stage's lse and delta rows
+  extern __shared__ unsigned char smem_raw[];
+  const AlignedSmem smem = aligned_smem(smem_raw);
+  const uint32_t sk = smem.addr, sv = sk + kTile;
+  // stage s: Q at sk + (2 + 2 s) kTile, dO after it; rows at sk + 6 kTile + s kRows
+
+  const int nq = (seq + kBlock - 1) / kBlock;
+  const int bh = blockIdx.x / nq;
+  const int kj = blockIdx.x % nq;
+  const int k0 = kj * kBlock;
+  const int64_t base = (int64_t)bh * seq * D;
+  const float* lse_bh = lse + (int64_t)bh * seq;
+  const float* delta_bh = delta + (int64_t)bh * seq;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;  // this warp's first key row in the tile
+  const float sl2 = scale * kLog2e;
+
+  load_tile_async<D>(sk, k + base, k0, seq);
+  load_tile_async<D>(sv, v + base, k0, seq);
+  load_tile_async<D>(sk + 2 * kTile, q + base, k0, seq);
+  load_tile_async<D>(sk + 3 * kTile, dout + base, k0, seq);
+  load_rows_async(sk + 6 * kTile, lse_bh, delta_bh, k0, seq);
+  cp_async_commit();
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = kj; i < nq; ++i) {  // i_first = kj: the diagonal tile
+    const int st = (i - kj) & 1;
+    const int q0 = i * kBlock;
+    if (i + 1 < nq) {  // Q tile i + 1 into the other stage
+      const uint32_t nq_tile = sk + (2 + 2 * (st ^ 1)) * kTile;
+      load_tile_async<D>(nq_tile, q + base, q0 + kBlock, seq);
+      load_tile_async<D>(nq_tile + kTile, dout + base, q0 + kBlock, seq);
+      load_rows_async(sk + 6 * kTile + (st ^ 1) * kRows, lse_bh, delta_bh, q0 + kBlock, seq);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // K, V and stage st have landed
+    fence_async_smem();
+    __syncthreads();
+    const uint32_t sq = sk + (2 + 2 * st) * kTile, sdo = sq + kTile;
+    const float* slse = reinterpret_cast<const float*>(smem.ptr + 6 * kTile + st * kRows);
+    const float* sdelta = slse + kBlock;
+
+    float pt[32], dpt[32];  // S^T = K Q^T and dP^T = V dO^T: rows keys, columns queries
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(pt, desc_k(sk, kk), desc_k(sq, kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(dpt, desc_k(sv, kk), desc_k(sdo, kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T has landed
+    fence_regs(pt);
+
+    // P^T = exp(scale S^T - lse), in log2 units
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float2 lq = *reinterpret_cast<const float2*>(slse + 8 * nt + 2 * t);
+      pt[4 * nt] = fast_exp2(fmaf(pt[4 * nt], sl2, -lq.x * kLog2e));
+      pt[4 * nt + 1] = fast_exp2(fmaf(pt[4 * nt + 1], sl2, -lq.y * kLog2e));
+      pt[4 * nt + 2] = fast_exp2(fmaf(pt[4 * nt + 2], sl2, -lq.x * kLog2e));
+      pt[4 * nt + 3] = fast_exp2(fmaf(pt[4 * nt + 3], sl2, -lq.y * kLog2e));
+    }
+    if (i == kj || q0 + kBlock > seq) {
+      const bool diag = i == kj;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int key = r0 + g + 8 * ((e >> 1) & 1), qc = 8 * (e >> 2) + 2 * t + (e & 1);
+        if ((diag && key > qc) || q0 + qc >= seq) pt[e] = 0.f;  // causally dead or past seq
+      }
+    }
+
+    uint32_t pa[16];  // P^T, bf16, as A fragments
+    to_a_frags(pt, pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBlock / 16; ++kk) wgmma_rs_mn<D>(dva, pa + 4 * kk, desc_mn(sdo, kk));  // dV += P^T dO
+    wgmma_commit();
+    // dP^T has landed; at d 128 the dV product is waited for too, which
+    // frees P^T's fragments before dS^T's are built
+    wgmma_wait<(D == 64 ? 1 : 0)>();
+    fence_regs(dpt);
+    if constexpr (D != 64) fence_regs(pa);
+
+    // dS^T = P^T (dP^T - delta) scale
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float2 dl = *reinterpret_cast<const float2*>(sdelta + 8 * nt + 2 * t);
+      dpt[4 * nt] = pt[4 * nt] * (dpt[4 * nt] - dl.x) * scale;
+      dpt[4 * nt + 1] = pt[4 * nt + 1] * (dpt[4 * nt + 1] - dl.y) * scale;
+      dpt[4 * nt + 2] = pt[4 * nt + 2] * (dpt[4 * nt + 2] - dl.x) * scale;
+      dpt[4 * nt + 3] = pt[4 * nt + 3] * (dpt[4 * nt + 3] - dl.y) * scale;
+    }
+    uint32_t dsa[16];
+    to_a_frags(dpt, dsa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBlock / 16; ++kk) wgmma_rs_mn<D>(dka, dsa + 4 * kk, desc_mn(sq, kk));  // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    if constexpr (D == 64) fence_regs(pa);
+    fence_regs(dsa);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = k0 + r0 + g + 8 * h;
+    if (row >= seq) continue;
+    bf16* ok = dk + base + (int64_t)row * D + 2 * t;
+    bf16* ov = dv + base + (int64_t)row * D + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      store2(ok + 8 * nt, dka[4 * nt + 2 * h], dka[4 * nt + 2 * h + 1]);
+      store2(ov + 8 * nt, dva[4 * nt + 2 * h], dva[4 * nt + 2 * h + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
-// dynamic shared memory of a kernel (kind 0 = K3, 1 = K4, 2 = K5): its
-// padded (64, D) tiles, its (64, 64) P/dS tiles and K5's lse/delta rows
+// dynamic shared memory of a kernel (kind 0 = K3, 1 = K4, 2 = K5). bf16 K3
+// and K5: their swizzled (64, D) tiles (K3 Q and two stages of K and V; K5
+// K, V and two stages of Q and dO), K5's two stages of lse and delta rows,
+// and 1024 bytes to align the tiles. The others: their padded (64, D)
+// tiles, their (64, 64) P/dS tiles and K5's lse/delta rows.
 constexpr size_t smem_bytes(int kind, int d, size_t esize) {
+  if (esize == sizeof(bf16) && kind != 1) {
+    const size_t tile = kBlock * d * esize;
+    return kind == 0 ? 5 * tile + 1024 : 6 * tile + 2 * 2 * kBlock * sizeof(float) + 1024;
+  }
   return kind == 0   ? kBlock * (3 * (d + kPad) + kLdp) * esize
          : kind == 1 ? kBlock * (4 * (d + kPad) + kLdp) * esize
                      : kBlock * (4 * (d + kPad) + 2 * kLdp) * esize + 2 * kBlock * sizeof(float);
@@ -466,13 +923,23 @@ template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int bh,
                        int seq, float scale, cudaStream_t st) {
   const size_t smem = smem_bytes(0, D, sizeof(T));
-  auto kernel = flash_fwd_kernel<T, D>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (seq + kBlock - 1) / kBlock);
-  kernel<<<grid, kThreads, smem, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                       static_cast<const T*>(v), static_cast<T*>(out),
-                                       static_cast<float*>(lse), seq, scale);
+  const int tiles = (seq + kBlock - 1) / kBlock;
+  cudaError_t err;
+  if constexpr (kIsF32<T>) {
+    auto kernel = flash_fwd_kernel<T, D>;
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(bh, tiles), kThreads, smem, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                         static_cast<const T*>(v), static_cast<T*>(out),
+                                         static_cast<float*>(lse), seq, scale);
+  } else {
+    auto kernel = flash_fwd_kernel_wgmma<D>;
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<(unsigned)bh * tiles, kThreads, smem, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                         static_cast<const T*>(v), static_cast<T*>(out),
+                                         static_cast<float*>(lse), seq, scale);
+  }
   return cudaGetLastError();
 }
 
@@ -497,14 +964,25 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        const void* lse, const void* delta, void* dk, void* dv, int bh, int seq,
                        float scale, cudaStream_t st) {
   const size_t smem = smem_bytes(2, D, sizeof(T));
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (seq + kBlock - 1) / kBlock);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), seq, scale);
+  const int tiles = (seq + kBlock - 1) / kBlock;
+  cudaError_t err;
+  if constexpr (kIsF32<T>) {
+    auto kernel = flash_bwd_dkv_kernel<T, D>;
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(bh, tiles), kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), seq, scale);
+  } else {
+    auto kernel = flash_bwd_dkv_kernel_wgmma<D>;
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<(unsigned)bh * tiles, kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), seq, scale);
+  }
   return cudaGetLastError();
 }
 

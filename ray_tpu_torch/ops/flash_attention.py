@@ -116,10 +116,12 @@ def kernel_smem_bytes(name: str, head_dim: int, dtype: torch.dtype) -> int:
 
 
 def _check_kernel_args(kernel: str, q, tensors: dict, rows: dict) -> None:
-    """q and the other ``tensors`` are (bh, seq, d) of one float dtype,
-    ``rows`` (lse, delta) are (bh, seq) fp32; all contiguous on q's CUDA
-    device; d is a compiled head dim. The head dim and dtype are checked
-    first: they are what the kernels lack, whatever the device."""
+    """q and the other ``tensors`` are (bh, seq, d) of one float dtype and
+    start at a 16-byte-aligned address (the kernels copy their rows in
+    16-byte pieces), ``rows`` (lse, delta) are (bh, seq) fp32; all
+    contiguous on q's CUDA device; d is a compiled head dim. The head dim,
+    dtype and alignment are checked first: they are what the kernels lack,
+    whatever the device."""
     if q.dim() != 3:
         raise ValueError(f"{kernel} takes (bh, seq, head_dim) operands, got q {tuple(q.shape)}")
     if q.shape[-1] not in KERNEL_HEAD_DIMS:
@@ -131,6 +133,9 @@ def _check_kernel_args(kernel: str, q, tensors: dict, rows: dict) -> None:
         want = (q.shape, q.dtype) if name not in rows else (q.shape[:2], torch.float32)
         if (t.shape, t.dtype) != want:
             raise ValueError(f"{kernel}: {name} is {tuple(t.shape)} {t.dtype}, expected {want}")
+        if name not in rows and t.data_ptr() % 16:
+            raise ValueError(f"{kernel} needs {name} at a 16-byte-aligned address, got "
+                             f"{t.data_ptr():#x}")
     for name, t in operands.items():
         if not t.is_cuda:
             raise ValueError(f"{kernel} needs CUDA tensors; {name} is on {t.device}")

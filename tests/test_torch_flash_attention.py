@@ -137,3 +137,34 @@ def test_kernel_wrappers_check_their_arguments():
     with pytest.raises(ValueError, match="expected"):
         port.flash_bwd_dq_cuda(q, q, q, q, rows.double(), rows)
     assert port.flash_fwd_cuda.launches == 0
+
+
+def _misaligned(shape, dtype):
+    """A contiguous tensor of ``shape`` that starts one element past a
+    16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+@pytest.mark.parametrize("kernel,operand", [("fwd", "q"), ("fwd", "v"), ("dq", "k"), ("dkv", "do")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_wrappers_refuse_misaligned_operands(kernel, operand, dtype):
+    """The kernels copy rows in 16-byte pieces: an operand that does not
+    start at a 16-byte-aligned address is refused before the device check,
+    so the CPU sees the refusal the card would give. lse and delta rows
+    are read 4 bytes at a time and need no such alignment."""
+    shape = (2, 8, 64)
+    args = {name: torch.zeros(shape, dtype=dtype) for name in ("q", "k", "v", "do")}
+    args[operand] = _misaligned(shape, dtype)
+    assert args[operand].is_contiguous() and args[operand].data_ptr() % 16
+    rows = _misaligned((2, 8), torch.float32)  # lse, delta: refused only for their device
+    calls = {
+        "fwd": lambda: port.flash_fwd_cuda(args["q"], args["k"], args["v"]),
+        "dq": lambda: port.flash_bwd_dq_cuda(args["q"], args["k"], args["v"], args["do"], rows, rows),
+        "dkv": lambda: port.flash_bwd_dkv_cuda(args["q"], args["k"], args["v"], args["do"], rows, rows),
+    }
+    with pytest.raises(ValueError, match=f"needs {operand} at a 16-byte-aligned address"):
+        calls[kernel]()
+    args[operand] = torch.zeros(shape, dtype=dtype)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        calls[kernel]()

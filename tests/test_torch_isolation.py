@@ -1,5 +1,5 @@
-"""The port stands alone: ray_tpu_torch, chip_smoke.py and chip_mutants.py import nothing of
-JAX or of the JAX package, and the port's entry points never fall back to
+"""The port stands alone: ray_tpu_torch and the chip scripts (chip_smoke.py,
+chip_mutants.py, chip_flash_probe.py) import nothing of JAX or of the JAX package, and the port's entry points never fall back to
 the CPU when the card is missing."""
 
 import ast
@@ -16,7 +16,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ray_tpu"}
 
 
 def _port_files():
-    return sorted((REPO / "ray_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_mutants.py"]
+    chip = ("chip_smoke.py", "chip_mutants.py", "chip_flash_probe.py")
+    return sorted((REPO / "ray_tpu_torch").rglob("*.py")) + [REPO / name for name in chip]
 
 
 def _imported_top_names(path: Path):
