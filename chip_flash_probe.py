@@ -1,38 +1,74 @@
 #!/usr/bin/env python3
-"""Probes of the bf16 flash kernels' Hopper design (K3 and K5), on one GPU.
+"""Probes of the Hopper designs of the bf16 flash kernels (K3-K5) and of
+the paged decode kernel (K1), on one GPU.
 
     python3 chip_flash_probe.py      # from the repository root, one NVIDIA H100
+    python3 chip_flash_probe.py --old-k1 OLD.cu   # and phase 6, against an older K1
 
-1. helpers: one product of each ``wgmma`` form the kernels use, on one
-   64-row tile, against a torch matmul: S = A B^T with both operands
+``OLD.cu`` is an earlier ``paged_attention.cu`` with the one-pass C entry
+point ``paged_decode_attention(q, k_pool, v_pool, tables, lengths, out,
+slots, heads, head_dim, num_blocks, block_size, tmax, scale, dtype,
+stream)``, for example ``git show <commit>:ray_tpu_torch/ops/csrc/
+paged_attention.cu`` of a commit before the split-context design.
+
+1. helpers: one product of each ``wgmma`` form the flash kernels use, on
+   one 64-row tile, against a torch matmul: S = A B^T with both operands
    K-major in shared memory (SS), and O = P V with P from registers and V
    MN-major through the transpose bit (RS), at d 64 and 128. A wrong
    descriptor gives wrong numbers, not a fault; this names the product.
-2. variants: copies of ``flash_attention.cu`` with one change each, built
-   into ``ray_tpu_torch/_build/probe/`` and timed in turns with the real
-   K3 and K5 at the training shape (bh 416, seq 1024, d 64, bf16): bh on
-   the grid's fastest axis (the first design's order), and register caps
-   that would fit more CTAs on an SM.
-3. K4 after other kernels: K4 (dQ) from an idle card, and right after
+2. flash variants: copies of ``flash_attention.cu`` with one change each,
+   built into ``ray_tpu_torch/_build/probe/`` and timed in turns with the
+   real K3, K4 and K5 at the training shape (bh 416, seq 1024, d 64,
+   bf16): bf16 K4 on the first design's ``mma.sync`` kernel, bh on the
+   grid's fastest axis (the first design's order), and register caps that
+   would fit more CTAs on an SM.
+3. K1 variants at the decode timing shape (8 slots x 1024, bf16): the real
+   kernel at splits of 64, 128 and 256 positions, and copies of
+   ``paged_attention.cu`` with 16-byte ``cp.async`` copies in place of the
+   bulk page copies, another ring size, four warps of four tokens a page
+   in place of eight of two, no L2 evict-first hint, or the merge as a
+   second kernel in place of the last split's, and the real kernel with
+   its tickets zeroed by a memset each call (with ``--old-k1``, the older
+   kernel too); each checked against the plain version, the real kernel's
+   split partials against ``decode_partials_torch``, then timed in turns
+   beside a plain torch read of as many bytes.
+4. K4 after other kernels: K4 (dQ) from an idle card, and right after
    200 launches of K3 or K5, with the SM clock and power read after each.
+5. the 406M training step (chip_smoke.py phase 17's shape) with the
+   ``wgmma`` K4 and with the ``mma.sync`` copy of phase 2, swapped in the
+   same process, in turns.
+6. with ``--old-k1``: K1's wrapper and the older kernel behind the older
+   wrapper (the one-pass call: checks, ``empty_like``, the launch), host
+   time per call in turns at phase 7's context; then the GPT-J-6B decode
+   step (chip_smoke.py phase 7's engine and traffic) with each swapped
+   into the model runner in the same process, in turns: wall time per
+   step without the profiler, and K1's device time per step under it.
 
-Exits non-zero when a build fails or a helper product disagrees.
+Exits non-zero when a build fails, a helper product disagrees, a flash
+copy's dq disagrees with the real K4's or a K1 variant with the plain
+version.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 import chip_smoke as cs
-from chip_mutants import build_sources, edited_source
+from chip_mutants import build_sources, edited_source, use_library
+from ray_tpu_torch.llm import model_runner
+from ray_tpu_torch.models.gpt import gpt_init, gpt_loss
 from ray_tpu_torch.ops import _kernels
 from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.ops import paged_attention as pa
+from ray_tpu_torch.parallel import adamw, build_train_step
 
 SOURCE = _kernels.CSRC / "flash_attention.cu"
 
@@ -109,10 +145,17 @@ extern "C" int probe_rs(const void* p, const void* v, void* o, int d) {{
 
 # each variant: replacements in flash_attention.cu (``edited_source``)
 VARIANTS = {
+    "K4 on mma.sync (the first design)": [
+        ("  if constexpr (kIsF32<T>) {\n    auto kernel = flash_bwd_dq_kernel<T, D>;",
+         "  if constexpr (true) {\n    auto kernel = flash_bwd_dq_kernel<T, D>;")],
     "bh fastest (the first design's grid order)": [
         ("  const int bh = blockIdx.x / nq;\n  const int qi = nq - 1 - blockIdx.x % nq;",
          "  const int nbh = gridDim.x / nq;\n  const int bh = blockIdx.x % nbh;\n"
          "  const int qi = nq - 1 - blockIdx.x / nbh;"),
+        ("  const int qi = tiles - 1 - blockIdx.x % tiles;  // within a head, the longest rows first\n"
+         "  const int bh = blockIdx.x / tiles;",
+         "  const int nbh = gridDim.x / tiles;\n  const int bh = blockIdx.x % nbh;\n"
+         "  const int qi = tiles - 1 - blockIdx.x / nbh;"),
         ("  const int bh = blockIdx.x / nq;\n  const int kj = blockIdx.x % nq;",
          "  const int nbh = gridDim.x / nq;\n  const int bh = blockIdx.x % nbh;\n"
          "  const int kj = blockIdx.x / nbh;")],
@@ -124,15 +167,82 @@ VARIANTS = {
 }
 
 
-def build_all() -> dict:
-    """The real library, the helper probe and every variant, one nvcc each,
-    all started together: {name: (library path, -Xptxas -v report)}."""
+# the merge as a second kernel, grid (heads, slots), after the split kernel
+# (whose CTAs then never take the merge)
+K1_MERGE_KERNEL = """template <typename T, int D>
+__global__ void __launch_bounds__(D)
+merge_kernel(const float* __restrict__ scratch, const int* __restrict__ lengths, T* __restrict__ out,
+             int heads, int block_size, int tmax, int split_tokens, int splits) {
+  const int h = blockIdx.x, s = blockIdx.y, d = threadIdx.x;
+  const int length = max(0, min(lengths[s], tmax * block_size));
+  const int live = (length + split_tokens - 1) / split_tokens;
+  const float* part = scratch + ((int64_t)s * heads + h) * splits * (D + 2);
+  float mx = kNegInf;
+  for (int i = 0; i < live; ++i) mx = fmaxf(mx, part[i * (D + 2) + D]);
+  float num = 0.f, den = 0.f;
+  for (int i = 0; i < live; ++i) {
+    const float w = expf(part[i * (D + 2) + D] - mx);
+    num += part[i * (D + 2) + d] * w;
+    den += part[i * (D + 2) + D + 1] * w;
+  }
+  out[((int64_t)s * heads + h) * D + d] = Quad<T>::narrow(live > 0 ? num / den : 0.f);
+}
+
+template <typename T, int D>
+cudaError_t launch("""
+
+# load_page with 16-byte cp.async copies by every thread in place of thread
+# 0's two bulk copies; each thread's copies land as one arrival on the
+# stage's barrier, which then counts every thread
+K1_CP_ASYNC_LOAD = """  const char* kp = reinterpret_cast<const char*>(k_pool + src);
+  const char* vp = reinterpret_cast<const char*>(v_pool + src);
+  for (uint32_t c = threadIdx.x * 16; c < bytes; c += kThreads * 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n" ::"r"(dst + c), "l"(kp + c) : "memory");
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n" ::"r"(dst + bytes + c), "l"(vp + c) : "memory");
+  }
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\\n" ::"r"(bar) : "memory");
+}"""
+
+# each K1 variant: replacements in paged_attention.cu
+K1_VARIANTS = {
+    "cp.async copies in place of bulk copies": [
+        ("  if (threadIdx.x == 0) {\n    const uint64_t policy = evict_first_policy();\n"
+         "    mbar_expect_tx(bar, 2 * bytes);\n    bulk_copy(dst, k_pool + src, bytes, bar, policy);\n"
+         "    bulk_copy(dst + bytes, v_pool + src, bytes, bar, policy);\n  }\n}", K1_CP_ASYNC_LOAD),
+        ("mbar_init(smem_addr(bars + i), 1);", "mbar_init(smem_addr(bars + i), kThreads);")],
+    "ring of 64 KB": [("constexpr int kRingBytes = 32 * 1024;", "constexpr int kRingBytes = 64 * 1024;")],
+    "4 warps of 4 tokens a page": [("constexpr int kWarps = 8;", "constexpr int kWarps = 4;"),
+                                   ("constexpr int kUnroll = 2;", "constexpr int kUnroll = 4;")],
+    "no L2 evict-first hint": [("createpolicy.fractional.L2::evict_first", "createpolicy.fractional.L2::evict_normal")],
+    "merge in a second kernel": [
+        ("sm_last = atomicAdd(tickets + (int64_t)s * heads + h, 1) == live_splits - 1;", "sm_last = false;"),
+        ("template <typename T, int D>\ncudaError_t launch(", K1_MERGE_KERNEL),
+        ("      pages_per_split, stages, scale);\n  return cudaGetLastError();",
+         "      pages_per_split, stages, scale);\n"
+         "  merge_kernel<T, D><<<dim3(heads, slots), D, 0, stream>>>(\n"
+         "      static_cast<const float*>(scratch), static_cast<const int*>(lengths), static_cast<T*>(out),\n"
+         "      heads, block_size, tmax, pages_per_split * block_size, std::max(splits, 1));\n"
+         "  return cudaGetLastError();")],
+}
+# the real K1 at these split sizes (positions)
+K1_SPLITS = (64, 128, 256)
+
+
+def build_all(old_k1: str | None) -> dict:
+    """The real libraries, the helper probe, every variant and the older K1
+    source ``old_k1`` (under "old K1") if given, one nvcc each, all started
+    together: {name: (library path, -Xptxas -v report)}."""
     sources = {"helpers": HELPERS_CU.format(source=SOURCE)}
     sources.update({name: edited_source(edits) for name, edits in VARIANTS.items()})
-    with ThreadPoolExecutor(1) as pool:
-        real = pool.submit(_kernels.build, "flash_attention")
+    sources.update({name: edited_source(edits, "paged_attention") for name, edits in K1_VARIANTS.items()})
+    if old_k1:
+        with open(old_k1) as f:
+            sources["old K1"] = f.read()
+    with ThreadPoolExecutor(2) as pool:
+        reals = [pool.submit(_kernels.build, name) for name in ("flash_attention", "paged_attention")]
         built = build_sources(sources, "probe")
-        real.result()
+        for real in reals:
+            real.result()
     return built
 
 
@@ -163,16 +273,21 @@ def check_helpers(path) -> bool:
     return ok
 
 
-def wgmma_report(log: str) -> list:
-    """'K3 d=64: 117 registers, 0 bytes spill stores' for each wgmma kernel
-    instance in an -Xptxas -v report."""
+def bf16_report(log: str) -> list:
+    """'K3 d=64: 117 registers, 0 bytes spill stores' for each bf16 kernel
+    instance in an -Xptxas -v report (K1's bf16 kernels, or the flash
+    kernels: wgmma, or mma.sync when marked so)."""
     out, current, spill = [], None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
             current = None
-            if "wgmma" in name:
-                current = f"{'K3' if 'flash_fwd' in name else 'K5'} d={128 if 'Li128E' in name else 64}"
+            if ("paged_decode" in name or "merge_kernel" in name) and "nv_bfloat16" in name:
+                current = f"K1 {'split' if 'split' in name else 'merge'}"
+            elif "nv_bfloat16" in name:
+                kernel = "K3" if "flash_fwd" in name else "K4" if "flash_bwd_dq" in name else "K5"
+                current = (f"{kernel}{'' if 'wgmma' in name else ' (mma.sync)'} "
+                           f"d={128 if 'Li128E' in name else 64}")
         elif current and "spill stores" in line:
             spill = line.split(",")[1].strip()
         elif current and "Used" in line and "registers" in line:
@@ -181,9 +296,10 @@ def wgmma_report(log: str) -> list:
     return sorted(out)
 
 
-def time_variants(built: dict) -> None:
-    """Phase 2: the real K3 and K5 and each variant's, in turns (forward
-    order then reverse), 100 launches each between CUDA events."""
+def time_variants(built: dict) -> bool:
+    """Phase 2: the real K3, K4 and K5 and each variant's, in turns
+    (forward order then reverse), 100 launches each between CUDA events.
+    Returns whether every copy's dq agrees with the real K4's."""
     bh, seq, d = cs.TRAIN_B * cs.TRAIN_H, cs.TRAIN_S, cs.TRAIN_D
     g = torch.Generator(device="cuda").manual_seed(9)
     q, k, v, do = (torch.randn(bh, seq, d, device="cuda", generator=g, dtype=torch.bfloat16)
@@ -192,29 +308,173 @@ def time_variants(built: dict) -> None:
     delta = (do.float() * out.float()).sum(-1)
     o2, l2, dk2, dv2 = torch.empty_like(q), torch.empty_like(lse), torch.empty_like(q), torch.empty_like(q)
     stream = torch.cuda.current_stream().cuda_stream
+    dq2 = torch.empty_like(q)
     fns = {"real": {"K3": lambda: fa.flash_fwd_cuda(q, k, v),
+                    "K4": lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta),
                     "K5": lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta)}}
+    ok = True
     for name in VARIANTS:
         path, log = built[name]
         lib = ctypes.CDLL(str(path))
-        f, b = lib.flash_fwd, lib.flash_bwd_dkv
+        f, a, b = lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv
         f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        a.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         b.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fns[name] = {
             "K3": lambda f=f: f(q.data_ptr(), k.data_ptr(), v.data_ptr(), o2.data_ptr(), l2.data_ptr(),
                                 bh, seq, d, d ** -0.5, 1, stream),
+            "K4": lambda a=a: a(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                                delta.data_ptr(), dq2.data_ptr(), bh, seq, d, d ** -0.5, 1, stream),
             "K5": lambda b=b: b(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                                 delta.data_ptr(), dk2.data_ptr(), dv2.data_ptr(), bh, seq, d, d ** -0.5, 1,
                                 stream),
         }
-        print(f"variant {name}, -Xptxas -v of the wgmma kernels: " + "; ".join(wgmma_report(log)))
+        print(f"variant {name}, -Xptxas -v of the bf16 kernels: " + "; ".join(bf16_report(log)))
+    # every copy's dq against the real K4's: the copies change the schedule
+    # or the kernel, not what it computes (the mma.sync K4 rounds the same
+    # products in another order)
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta)
+    limit = 1e-2 * max(1.0, dq.float().abs().max().item())
+    for name in VARIANTS:
+        fns[name]["K4"]()
+        torch.cuda.synchronize()
+        gap = (dq2.float() - dq.float()).abs().max().item()
+        ok &= gap <= limit
+        print(f"variant {name}: dq max abs difference from the real K4 {gap:.3g} (limit {limit:.3g})")
     print(f"variants at bh {bh}, seq {seq}, d {d}, bf16 (ms per launch, in turns):")
-    for kernel in ("K3", "K5"):
-        times: dict = {}
-        for name in [*fns, *reversed(fns)]:
-            times.setdefault(name, []).append(cs.cuda_ms(fns[name][kernel], 100))
+    for kernel in ("K3", "K4", "K5"):
+        times = cs.in_turns({name: kernels[kernel] for name, kernels in fns.items()}, 100)
         print(f"  {kernel}: " + "; ".join(f"{n} {' / '.join(f'{t:.4f}' for t in ts)}"
                                          for n, ts in times.items()))
+    return ok
+
+
+def old_k1_fn(built: dict):
+    """The older K1's one-pass C entry point (``--old-k1``), or None."""
+    if "old K1" not in built:
+        return None
+    fn = ctypes.CDLL(str(built["old K1"][0])).paged_decode_attention
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def old_k1_wrapper(fn):
+    """The older kernel behind the wrapper it had (the one-pass call: the
+    same argument checks, ``empty_like``, the launch, the count), for
+    phase 6's host-time and decode-step comparisons."""
+
+    def call(q, k_pool, v_pool, block_tables, lengths):
+        if q.dim() != 3:
+            raise ValueError(f"paged decode kernel takes q (slots, heads, d), got {tuple(q.shape)}")
+        pa._check_kernel_args("paged decode kernel", q, k_pool, v_pool, block_tables, lengths, "lengths")
+        s, h, d = q.shape
+        num_blocks, _, block_size, _ = k_pool.shape
+        out = torch.empty_like(q)
+        if s == 0:
+            return out
+        with torch.cuda.device(q.device):
+            err = fn(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                s, h, d, num_blocks, block_size, block_tables.shape[1],
+                d**-0.5, pa._DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream,
+            )
+        pa._launched("paged_decode_attention", err)
+        call.launches += 1
+        return out
+
+    call.launches = 0
+    return call
+
+
+# the real K1's split partials against decode_partials_torch: both sum
+# exact fp32 products of the same bf16 inputs, in another order
+PARTIALS_TOL = 1e-3
+
+
+def time_k1_variants(built: dict) -> bool:
+    """Phase 3: the real K1 at each of ``K1_SPLITS``, each copy of
+    ``K1_VARIANTS`` (at the wrapper's split) and the older K1 if built, on
+    phase 4's inputs (8 slots x 1024, bf16): each against the plain version
+    (phase 3's bf16 tolerance), the real K1's live split partials against
+    ``decode_partials_torch`` (``PARTIALS_TOL``), then 200 launches each in
+    turns (forward order, then reverse). Returns whether all agree."""
+    dtype = torch.bfloat16
+    lens = torch.full((cs.S,), 1024)
+    q, kp, vp, tables, lengths = cs.k1_inputs(dtype, lens, seed=2)
+    ref = pa.paged_attention_torch(q, kp, vp, tables, lengths).float()
+    real = pa._decode_fn()
+    stream = torch.cuda.current_stream().cuda_stream
+    wrapper_split = pa.decode_splits(cs.T, cs.BS)[0]
+
+    def call(fn, split_tokens, zero_tickets=False):
+        # as the wrapper calls it: scratch allocated once, tickets zeroed
+        # once (each launch leaves them at zero), or by a memset each call
+        pps = split_tokens // cs.BS
+        splits = -(-cs.T // pps)
+        out = torch.empty_like(q)
+        scratch = torch.empty((cs.S, cs.H, splits, cs.D + 2), device="cuda")
+        tickets = torch.zeros((cs.S, cs.H), dtype=torch.int32, device="cuda")
+
+        def run():
+            if zero_tickets:
+                tickets.zero_()
+            return fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
+                      out.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), cs.S, cs.H, cs.D, cs.NB, cs.BS,
+                      cs.T, pps, cs.D ** -0.5, 1, stream)
+
+        run.scratch = scratch  # the last call's partials
+        return out, run
+
+    runs = {f"split {n}": call(real, n) for n in K1_SPLITS}
+    old = old_k1_fn(built)
+    if old is not None:
+        old_out = torch.empty_like(q)
+        runs["old K1 (--old-k1)"] = (old_out, lambda: old(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
+            old_out.data_ptr(), cs.S, cs.H, cs.D, cs.NB, cs.BS, cs.T, cs.D ** -0.5, 1, stream))
+    runs[f"split {wrapper_split}, tickets zeroed by a memset each call"] = call(real, wrapper_split, True)
+    for name in K1_VARIANTS:
+        path, log = built[name]
+        fn = ctypes.CDLL(str(path)).paged_decode_attention
+        fn.argtypes, fn.restype = real.argtypes, real.restype
+        runs[f"{name}, split {wrapper_split}"] = call(fn, wrapper_split)
+        print(f"K1 variant {name}, -Xptxas -v: " + "; ".join(bf16_report(log)))
+    ok = True
+    for name, (out, fn) in runs.items():
+        err = fn()
+        torch.cuda.synchronize()
+        gap = (out.float() - ref).abs().max().item()
+        ok &= err == 0 and gap <= cs.TOL[dtype]
+        print(f"K1 {name}: launch {err}, max abs error {gap:.3g} (tol {cs.TOL[dtype]})")
+    for n in K1_SPLITS:
+        want = pa.decode_partials_torch(q, kp, vp, tables, lengths, n)
+        live = torch.arange(want.shape[2], device="cuda") * n < 1024  # the splits the kernel writes
+        got = runs[f"split {n}"][1].scratch
+        gap = (got[:, :, live] - want[:, :, live]).abs().max().item()
+        ok &= gap <= PARTIALS_TOL
+        print(f"K1 split {n}: {int(live.sum())} live split partials (acc, m, l) against "
+              f"decode_partials_torch, max abs difference {gap:.3g} (limit {PARTIALS_TOL}; largest value "
+              f"{want[:, :, live].abs().max().item():.3g})")
+    bound = cs.k1_bound_ms(dtype, lens)
+    # the card's practical streaming read: one torch reduction over as many
+    # contiguous bytes as K1's live K and V
+    kv = torch.randn(2 * cs.S * cs.H * 1024 * cs.D, device="cuda").to(dtype)
+    fns = {name: fn for name, (_, fn) in runs.items()}
+    fns["a plain read of as many bytes (torch.sum, contiguous)"] = lambda: kv.sum(dtype=torch.float32)
+    times = cs.in_turns(fns, 200)
+    print(f"K1 at {cs.S} slots x 1024, bf16 (ms per call, in turns; bound {bound:.4f} ms):")
+    for name, ts in times.items():
+        print(f"  {name}: {' / '.join(f'{t:.4f}' for t in ts)} ({min(ts) / bound:.2f}x bound)")
+    # each output again, from the last of its ~800 calls: a merge ticket
+    # left off zero by one launch would break the ones after it
+    for name, (out, _) in runs.items():
+        gap = (out.float() - ref).abs().max().item()
+        ok &= gap <= cs.TOL[dtype]
+        if gap > cs.TOL[dtype]:
+            print(f"K1 {name}: max abs error {gap:.3g} after the timed calls (tol {cs.TOL[dtype]})")
+    return ok
 
 
 def smi() -> str:
@@ -223,7 +483,7 @@ def smi() -> str:
 
 
 def k4_after_others() -> None:
-    """Phase 3: K4's 200-launch time from an idle second, and right after
+    """Phase 4: K4's 200-launch time from an idle second, and right after
     200 launches of K3 or K5, twice each."""
     bh, seq, d = cs.TRAIN_B * cs.TRAIN_H, cs.TRAIN_S, cs.TRAIN_D
     g = torch.Generator(device="cuda").manual_seed(9)
@@ -243,17 +503,149 @@ def k4_after_others() -> None:
                   f"(SM clock, power after: {smi()})")
 
 
+def step_with_each_k4(built: dict) -> None:
+    """Phase 5: ``build_train_step`` at the 406M shape (batch 26, bf16,
+    remat "attn", random weights from seed 0) with the real library and
+    with the "K4 on mma.sync" copy, which differ in bf16 K4 alone, in
+    turns (real, copy, copy, real): one warm-up step, then 3 steps on the
+    host clock ending in a sync (the step is device-bound, PERF.md)."""
+    cfg = cs.TRAIN_406M
+    params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.from_numpy(
+        np.random.RandomState(13).randint(0, cfg.vocab_size, (cs.TRAIN_B, cfg.seq_len + 1))).cuda()
+    init_fn, step_fn = build_train_step(lambda p, t: gpt_loss(cfg, p, t), adamw(1e-4))
+    state = init_fn(params)
+    libs = {"wgmma K4": _kernels.build("flash_attention"),
+            "mma.sync K4": built["K4 on mma.sync (the first design)"][0]}
+    times: dict = {name: [] for name in libs}
+    for name in ("wgmma K4", "mma.sync K4", "mma.sync K4", "wgmma K4"):
+        use_library(libs[name])
+        state, loss = step_fn(state, tokens)
+        loss.item()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            state, loss = step_fn(state, tokens)
+        loss.item()
+        times[name].append((time.perf_counter() - t0) * 1e3 / 3)
+    use_library(libs["wgmma K4"])
+    print(f"406M step, batch {cs.TRAIN_B}, in turns (ms per step, 3 steps a turn): " + "; ".join(
+        f"{n} {' / '.join(f'{t:.3f}' for t in ts)}" for n, ts in times.items()))
+
+
+def host_us(fns: dict, calls: int = 200) -> dict:
+    """Host time per call of each callable (µs): ``calls`` calls between
+    two host clock reads, the device synced before and after, after a
+    warm-up turn of each, in turns (forward order, then reverse). The
+    device runs behind the host and the launch queue holds all the calls,
+    so the host clock reads the calls' issue alone."""
+    times: dict = {name: [] for name in fns}
+    for name in [*fns, *fns, *reversed(fns)]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fns[name]()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        times[name].append((t1 - t0) * 1e6 / calls)
+    return {name: ts[1:] for name, ts in times.items()}
+
+
+def k1_in_decode_step(built: dict, card: str) -> None:
+    """Phase 6 (``--old-k1``): this K1 behind its wrapper and the older K1
+    behind the older wrapper (``old_k1_wrapper``). First each wrapper's host
+    time per call, and this kernel's C entry point called alone, at phase
+    7's context (8 slots x 548, bf16). Then chip_smoke.py phase 7's
+    GPT-J-6B engine and traffic (8 slots after 512-token prompts, half
+    sampled), each wrapper in turn as the model runner's decode attention
+    (this, old, old, this, twice): 2 steps, then 10 timed on the host clock
+    ending in a sync; in each arm's first turn 10 more under
+    torch.profiler, for K1's device time per step."""
+    old = old_k1_wrapper(old_k1_fn(built))
+    new = pa.paged_attention_cuda
+    q, kp, vp, tables, lengths = cs.k1_inputs(torch.bfloat16, torch.full((cs.S,), 548), seed=2)
+    split_tokens, splits = pa.decode_splits(cs.T, cs.BS)
+    scratch = torch.empty((cs.S, cs.H, splits, cs.D + 2), device="cuda")
+    tickets = torch.zeros(cs.S * cs.H, dtype=torch.int32, device="cuda")
+    out = torch.empty_like(q)
+    real, stream = pa._decode_fn(), torch.cuda.current_stream().cuda_stream
+    args = (q, kp, vp, tables, lengths)
+    host = host_us({
+        "this wrapper": lambda: new(*args),
+        "older wrapper and kernel": lambda: old(*args),
+        "this kernel's C entry point alone": lambda: real(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), tickets.data_ptr(), cs.S, cs.H, cs.D, cs.NB, cs.BS, cs.T,
+            split_tokens // cs.BS, cs.D ** -0.5, 1, stream)})
+    print(f"K1 host time per call at {cs.S} slots x 548, bf16 (µs, in turns, 200 calls a turn): " + "; ".join(
+        f"{n} {' / '.join(f'{t:.2f}' for t in ts)}" for n, ts in host.items()))
+    del q, kp, vp, tables, lengths, scratch, tickets, out
+    torch.cuda.empty_cache()
+
+    cfg = cs.GPTJ_6B
+    params = cs.gptj_init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    eng = cs.LLMEngine(cfg, params, cs.EngineConfig(max_slots=8, block_size=16, max_blocks_per_seq=128,
+                                                    num_blocks=1025, prefill_chunk=256))
+    eng.warmup()
+    reqs = cs.steady_batch(eng, 160)
+    fns = {"this K1": new, "older K1": old}
+    wall: dict = {name: [] for name in fns}
+    k1_dev: dict = {}
+    steps = 10
+    try:
+        for name in ("this K1", "older K1", "older K1", "this K1") * 2:
+            model_runner.paged_attention = fns[name]
+            for _ in range(2):
+                eng.step()
+            if name in k1_dev:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    eng.step()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+            else:
+                wall_ms, _, kernels = cs.profile_steps(eng, steps)
+                k1_dev[name] = sum(e.self_device_time_total for e in kernels if "paged_decode" in e.key) / 1e3 / steps
+            wall[name].append(wall_ms)
+    finally:
+        model_runner.paged_attention = pa.paged_attention
+    if not all(r.state == cs.RUNNING for r in reqs):
+        raise AssertionError("phase 6: a request finished inside the timed steps")
+    print(f"GPT-J-6B decode step [{card}], 8 slots at context ~{reqs[0].seq_len}, in turns (this, older, "
+          f"older, this, twice; {steps} steps a turn): " + "; ".join(
+              f"{n} wall {' / '.join(f'{t:.3f}' for t in wall[n])} ms (median {np.median(wall[n]):.3f}), "
+              f"K1 device {k1_dev[n]:.3f} ms per step" for n in fns))
+    for r in reqs:
+        eng.cancel(r.id)
+    eng.step()
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--old-k1", help="an earlier paged_attention.cu with the one-pass C entry point "
+                        "(phase 6, and a row of phase 3)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_flash_probe: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
-    print(f"card: {cs.card_line()}")
-    built = build_all()
+    card = cs.card_line()
+    print(f"card: {card}")
+    built = build_all(args.old_k1)
     ok = check_helpers(built["helpers"][0])
-    time_variants(built)
-    k4_after_others()
     print(f"helpers {'agree' if ok else 'DISAGREE'} with torch")
-    return 0 if ok else 1
+    variants_ok = time_variants(built)
+    k1_ok = time_k1_variants(built)
+    k4_after_others()
+    torch.cuda.empty_cache()
+    step_with_each_k4(built)
+    torch.cuda.empty_cache()
+    if args.old_k1:
+        k1_in_decode_step(built, card)
+    else:
+        print("phase 6 skipped: no --old-k1 source")
+    print(f"flash variants {'agree' if variants_ok else 'DISAGREE'}; "
+          f"K1 variants {'agree' if k1_ok else 'DISAGREE'} with the plain version")
+    return 0 if ok and variants_ok and k1_ok else 1
 
 
 if __name__ == "__main__":

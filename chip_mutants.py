@@ -36,21 +36,20 @@ MUTANTS = {
     "K3 without its causal mask": (
         "if (8 * (i >> 2) + 2 * t + (i & 1) > r0 + g + 8 * ((i >> 1) & 1)) s[i] = -INFINITY;", ""),
     "K4 without its causal mask": (
-        "const bool dead = j == qi && 8 * nt + 2 * t + (e & 1) > r0 + g + 8 * h;",
-        "const bool dead = false;"),
+        "if (8 * (i >> 2) + 2 * t + (i & 1) > r0 + g + 8 * ((i >> 1) & 1)) p[i] = 0.f;  // key > query", ""),
     "K5 without its causal mask": (
         "if ((diag && key > qc) || q0 + qc >= seq) pt[e] = 0.f;",
         "if (q0 + qc >= seq) pt[e] = 0.f;"),
 }
 
 
-def edited_source(edits) -> str:
-    """flash_attention.cu with each (old, new) of ``edits`` replaced; each
+def edited_source(edits, name: str = "flash_attention") -> str:
+    """``csrc/<name>.cu`` with each (old, new) of ``edits`` replaced; each
     old text must occur exactly once."""
-    text = (_kernels.CSRC / "flash_attention.cu").read_text()
+    text = (_kernels.CSRC / f"{name}.cu").read_text()
     for old, new in edits:
         if text.count(old) != 1:
-            raise AssertionError(f"{old!r} is not in flash_attention.cu once")
+            raise AssertionError(f"{old!r} is not in {name}.cu once")
         text = text.replace(old, new)
     return text
 

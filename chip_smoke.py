@@ -13,8 +13,10 @@ weights from a seed), plain and speculating, and GPT training at bench.py's
 1. device: name, compute capability, power limit;
 2. build: the three kernel sources, in parallel, and their ``-Xptxas -v`` register /
    shared-memory reports;
-3. K1 (paged decode attention) vs its plain version, fp32 and bf16;
-4. K1 timing beside the plain version, the library call and the bound;
+3. K1 (paged decode attention) vs its plain version, fp32 and bf16, at
+   lengths on the block and split edges;
+4. K1 timing beside the plain version, the library call and the bound,
+   with its split size and CTA count;
 5. fp32 identity: a full-width, 2-layer engine is token-identical to the
    dense ``gptj_decode``;
 6. GPT-J-6B serve: ``run_loop`` in a thread, requests from several threads
@@ -48,7 +50,8 @@ weights from a seed), plain and speculating, and GPT training at bench.py's
 15. K3-K5 at the training shape: vs their plain versions there (the
     kernels line's errors), their timing beside the plain versions, the
     library calls and the bounds, their achieved TFLOP/s and ratio to the
-    library call, and their ``-Xptxas -v`` reports;
+    library call, K4 + K5 against SDPA's backward, and their ``-Xptxas -v``
+    reports;
 16. fp32 training identity: a narrow GPT takes 3 AdamW steps through K3-K5
     and 3 through the einsum attention, under remat "full" and "attn";
     losses and parameters agree;
@@ -100,6 +103,7 @@ from ray_tpu_torch.ops.flash_attention import (
 from ray_tpu_torch.ops.fused_ce import fused_softmax_cross_entropy
 from ray_tpu_torch.ops.paged_attention import (
     KERNEL_WINDOWS,
+    decode_splits,
     paged_attention,
     paged_attention_cuda,
     paged_verify_attention,
@@ -158,16 +162,38 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls. A spin
+    kernel holds the device while the host queues the timed calls, so the
+    events time the device's work even where the host takes longer to
+    issue a call than the device to run it (a fast kernel behind a Python
+    wrapper, on a slow host)."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0  # one call's issue time (or more, if it syncs)
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * iters * host_s + 0.01) * 2e9))  # cycles at up to 2 GHz
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def in_turns(fns: dict, iters: int) -> dict:
+    """``cuda_ms`` of each callable, after a warm-up of every one (a card
+    coming out of idle times its first calls slow), in turns: the order of
+    ``fns``, then reversed. Returns {name: [first turn, second turn]}."""
+    for fn in fns.values():
+        cuda_ms(fn, iters)
+    times = {name: [] for name in fns}
+    for name in [*fns, *reversed(fns)]:
+        times[name].append(cuda_ms(fns[name], iters))
+    return times
 
 
 def k1_inputs(dtype, lengths, seed):
@@ -196,33 +222,41 @@ def k1_bound_ms(dtype, lengths) -> float:
 
 
 def check_k1() -> float:
-    """Phase 3: returns the bf16 max abs error over the compared rows."""
+    """Phase 3: two batches of 8 slots, lengths on the block edges (15, 16,
+    17), on and next to the split edges (split - 1, split, split + 1, two
+    splits and one more), within a single split (1, 100), the full table
+    (2048), random ones and 0. Returns the bf16 max abs error over the
+    compared rows."""
     rng = np.random.RandomState(0)
-    lens = torch.tensor([1, 15, 16, 17, 2048, *rng.randint(1, T * BS + 1, 2), 0])
-    compared = lens > 0  # the 0-length row is only required to be finite
+    sp = decode_splits(T, BS)[0]
+    batches = (torch.tensor([1, 15, 16, 17, T * BS, *rng.randint(1, T * BS + 1, 2), 0]),
+               torch.tensor([sp - 1, sp, sp + 1, 2 * sp, 2 * sp + 1, 100, rng.randint(1, T * BS + 1), 0]))
     err_bf16 = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        args = k1_inputs(dtype, lens, seed=1)
-        ref = paged_attention(*args, impl="torch")
-        out = paged_attention(*args, impl="cuda")
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(out).all()):
-            raise AssertionError(f"K1 {dtype}: non-finite output")
-        err = (out.float() - ref.float()).abs()[compared.cuda()].max().item()
-        print(f"K1 {dtype} lengths={lens.tolist()} max_abs_err={err:.3g} tol={TOL[dtype]}")
-        if not err <= TOL[dtype]:
-            raise AssertionError(f"K1 {dtype}: max abs error {err} > {TOL[dtype]}")
-        if dtype == torch.bfloat16:
-            err_bf16 = err
+        for lens in batches:
+            compared = lens > 0  # a 0-length row is only required to be finite
+            args = k1_inputs(dtype, lens, seed=1)
+            ref = paged_attention(*args, impl="torch")
+            out = paged_attention(*args, impl="cuda")
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"K1 {dtype}: non-finite output")
+            err = (out.float() - ref.float()).abs()[compared.cuda()].max().item()
+            print(f"K1 {dtype} split {sp} lengths={lens.tolist()} max_abs_err={err:.3g} tol={TOL[dtype]}")
+            if not err <= TOL[dtype]:
+                raise AssertionError(f"K1 {dtype}: max abs error {err} > {TOL[dtype]}")
+            if dtype == torch.bfloat16:
+                err_bf16 = max(err_bf16, err)
     return err_bf16
 
 
 def time_k1() -> dict:
-    """Phase 4 at the decode shapes: 8 slots x 1024 context, bf16."""
+    """Phase 4 at the decode shapes: 8 slots x 1024 context, bf16; the
+    kernel and the library call in turns (``in_turns``), each the mean of
+    its two turns."""
     dtype = torch.bfloat16
     lens = torch.full((S,), 1024)
     q, kp, vp, tables, lengths = k1_inputs(dtype, lens, seed=2)
-    ms = cuda_ms(lambda: paged_attention(q, kp, vp, tables, lengths, impl="cuda"), 200)
     plain_ms = cuda_ms(lambda: paged_attention(q, kp, vp, tables, lengths, impl="torch"), 20)
     # library yardstick: SDPA over K/V gathered to dense beforehand (the
     # gather is NOT timed) with the length mask
@@ -232,12 +266,20 @@ def time_k1() -> dict:
     vd = vp[idx].transpose(1, 2).reshape(S, H, live * BS, D)
     mask = (torch.arange(live * BS, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask), 200)
+    turns = in_turns({"kernel": lambda: paged_attention(q, kp, vp, tables, lengths, impl="cuda"),
+                      "library": lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask)}, 200)
+    ms, library_ms = (sum(turns[n]) / 2 for n in ("kernel", "library"))
     rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=k1_bound_ms(dtype, lens))
+    split_tokens, splits = decode_splits(T, BS)
+    live_ctas = S * H * -(-1024 // split_tokens)
     print(
         f"K1 timing bf16 S={S} H={H} D={D} BS={BS} len=1024: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, library (SDPA on pre-gathered K/V, gather excluded) "
-        f"{library_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms (bytes)"
+        f"{library_ms:.4f} ms (kernel/library {ms / library_ms:.3f}x; turns "
+        f"{' / '.join(f'{t:.4f}' for t in turns['kernel'])} and "
+        f"{' / '.join(f'{t:.4f}' for t in turns['library'])}), bound {rec['bound_ms']:.4f} ms "
+        f"(bytes, {ms / rec['bound_ms']:.2f}x); split {split_tokens} positions, {splits * H * S} CTAs "
+        f"({live_ctas} with a live position)"
     )
     return rec
 
@@ -671,7 +713,7 @@ def profile_decode(eng: LLMEngine, card: str) -> None:
         f"{prof_wall_ms:.3f} ms/step with it; host Gumbel noise {noise_ms:.3f} ms/step "
         f"for this batch, {noise_greedy_ms:.3f} ms/step all greedy"
     )
-    print_device_split(kernels, steps, wall_ms, "K1", "paged_decode_kernel")
+    print_device_split(kernels, steps, wall_ms, "K1", "paged_decode_")
     for r in reqs:
         eng.cancel(r.id)
     eng.step()
@@ -1095,8 +1137,9 @@ def time_flash(yard: dict) -> dict:
 
     def idle_then_ms(fn) -> float:
         # each kernel from an idle card: right after 200 launches of K3 or
-        # K5, K4 (the same binary) times 1-5% slower than after an idle
-        # second, and the cause is not measured (chip_flash_probe.py)
+        # K5, K4 times 1-7% slower than after an idle second, the mma.sync
+        # design and the wgmma one alike, and the cause is not measured
+        # (chip_flash_probe.py)
         torch.cuda.synchronize()
         time.sleep(1.0)
         return cuda_ms(fn, 200)
@@ -1119,6 +1162,8 @@ def time_flash(yard: dict) -> dict:
               f"{ms[name]:.4f} ms ({yard['ops'][name] / ms[name] / 1e9:.1f} TFLOP/s), bound "
               f"{bound_ms:.4f} ms ({bound_by}, {ms[name] / bound_ms:.2f}x), plain {plain[name]:.4f} ms, "
               f"library {library[name]:.4f} ms (kernel/library {ms[name] / library[name]:.3f}x)")
+    print(f"K4 + K5 {ms['K4'] + ms['K5']:.4f} ms against SDPA's backward {yard['bwd_ms']:.4f} ms: "
+          f"{(ms['K4'] + ms['K5']) / yard['bwd_ms']:.3f}x")
     print("flash build report (-Xptxas -v):")
     flash_build_report()
     return recs

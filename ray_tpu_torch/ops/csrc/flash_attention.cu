@@ -21,10 +21,10 @@
 // What bounds them at the training shape (bh = 26 x 16 = 416, seq 1024,
 // D 64, bf16; chip_smoke.py phase 13 computes these from the inputs): K3 its
 // bytes (219.8 MB, 0.0656 ms at 3.35 TB/s, against 55.8 GFLOP = 0.0565 ms),
-// K4 its operations (83.8 GFLOP = 0.0847 ms at 989 TFLOP/s), K5 its
-// operations (111.7 GFLOP = 0.1129 ms). All three sit near the card's ridge,
-// so a fast version needs both the tensor cores at wgmma's rate and loads
-// that overlap the products.
+// K4 its operations (83.8 GFLOP = 0.0847 ms at 989 TFLOP/s, against 276.0 MB
+// = 0.0824 ms), K5 its operations (111.7 GFLOP = 0.1129 ms). All three sit
+// near the card's ridge, so a fast version needs both the tensor cores at
+// wgmma's rate and loads that overlap the products.
 //
 // Design: the TPU grid's sequential minor axis becomes a loop inside one CTA.
 // Tiles are 64 rows on both sides; a CTA has 4 warps, each owning 16 rows of
@@ -43,32 +43,38 @@
 // causally dead; queries past seq are masked explicitly in K5) and are never
 // written. Offsets into (bh, seq, D) tensors are 64-bit.
 //
-// bf16 K3 and K5 (flash_fwd_kernel_wgmma, flash_bwd_dkv_kernel_wgmma) are
-// built for Hopper: the CTA is one warpgroup; its stationary tile (Q in K3,
-// K and V in K5) is loaded once and the moving tiles (K/V in K3; Q, dO and
-// their lse/delta rows in K5) come through a 2-stage ring of cp.async copies
-// (zero-filled past seq), the next tile in flight while one computes. Tiles
-// sit in shared memory in the wgmma 128-byte-swizzle layout. Every product
-// is a wgmma with fp32 accumulation: the score products (S, and K5's dP^T)
-// take both operands from shared memory, K-major; the second products (O +=
-// P V; dV += P^T dO, dK += dS^T Q) take P or dS from registers, rounded to
-// bf16 straight from the accumulator layout (two adjacent 8-column slices
-// are one k16 A fragment), and B from shared memory through the transpose
-// bit. No P or dS tile goes through shared memory. The softmax runs in
-// log2 units (exp2 of one FMA per score). Their grid is 1-D and head-major:
-// the CTAs of one head run side by side, so each K/V (K3) or Q/dO (K5) tile,
-// which 1-16 CTAs of the head read, comes from L2 after its first read.
-// With bh on the fastest axis instead, the CTAs in flight together belong
-// to different heads, and their tile reads (905 MB per launch at the
-// training shape, 8.3x the two tensors they come from) find little in L2:
-// on an H100, K3 takes about 1.8x as long that way and K5 about 1.2x
-// (chip_flash_probe.py times both orders; PERF.md).
-// bf16 K4 and every fp32 kernel keep the first design: mma.sync m16n8k16
-// (bf16) or plain fp32 FMA chains (fp32: no TF32, so the fp32 results differ
-// from the plain version by summation order only), operands read from
-// padded shared memory (8 elements of padding per row), tiles loaded
-// synchronously with 16-byte vector loads. P and dS are rounded to bf16
-// before the second product of a bf16 kernel, as tensor cores require.
+// The bf16 kernels (flash_fwd_kernel_wgmma, flash_bwd_dq_kernel_wgmma,
+// flash_bwd_dkv_kernel_wgmma) are built for Hopper: the CTA is one
+// warpgroup; its stationary tiles (Q in K3, Q and dO in K4, K and V in K5)
+// are loaded once and the moving tiles (K/V in K3 and K4; Q, dO and their
+// lse/delta rows in K5) come through a 2-stage ring of cp.async copies
+// (zero-filled past seq), the next tile in flight while one computes. K4
+// reads its rows' lse and delta once, into registers. Tiles sit in shared
+// memory in the wgmma 128-byte-swizzle layout. Every product is a wgmma
+// with fp32 accumulation: the score products (S, and dP or dP^T in K4 and
+// K5) take both operands from shared memory, K-major, and are issued back
+// to back, so the second runs while P is built from the first; the second
+// products (O += P V; dQ += dS K; dV += P^T dO, dK += dS^T Q) take P or dS
+// from registers, rounded to bf16 straight from the accumulator layout (two
+// adjacent 8-column slices are one k16 A fragment), and B from shared
+// memory through the transpose bit. No P or dS tile goes through shared
+// memory. The softmax runs in log2 units (exp2 of one FMA per score).
+// Their grid is 1-D and head-major: the CTAs of one head run side by side,
+// so each K/V (K3, K4) or Q/dO (K5) tile, which 1-16 CTAs of the head read,
+// comes from L2 after its first read. With bh on the fastest axis instead,
+// the CTAs in flight together belong to different heads, and their tile
+// reads (905 MB per launch at the training shape, 8.3x the two tensors they
+// come from) find little in L2: on an H100, K3 takes about 1.8x as long
+// that way, K4 about 1.6x and K5 about 1.2x (chip_flash_probe.py times
+// both orders; PERF.md).
+// The fp32 kernels keep the first design: plain fp32 FMA chains (no TF32,
+// so the fp32 results differ from the plain version by summation order
+// only), operands read from padded shared memory (8 elements of padding per
+// row), tiles loaded synchronously with 16-byte vector loads. The bf16
+// branch of the same templates (mma.sync m16n8k16, P and dS rounded to
+// bf16 through padded shared memory) is the first bf16 design; no launch
+// instantiates it now, and chip_flash_probe.py builds bf16 K4 through it as
+// the baseline the wgmma K4 is timed against.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -126,15 +132,16 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
   for (int r = threadIdx.x; r < kBlock; r += kThreads) dst[r] = row0 + r < seq ? src[row0 + r] : 0.f;
 }
 
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+// the mma.sync path of bf16 warp_gemm (the first bf16 design, built only by
+// chip_flash_probe.py)
+[[maybe_unused]] __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+[[maybe_unused]] __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+[[maybe_unused]] __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
@@ -296,7 +303,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ---------------------------------------------------------------------------
-// K4: dQ. Grid (bh, Q tiles); the longest rows first.
+// K4: dQ, fp32 (and the first bf16 design). Grid (bh, Q tiles); the longest
+// rows first.
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -759,6 +767,110 @@ flash_fwd_kernel_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// K4, bf16 on Hopper. A 1-D grid of bh x Q tiles, head-major as K3's; within
+// a head the longest rows first. Shared memory: Q, dO, then the two stages'
+// K and V tiles.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int seq, float scale) {
+  constexpr int kTile = kBlock * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sq = aligned_smem(smem_raw).addr, sdo = sq + kTile;
+  // stage s: K at sq + (2 + 2 s) kTile, V after it
+
+  const int tiles = (seq + kBlock - 1) / kBlock;
+  const int qi = tiles - 1 - blockIdx.x % tiles;  // within a head, the longest rows first
+  const int bh = blockIdx.x / tiles;
+  const int q0 = qi * kBlock;
+  const int64_t base = (int64_t)bh * seq * D;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;  // this warp's first row in the tile
+  const float sl2 = scale * kLog2e;
+
+  load_tile_async<D>(sq, q + base, q0, seq);
+  load_tile_async<D>(sdo, dout + base, q0, seq);
+  load_tile_async<D>(sq + 2 * kTile, k + base, 0, seq);
+  load_tile_async<D>(sq + 3 * kTile, v + base, 0, seq);
+  cp_async_commit();
+  // this thread's two rows of lse (in log2 units) and delta; rows past seq
+  // read 0 (never -inf): their p stays finite and is never written
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + g + 8 * h;
+    lse2[h] = row < seq ? lse[(int64_t)bh * seq + row] * kLog2e : 0.f;
+    dl[h] = row < seq ? delta[(int64_t)bh * seq + row] : 0.f;
+  }
+
+  float dqa[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+  for (int j = 0; j <= qi; ++j) {
+    const uint32_t sk = sq + (2 + 2 * (j & 1)) * kTile, sv = sk + kTile;
+    if (j < qi) {  // K/V tile j + 1 into the other stage, in flight while j computes
+      const uint32_t nk = sq + (2 + 2 * ((j + 1) & 1)) * kTile;
+      load_tile_async<D>(nk, k + base, (j + 1) * kBlock, seq);
+      load_tile_async<D>(nk + kTile, v + base, (j + 1) * kBlock, seq);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // Q, dO and tile j have landed
+    fence_async_smem();
+    __syncthreads();
+
+    float p[32], ds[32];  // S = Q K^T, then P; dP = dO V^T, then dS
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(p, desc_k(sq, kk), desc_k(sk, kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(ds, desc_k(sdo, kk), desc_k(sv, kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // S has landed; dP runs on
+    fence_regs(p);
+
+    // P = exp(scale S - lse), in log2 units
+#pragma unroll
+    for (int i = 0; i < 32; ++i) p[i] = fast_exp2(fmaf(p[i], sl2, -lse2[(i >> 1) & 1]));
+    if (j == qi) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if (8 * (i >> 2) + 2 * t + (i & 1) > r0 + g + 8 * ((i >> 1) & 1)) p[i] = 0.f;  // key > query
+      }
+    }
+    wgmma_wait<0>();  // dP has landed
+    fence_regs(ds);
+
+    // dS = P (dP - delta) scale
+#pragma unroll
+    for (int i = 0; i < 32; ++i) ds[i] = p[i] * (ds[i] - dl[(i >> 1) & 1]) * scale;
+    uint32_t dsa[16];  // dS, bf16, as A fragments
+    to_a_frags(ds, dsa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBlock / 16; ++kk) wgmma_rs_mn<D>(dqa, dsa + 4 * kk, desc_mn(sk, kk));  // dQ += dS K
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dqa);
+    fence_regs(dsa);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + g + 8 * h;
+    if (row >= seq) continue;
+    bf16* dst = dq + base + (int64_t)row * D + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) store2(dst + 8 * nt, dqa[4 * nt + 2 * h], dqa[4 * nt + 2 * h + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K5, bf16 on Hopper. A 1-D grid of bh x KV tiles, head-major as K3's;
 // within a head the first KV tiles (the most live Q tiles) first. Shared
 // memory: K, V, the two stages' Q and dO tiles, then the two stages' lse
@@ -898,19 +1010,25 @@ flash_bwd_dkv_kernel_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ 
 // launches
 // ---------------------------------------------------------------------------
 
-// dynamic shared memory of a kernel (kind 0 = K3, 1 = K4, 2 = K5). bf16 K3
-// and K5: their swizzled (64, D) tiles (K3 Q and two stages of K and V; K5
-// K, V and two stages of Q and dO), K5's two stages of lse and delta rows,
-// and 1024 bytes to align the tiles. The others: their padded (64, D)
-// tiles, their (64, 64) P/dS tiles and K5's lse/delta rows.
-constexpr size_t smem_bytes(int kind, int d, size_t esize) {
-  if (esize == sizeof(bf16) && kind != 1) {
-    const size_t tile = kBlock * d * esize;
-    return kind == 0 ? 5 * tile + 1024 : 6 * tile + 2 * 2 * kBlock * sizeof(float) + 1024;
-  }
+// dynamic shared memory of a kernel (kind 0 = K3, 1 = K4, 2 = K5).
+// The wgmma kernels: their swizzled bf16 (64, D) tiles (K3 Q and two stages
+// of K and V; K4 Q, dO and two stages of K and V; K5 K, V and two stages of
+// Q and dO), K5's two stages of lse and delta rows, and 1024 bytes to align
+// the tiles.
+constexpr size_t wgmma_smem_bytes(int kind, int d) {
+  const size_t tile = kBlock * d * sizeof(bf16);
+  return kind == 0 ? 5 * tile + 1024 : kind == 1 ? 6 * tile + 1024 : 6 * tile + 2 * 2 * kBlock * sizeof(float) + 1024;
+}
+// The first design's kernels: their padded (64, D) tiles, their (64, 64)
+// P/dS tiles and K5's lse/delta rows.
+constexpr size_t padded_smem_bytes(int kind, int d, size_t esize) {
   return kind == 0   ? kBlock * (3 * (d + kPad) + kLdp) * esize
          : kind == 1 ? kBlock * (4 * (d + kPad) + kLdp) * esize
                      : kBlock * (4 * (d + kPad) + 2 * kLdp) * esize + 2 * kBlock * sizeof(float);
+}
+// what a launch requests: the wgmma kernels run bf16, the first design fp32
+constexpr size_t smem_bytes(int kind, int d, size_t esize) {
+  return esize == sizeof(bf16) ? wgmma_smem_bytes(kind, d) : padded_smem_bytes(kind, d, esize);
 }
 
 template <typename Kernel>
@@ -922,11 +1040,11 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int bh,
                        int seq, float scale, cudaStream_t st) {
-  const size_t smem = smem_bytes(0, D, sizeof(T));
   const int tiles = (seq + kBlock - 1) / kBlock;
   cudaError_t err;
   if constexpr (kIsF32<T>) {
     auto kernel = flash_fwd_kernel<T, D>;
+    const size_t smem = padded_smem_bytes(0, D, sizeof(T));
     err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<dim3(bh, tiles), kThreads, smem, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
@@ -934,6 +1052,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, v
                                          static_cast<float*>(lse), seq, scale);
   } else {
     auto kernel = flash_fwd_kernel_wgmma<D>;
+    const size_t smem = wgmma_smem_bytes(0, D);
     err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<(unsigned)bh * tiles, kThreads, smem, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
@@ -947,15 +1066,27 @@ template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int bh, int seq, float scale,
                       cudaStream_t st) {
-  const size_t smem = smem_bytes(1, D, sizeof(T));
-  auto kernel = flash_bwd_dq_kernel<T, D>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (seq + kBlock - 1) / kBlock);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), seq, scale);
+  const int tiles = (seq + kBlock - 1) / kBlock;
+  cudaError_t err;
+  if constexpr (kIsF32<T>) {
+    auto kernel = flash_bwd_dq_kernel<T, D>;
+    const size_t smem = padded_smem_bytes(1, D, sizeof(T));
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(bh, tiles), kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dq), seq, scale);
+  } else {
+    auto kernel = flash_bwd_dq_kernel_wgmma<D>;
+    const size_t smem = wgmma_smem_bytes(1, D);
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<(unsigned)bh * tiles, kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dq), seq, scale);
+  }
   return cudaGetLastError();
 }
 
@@ -963,11 +1094,11 @@ template <typename T, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int bh, int seq,
                        float scale, cudaStream_t st) {
-  const size_t smem = smem_bytes(2, D, sizeof(T));
   const int tiles = (seq + kBlock - 1) / kBlock;
   cudaError_t err;
   if constexpr (kIsF32<T>) {
     auto kernel = flash_bwd_dkv_kernel<T, D>;
+    const size_t smem = padded_smem_bytes(2, D, sizeof(T));
     err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<dim3(bh, tiles), kThreads, smem, st>>>(
@@ -976,6 +1107,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
         static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), seq, scale);
   } else {
     auto kernel = flash_bwd_dkv_kernel_wgmma<D>;
+    const size_t smem = wgmma_smem_bytes(2, D);
     err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<(unsigned)bh * tiles, kThreads, smem, st>>>(

@@ -9,35 +9,73 @@
 //   tables   (slots, tmax) int32, lengths (slots,) int32
 //   out      (slots, heads, D)                      q's dtype
 // Positions >= lengths[s] are masked; softmax and accumulation are fp32; a
-// slot with length 0 writes zeros (finite, never NaN).
+// slot with length 0 writes zeros (finite, never NaN). The wrapper also
+// hands in fp32 scratch (slots, heads, splits, D + 2) for the partial
+// states (below); the kernels allocate nothing.
 //
 // What bounds it: memory bytes. Each (slot, head) reads its live K and V
 // rows once and does 4*D flops per row, far below the card's ~295 flops
 // per byte. At 8 slots x 1024 context, 16 heads, D=256 in bf16, K+V is
 // 134.2 MB per layer call: about 40 us at 3.35 TB/s, against 0.13 GFLOP.
+// Reaching it needs many bytes in flight on every SM at once.
 //
-// Design: one CTA per (head, slot), kWarps warps. The TPU kernel walks the
-// slot's logical blocks in grid order with the online-softmax state carried
-// in VMEM scratch; here blocks run in parallel, so the sequential walk
-// becomes a loop inside the CTA. Warp w takes tokens [w*kUnroll,
-// (w+1)*kUnroll), then steps by kWarps*kUnroll. A token's K (or V) row of D
-// elements is read by the whole warp, each lane loading D/32 consecutive
-// elements as 4-element vectors, so neighbouring lanes read neighbouring
-// addresses. Each warp keeps kUnroll tokens' K and V loads in flight before
-// it uses them, keeps its own (max, sum, acc) online-softmax state in
-// registers, and the warps merge through shared memory at the end. Only the
-// ceil(length/block_size) live table entries are read, and every pool
-// offset is 64-bit (a full-width pool has more than 2^31 elements).
-// Split-context parallelism, TMA and cp.async pipelining are left for later.
+// Design: split context, then merge (flash-decoding). The TPU kernel walks
+// a slot's blocks in grid order with the online-softmax state carried in
+// VMEM scratch. That walk as a loop in one CTA per (head, slot) gives 128
+// CTAs for 132 SMs at 8 slots, too few bytes in flight to near the bound,
+// so the walk is cut into pieces. One kernel, paged_decode_split_kernel,
+// grid (splits, heads, slots):
+//   - Each CTA takes pages_per_split consecutive table entries of one
+//     (slot, head), split_tokens = pages_per_split * block_size positions
+//     (128 at GPT-J's block 16: 1024 CTAs with a live position at 8 slots x
+//     1024, ~7.8 per SM). The wrapper sizes the grid from tmax, a host-known
+//     shape, so it never reads a length on the host and the launch shape is
+//     fixed; a CTA whose split starts at or past its slot's length exits at
+//     once.
+//   - A (block, head) page of the pool is block_size x D contiguous
+//     elements (8 KB in bf16 at 16 x 256). One thread brings each K page and
+//     V page into shared memory with one 1-D bulk copy (cp.async.bulk, no
+//     tensor map) into a ring of kRingBytes (two page pairs in bf16 and in
+//     fp32), each stage completing on its own mbarrier, so the next pages
+//     are in flight while the warps compute on the landed one, and five
+//     CTAs fit on an SM. The split's table entries are read once, clamped to
+//     [0, num_blocks) as the reference's XLA gather clamps a bad entry.
+//   - Warp w takes kUnroll consecutive tokens of each page; each lane owns
+//     D/32 consecutive elements of a row, reduces a score with five
+//     shuffles and keeps its warp's (max, sum, acc) online-softmax state in
+//     registers; the warps merge through shared memory and the CTA writes
+//     its partial (acc, m, l) in fp32 to scratch.
+//   - The merge: every CTA then takes a ticket from its (slot, head)'s
+//     counter; the last of the live splits to finish combines them all
+//     into out and sets the counter back to zero, so the wrapper zeroes a
+//     stream's counters once, not per call (its scratch too is allocated
+//     once per stream). The merge thus runs inside the
+//     kernel's own tail, not as a second launch. Splits past the length are
+//     never read, and an empty slot's first split writes zeros.
+//   - The bulk copies tag their lines evict-first in L2: the pages are
+//     read once.
+// chip_flash_probe.py times the split size, the ring size, the warp
+// shape, cp.async in place of the bulk copies, the L2 hint, and a merge
+// kernel or a memset of the tickets per call, in turns (PERF.md).
+// Every pool offset is 64-bit (a full-width pool has more than 2^31
+// elements). The launcher itself refuses a page over kMaxPageBytes and a
+// pool off a 16-byte boundary (the bulk copies need it), so the wrapper
+// spends no host time per call on either.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kUnroll = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kUnroll = 2;                // consecutive tokens of a page per warp
+constexpr int kRingBytes = 32 * 1024;     // shared memory of a CTA's page ring
+constexpr int kMaxStages = 8;
+constexpr int kMaxPageBytes = 32 * 1024;  // two stages of the largest page: 128 KB of ring
 constexpr float kNegInf = -1e30f;
 
 // Four consecutive elements of T, loaded as one vector and widened to fp32.
@@ -65,22 +103,120 @@ struct Quad<__nv_bfloat16> {
   static __device__ __forceinline__ __nv_bfloat16 narrow(float x) { return __float2bfloat16(x); }
 };
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// the barrier's current phase completes when its arrivals are in and the
+// announced bytes have landed
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// wait for the completion of the barrier's phase of this parity; a phase
+// that never completes (a copy that never lands) traps, failing the launch,
+// instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) __trap();
+  }
+}
+// an L2 policy that evicts the lines it tags first: the pages are read
+// once, so they should not push out what is read again (the partials, the
+// tables)
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+// global -> shared, bytes a multiple of 16 at 16-byte-aligned addresses,
+// completing on the barrier, its lines tagged with the L2 policy
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint [%0], [%1], %2, [%3], "
+      "%4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+}
+// Page pair i of the split (K then V, page_elems each) into ring stage
+// i % stages, completing on that stage's barrier: thread 0 announces both
+// pages' bytes and issues one bulk copy each. Every thread calls it.
+template <typename T>
+__device__ __forceinline__ void load_page(int i, int stages, const int* phys, const T* __restrict__ k_pool,
+                                          const T* __restrict__ v_pool, int64_t block_stride,
+                                          int64_t head_off, int page_elems, T* ring,
+                                          const uint64_t* bars) {
+  const int st = i % stages;
+  const int64_t src = (int64_t)phys[i] * block_stride + head_off;
+  const uint32_t dst = smem_addr(ring + (int64_t)2 * st * page_elems);
+  const uint32_t bar = smem_addr(bars + st);
+  const uint32_t bytes = page_elems * sizeof(T);
+  if (threadIdx.x == 0) {
+    const uint64_t policy = evict_first_policy();
+    mbar_expect_tx(bar, 2 * bytes);
+    bulk_copy(dst, k_pool + src, bytes, bar, policy);
+    bulk_copy(dst + bytes, v_pool + src, bytes, bar, policy);
+  }
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool, const int* __restrict__ tables,
-                    const int* __restrict__ lengths, T* __restrict__ out, int heads,
-                    int num_blocks, int block_size, int tmax, float scale) {
+__global__ void __launch_bounds__(kThreads)
+paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
+                          const T* __restrict__ v_pool, const int* __restrict__ tables,
+                          const int* __restrict__ lengths, float* __restrict__ scratch,
+                          int* __restrict__ tickets, T* __restrict__ out, int heads, int num_blocks,
+                          int block_size, int tmax, int pages_per_split, int stages, float scale) {
   constexpr int kPerLane = D / 32;       // elements of a row each lane owns
   constexpr int kQuads = kPerLane / 4;   // vector loads per lane per row
   using Q = Quad<T>;
   using V = typename Q::V;
 
-  const int h = blockIdx.x;
-  const int s = blockIdx.y;
+  const int split = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int length = max(0, min(lengths[s], tmax * block_size));
+  const int tok0 = split * pages_per_split * block_size;
+  if (tok0 >= length) {  // no live position: the merge skips this split
+    if (length == 0 && split == 0) {  // an empty slot writes zeros
+      for (int d = threadIdx.x; d < D; d += kThreads) out[((int64_t)s * heads + h) * D + d] = Q::narrow(0.f);
+    }
+    return;
+  }
+  const int n_pages = min(pages_per_split, (length - tok0 + block_size - 1) / block_size);
+
+  // shared memory: the ring (stages x (K page, V page)), a barrier per
+  // stage, then the split's physical block ids
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int page_elems = block_size * D;
+  T* ring = reinterpret_cast<T*>(smem);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (size_t)2 * stages * page_elems * sizeof(T));
+  int* phys = reinterpret_cast<int*>(bars + kMaxStages);
+  const int64_t head_stride = (int64_t)block_size * D;
+  const int64_t block_stride = (int64_t)heads * head_stride;
+  const int64_t head_off = (int64_t)h * head_stride;
+
+  const int* table = tables + (int64_t)s * tmax + split * pages_per_split;
+  for (int i = threadIdx.x; i < n_pages; i += kThreads) phys[i] = min(max(table[i], 0), num_blocks - 1);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) mbar_init(smem_addr(bars + i), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int i = 0; i < min(stages, n_pages); ++i)
+    load_page(i, stages, phys, k_pool, v_pool, block_stride, head_off, page_elems, ring, bars);
 
   float qv[kPerLane];
   {
@@ -89,81 +225,74 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     for (int c = 0; c < kQuads; ++c) Q::widen(qp[c], qv + 4 * c);
   }
 
-  const int64_t head_stride = (int64_t)block_size * D;
-  const int64_t block_stride = (int64_t)heads * head_stride;
-  const int* table = tables + (int64_t)s * tmax;
-
   float m = kNegInf;
   float l = 0.f;
   float acc[kPerLane];
 #pragma unroll
   for (int e = 0; e < kPerLane; ++e) acc[e] = 0.f;
 
-  for (int base = warp * kUnroll; base < length; base += kWarps * kUnroll) {
-    V kr[kUnroll][kQuads];
-    V vr[kUnroll][kQuads];
-    // issue every load of the group before any of them is used
+  for (int i = 0; i < n_pages; ++i) {
+    const int st = i % stages;
+    mbar_wait(smem_addr(bars + st), (i / stages) & 1);
+    const T* kp = ring + (int64_t)2 * st * page_elems;
+    const T* vp = kp + page_elems;
+    const int live = min(block_size, length - (tok0 + i * block_size));  // live tokens of the page
+    for (int base = warp * kUnroll; base < live; base += kWarps * kUnroll) {
+      float score[kUnroll];
+      float m_new = m;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = base + u;
-      if (t < length) {
-        const int j = t / block_size;
-        // the reference's XLA gather clamps indices; a bad table entry
-        // reads a wrong block instead of faulting
-        const int phys = min(max(table[j], 0), num_blocks - 1);
-        const int64_t o = (int64_t)phys * block_stride + (int64_t)h * head_stride +
-                          (int64_t)(t - j * block_size) * D + lane * kPerLane;
-        const V* kp = reinterpret_cast<const V*>(k_pool + o);
-        const V* vp = reinterpret_cast<const V*>(v_pool + o);
+      for (int u = 0; u < kUnroll; ++u) {
+        float dot = 0.f;
+        if (base + u < live) {
+          const V* kr = reinterpret_cast<const V*>(kp + (base + u) * D + lane * kPerLane);
 #pragma unroll
-        for (int c = 0; c < kQuads; ++c) {
-          kr[u][c] = kp[c];
-          vr[u][c] = vp[c];
+          for (int c = 0; c < kQuads; ++c) {
+            float kf[4];
+            Q::widen(kr[c], kf);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dot += qv[4 * c + e] * kf[e];
+          }
+        }
+        score[u] = dot;
+      }
+      // the branches above are uniform across the warp, so every lane joins
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) score[u] += __shfl_xor_sync(0xffffffffu, score[u], off);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        score[u] = base + u < live ? score[u] * scale : kNegInf;
+        m_new = fmaxf(m_new, score[u]);
+      }
+      const float alpha = expf(m - m_new);
+      l *= alpha;
+#pragma unroll
+      for (int e = 0; e < kPerLane; ++e) acc[e] *= alpha;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (base + u < live) {
+          const float p = expf(score[u] - m_new);
+          l += p;
+          const V* vr = reinterpret_cast<const V*>(vp + (base + u) * D + lane * kPerLane);
+#pragma unroll
+          for (int c = 0; c < kQuads; ++c) {
+            float vf[4];
+            Q::widen(vr[c], vf);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[4 * c + e] += p * vf[e];
+          }
         }
       }
+      m = m_new;
     }
-    float score[kUnroll];
-    float m_new = m;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float dot = 0.f;
-      if (base + u < length) {
-#pragma unroll
-        for (int c = 0; c < kQuads; ++c) {
-          float kf[4];
-          Q::widen(kr[u][c], kf);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dot += qv[4 * c + e] * kf[e];
-        }
-      }
-      // the branch above is uniform across the warp, so every lane joins
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      score[u] = base + u < length ? dot * scale : kNegInf;
-      m_new = fmaxf(m_new, score[u]);
-    }
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int e = 0; e < kPerLane; ++e) acc[e] *= alpha;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (base + u < length) {
-        const float p = expf(score[u] - m_new);
-        l += p;
-#pragma unroll
-        for (int c = 0; c < kQuads; ++c) {
-          float vf[4];
-          Q::widen(vr[u][c], vf);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[4 * c + e] += p * vf[e];
-        }
-      }
-    }
-    m = m_new;
+    __syncthreads();  // every warp is done with stage st before it is refilled
+    if (i + stages < n_pages)
+      load_page(i + stages, stages, phys, k_pool, v_pool, block_stride, head_off, page_elems, ring, bars);
   }
 
-  // merge the warps' online-softmax states
+  // merge the warps' online-softmax states into the split's partial
   __shared__ float sm_m[kWarps];
   __shared__ float sm_l[kWarps];
   __shared__ float sm_acc[kWarps][D];
@@ -182,51 +311,93 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   float denom = 0.f;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) {
-    wgt[w] = expf(sm_m[w] - mx);
+    wgt[w] = expf(sm_m[w] - mx);  // 0 for a warp that saw no live token
     denom += sm_l[w] * wgt[w];
   }
-  const float inv = 1.f / fmaxf(denom, 1e-30f);
-  T* o = out + ((int64_t)s * heads + h) * D;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+  float* parts = scratch + ((int64_t)s * heads + h) * gridDim.x * (D + 2);  // this (slot, head)'s
+  float* part = parts + split * (D + 2);
+  for (int d = threadIdx.x; d < D; d += kThreads) {
     float x = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) x += sm_acc[w][d] * wgt[w];
-    o[d] = Q::narrow(x * inv);
+    part[d] = x;
+  }
+  if (threadIdx.x == 0) {
+    part[D] = mx;
+    part[D + 1] = denom;
+  }
+
+  // The last of the (slot, head)'s live splits to finish merges them all:
+  // each CTA makes its partial visible, then takes a ticket.
+  __shared__ bool sm_last;
+  const int live_splits = (length + pages_per_split * block_size - 1) / (pages_per_split * block_size);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) sm_last = atomicAdd(tickets + (int64_t)s * heads + h, 1) == live_splits - 1;
+  __syncthreads();
+  if (!sm_last) return;
+  if (threadIdx.x == 0) tickets[(int64_t)s * heads + h] = 0;  // every live split has taken its ticket
+  __threadfence();
+  for (int d = threadIdx.x; d < D; d += kThreads) {
+    float m_all = kNegInf;
+    for (int i = 0; i < live_splits; ++i) m_all = fmaxf(m_all, __ldcg(parts + i * (D + 2) + D));
+    float num = 0.f, den = 0.f;
+    for (int i = 0; i < live_splits; ++i) {
+      const float w = expf(__ldcg(parts + i * (D + 2) + D) - m_all);
+      num += __ldcg(parts + i * (D + 2) + d) * w;
+      den += __ldcg(parts + i * (D + 2) + D + 1) * w;
+    }
+    out[((int64_t)s * heads + h) * D + d] = Q::narrow(num / den);
   }
 }
 
 template <typename T, int D>
-void launch(const void* q, const void* k_pool, const void* v_pool, const void* tables,
-            const void* lengths, void* out, int slots, int heads, int num_blocks,
-            int block_size, int tmax, float scale, cudaStream_t stream) {
-  const dim3 grid(heads, slots);
-  paged_decode_kernel<T, D><<<grid, kWarps * 32, 0, stream>>>(
+cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const void* tables,
+                   const void* lengths, void* out, void* scratch, void* tickets, int slots, int heads,
+                   int num_blocks, int block_size, int tmax, int pages_per_split, float scale,
+                   cudaStream_t stream) {
+  const int page_bytes = block_size * D * (int)sizeof(T);
+  if (page_bytes > kMaxPageBytes) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(k_pool) % 16 || reinterpret_cast<uintptr_t>(v_pool) % 16)
+    return cudaErrorMisalignedAddress;
+  const int splits = (tmax + pages_per_split - 1) / pages_per_split;
+  const int stages = std::max(2, std::min({kMaxStages, pages_per_split, kRingBytes / (2 * page_bytes)}));
+  const size_t smem = (size_t)2 * stages * page_bytes + kMaxStages * sizeof(uint64_t) +
+                      pages_per_split * sizeof(int);
+  auto kernel = paged_decode_split_kernel<T, D>;
+  // always: beside the static shared memory, even a ring under 48 KB can
+  // pass the default limit
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(std::max(splits, 1), heads, slots), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
-      static_cast<const int*>(tables), static_cast<const int*>(lengths), static_cast<T*>(out),
-      heads, num_blocks, block_size, tmax, scale);
+      static_cast<const int*>(tables), static_cast<const int*>(lengths), static_cast<float*>(scratch),
+      static_cast<int*>(tickets), static_cast<T*>(out), heads, num_blocks, block_size, tmax,
+      pages_per_split, stages, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a dtype or head_dim not compiled here).
+// dtype: 0 = float32, 1 = bfloat16. scratch: fp32 (slots, heads,
+// ceil(tmax / pages_per_split), head_dim + 2); tickets: int32 (slots,
+// heads), zeros, and zeros again when the launch ends (each merging CTA
+// resets its own). Returns cudaGetLastError() after the launch, or without
+// launching cudaErrorInvalidValue for a dtype or head_dim not compiled here
+// or a (block, head) page over kMaxPageBytes, cudaErrorMisalignedAddress
+// for a pool off a 16-byte boundary.
 extern "C" int paged_decode_attention(const void* q, const void* k_pool, const void* v_pool,
                                       const void* tables, const void* lengths, void* out,
-                                      int slots, int heads, int head_dim, int num_blocks,
-                                      int block_size, int tmax, float scale, int dtype,
-                                      void* stream) {
+                                      void* scratch, void* tickets, int slots, int heads, int head_dim,
+                                      int num_blocks, int block_size, int tmax,
+                                      int pages_per_split, float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RT_LAUNCH(T, D)                                                                   \
-  launch<T, D>(q, k_pool, v_pool, tables, lengths, out, slots, heads, num_blocks,         \
-               block_size, tmax, scale, st)
+#define RT_LAUNCH(T, D)                                                                     \
+  launch<T, D>(q, k_pool, v_pool, tables, lengths, out, scratch, tickets, slots, heads, num_blocks, \
+               block_size, tmax, pages_per_split, scale, st)
   // GPT-J's head_dim only; another width comes with the model that needs it
-  if (dtype == 0 && head_dim == 256) {
-    RT_LAUNCH(float, 256);
-  } else if (dtype == 1 && head_dim == 256) {
-    RT_LAUNCH(__nv_bfloat16, 256);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (dtype == 0 && head_dim == 256) return static_cast<int>(RT_LAUNCH(float, 256));
+  if (dtype == 1 && head_dim == 256) return static_cast<int>(RT_LAUNCH(__nv_bfloat16, 256));
 #undef RT_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -43,6 +43,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from ray_tpu_torch.ops import _kernels
 
@@ -69,6 +70,50 @@ def paged_attention_torch(q, k_pool, v_pool, block_tables, lengths):
     logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("shk,shkd->shd", probs, v.float()).to(q.dtype)
+
+
+def decode_partials_torch(q, k_pool, v_pool, block_tables, lengths, split_tokens):
+    """The decode kernel's first pass in plain PyTorch: for each (slot,
+    head) and each run of ``split_tokens`` cache positions (a split), the
+    online-softmax state of the split's live positions. Returns (slots,
+    heads, splits, d + 2) fp32: the unnormalised ``sum p v`` in ``[..., :d]``,
+    the max logit ``m`` at ``d`` and ``l = sum p`` at ``d + 1``, with
+    ``p = exp(logit - m)``. A split with no live position holds m = NEG_INF,
+    l = 0 and zeros."""
+    s, h, d = q.shape
+    scale = d**-0.5
+    idx = block_tables.long()
+    k = k_pool[idx].transpose(1, 2).reshape(s, h, -1, d).float()  # (slots, heads, tmax*block, d)
+    v = v_pool[idx].transpose(1, 2).reshape(s, h, -1, d).float()
+    n = k.shape[2]
+    splits = -(-n // split_tokens)
+    pad = splits * split_tokens - n
+    logits = torch.einsum("shd,shkd->shk", q.float(), k) * scale
+    live = torch.arange(splits * split_tokens, device=q.device)[None, :] < lengths.long()[:, None]
+    live = live[:, None, :].expand(s, h, -1).reshape(s, h, splits, split_tokens)
+    logits = F.pad(logits, (0, pad)).reshape(s, h, splits, split_tokens).masked_fill(~live, NEG_INF)
+    m = logits.amax(-1)
+    p = torch.where(live, torch.exp(logits - m[..., None]), 0.0)
+    v = F.pad(v, (0, 0, 0, pad)).reshape(s, h, splits, split_tokens, d)
+    acc = torch.einsum("shcn,shcnd->shcd", p, v)
+    return torch.cat([acc, m[..., None], p.sum(-1)[..., None]], dim=-1)
+
+
+def merge_decode_partials_torch(partials, lengths, split_tokens, dtype):
+    """The decode kernel's merge in plain PyTorch: combines each (slot,
+    head)'s splits that hold a live position (``split * split_tokens <
+    length``; the others are never read, whatever they hold) into the
+    attention output, (slots, heads, d) in ``dtype``. A slot with length 0
+    gives zeros."""
+    d = partials.shape[-1] - 2
+    splits = partials.shape[2]
+    live = torch.arange(splits, device=partials.device)[None, :] * split_tokens < lengths.long()[:, None]
+    live = live[:, None, :]  # (slots, 1, splits)
+    m = torch.where(live, partials[..., d], NEG_INF)
+    w = torch.where(live, torch.exp(m - m.amax(-1, keepdim=True)), 0.0)
+    num = (torch.where(live[..., None], partials[..., :d], 0.0) * w[..., None]).sum(-2)
+    den = (torch.where(live, partials[..., d + 1], 0.0) * w).sum(-1, keepdim=True)
+    return torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0).to(dtype)
 
 
 def paged_verify_attention_torch(q, k_pool, v_pool, block_tables, positions):
@@ -116,16 +161,32 @@ def paged_prefill_attention_torch(q, k_pool, v_pool, block_table, positions):
 #: head dims the kernels are compiled for (GPT-J's 256), and their dtypes
 #: (code passed to C)
 KERNEL_HEAD_DIMS = (256,)
+#: cache positions the decode kernel gives one CTA, rounded down to whole
+#: blocks (chip_flash_probe.py times 64, 128 and 256 in turns; PERF.md)
+SPLIT_TOKENS = 128
+#: largest (block, head) page the decode kernel's shared-memory ring takes
+#: (``kMaxPageBytes`` in its source): it holds at least two K/V page pairs
+MAX_PAGE_BYTES = 32 * 1024
 #: window widths (spec_k + 1) the verify kernel is compiled for
 KERNEL_WINDOWS = tuple(range(2, 9))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def decode_splits(tmax: int, block_size: int) -> tuple[int, int]:
+    """(split_tokens, splits) of the decode kernel for block tables of
+    ``tmax`` entries of ``block_size`` positions: a split is the whole
+    number of blocks nearest ``SPLIT_TOKENS`` from below (at least one),
+    and the splits cover the whole table. Host-known shapes alone size the
+    grid: no length is read on the host, and the launch shape is fixed."""
+    pages = max(1, SPLIT_TOKENS // block_size)
+    return pages * block_size, -(-tmax // pages)
 
 
 @functools.cache
 def _decode_fn():
     """K1's C entry point; ``_kernels.load`` serializes the build."""
     fn = _kernels.load("paged_attention").paged_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -180,15 +241,54 @@ def _check_kernel_args(kernel, q, k_pool, v_pool, block_tables, per_query, per_q
         )
 
 
+#: the decode kernel's workspace, one per (device, stream): fp32 scratch
+#: for the split partials and int32 merge tickets. Launches on one stream
+#: run in order, so a launch's partials are merged before the next launch
+#: writes its own, and each launch leaves its tickets at zero: both are
+#: allocated once (again when a call needs more), not per call
+_decode_workspace: dict = {}
+
+
+def _workspace(device, stream, partials: int, tickets: int):
+    key = (device, stream)
+    ws = _decode_workspace.get(key)
+    if ws is None or ws[0].numel() < partials or ws[1].numel() < tickets:
+        ws = _decode_workspace[key] = (
+            torch.empty(partials, dtype=torch.float32, device=device),
+            torch.zeros(tickets, dtype=torch.int32, device=device),
+        )
+    return ws
+
+
 def _launched(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
+def _decode_refused(err: int, q, k_pool, v_pool) -> None:
+    """Raises for a decode launch that returned ``err``. The launcher
+    itself refuses a page over ``MAX_PAGE_BYTES`` and a pool off a 16-byte
+    boundary, so the 28 calls of a decode step check neither on the host;
+    this names the reason after the fact."""
+    _, _, block_size, d = k_pool.shape
+    if block_size * d * q.element_size() > MAX_PAGE_BYTES:
+        raise ValueError(
+            f"paged decode kernel takes (block, head) pages of at most {MAX_PAGE_BYTES} bytes, "
+            f"got block_size {block_size} x head_dim {d} x {q.element_size()} bytes"
+        )
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"paged decode kernel needs {name} on a 16-byte boundary (bulk page copies)")
+    _launched("paged_decode_attention", err)
+
+
 def paged_attention_cuda(q, k_pool, v_pool, block_tables, lengths):
     """K1, the hand-written decode kernel; same contract as
     ``paged_attention_torch``. Builds the kernel on first use. Launches on
-    the current stream; ``paged_attention_cuda.launches`` counts launches."""
+    the current stream with that stream's workspace: fp32 scratch for
+    (slots, heads, splits, d + 2) split partials (``decode_splits``) and
+    the merge tickets. Reads no device value on the host;
+    ``paged_attention_cuda.launches`` counts launches."""
     if q.dim() != 3:
         raise ValueError(f"paged decode kernel takes q (slots, heads, d), got {tuple(q.shape)}")
     _check_kernel_args("paged decode kernel", q, k_pool, v_pool, block_tables, lengths, "lengths")
@@ -197,15 +297,21 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, lengths):
     out = torch.empty_like(q)
     if s == 0:
         return out
+    tmax = block_tables.shape[1]
+    split_tokens, splits = decode_splits(tmax, block_size)
     fn = _decode_fn()
     with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        scratch, tickets = _workspace(q.device, stream, s * h * splits * (d + 2), s * h)
         err = fn(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            s, h, d, num_blocks, block_size, block_tables.shape[1],
-            d**-0.5, _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream,
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            tickets.data_ptr(),
+            s, h, d, num_blocks, block_size, tmax, split_tokens // block_size,
+            d**-0.5, _DTYPE_CODE[q.dtype], stream,
         )
-    _launched("paged_decode_attention", err)
+    if err != 0:
+        _decode_refused(err, q, k_pool, v_pool)
     paged_attention_cuda.launches += 1
     return out
 

@@ -90,6 +90,53 @@ def test_zero_length_row_is_finite():
     assert torch.isfinite(out).all()
 
 
+@pytest.mark.parametrize(
+    "tmax, block_size, expected",
+    [(128, 16, (128, 16)), (32, 16, (128, 4)), (40, 4, (128, 2)), (7, 48, (96, 4)), (5, 256, (256, 5))],
+)
+def test_decode_splits(tmax, block_size, expected):
+    """The split is the whole number of blocks nearest SPLIT_TOKENS from
+    below (one block at least), and the splits cover the table; the first
+    case is the serving config (tmax 128, block 16)."""
+    assert ops.decode_splits(tmax, block_size) == expected
+
+
+_SPLIT_TMAX, _SPLIT_BS = 40, 4
+_SPLIT = ops.decode_splits(_SPLIT_TMAX, _SPLIT_BS)[0]
+
+
+@pytest.mark.parametrize(
+    "length", [0, 1, _SPLIT - 1, _SPLIT, _SPLIT + 1, _SPLIT_TMAX * _SPLIT_BS],
+    ids=["zero", "one", "split-1", "split", "split+1", "full-table"],
+)
+def test_split_partials_merge_to_the_reference(length):
+    """The decode kernel's two passes in plain PyTorch: per-split partial
+    states merged over the live splits equal ``paged_attention_torch`` and
+    the reference's ``paged_attention`` (fp32, 1e-5). Splits with no live
+    position are filled with NaN first: the merge must never read them. A
+    zero-length slot merges to zeros."""
+    rng = np.random.RandomState(length + 1)
+    slots, heads, d, blocks = 3, 2, 16, 3 * _SPLIT_TMAX
+    q = rng.randn(slots, heads, d).astype(np.float32)
+    kp = rng.randn(blocks, heads, _SPLIT_BS, d).astype(np.float32)
+    vp = rng.randn(blocks, heads, _SPLIT_BS, d).astype(np.float32)
+    bt = rng.permutation(blocks)[: slots * _SPLIT_TMAX].reshape(slots, _SPLIT_TMAX).astype(np.int32)
+    lens = np.array([length, rng.randint(1, _SPLIT_TMAX * _SPLIT_BS + 1), length], np.int32)
+    tq, tk, tv, tb, tl = _port(q, kp, vp, bt, lens)
+    parts = ops.decode_partials_torch(tq, tk, tv, tb, tl, _SPLIT)
+    assert parts.shape == (slots, heads, ops.decode_splits(_SPLIT_TMAX, _SPLIT_BS)[1], d + 2)
+    dead = torch.arange(parts.shape[2])[None, :] * _SPLIT >= tl.long()[:, None]
+    parts[dead[:, None, :].expand(-1, heads, -1)] = float("nan")
+    out = ops.merge_decode_partials_torch(parts, tl, _SPLIT, tq.dtype)
+    assert torch.isfinite(out).all()
+    live = lens > 0
+    ref = np.asarray(ref_ops.paged_attention(*_jax(q, kp, vp, bt, lens), impl="xla"))
+    np.testing.assert_allclose(out.numpy()[live], ref[live], atol=1e-5)
+    plain = ops.paged_attention_torch(tq, tk, tv, tb, tl)
+    torch.testing.assert_close(out[live], plain[live], rtol=0, atol=1e-5)
+    assert torch.equal(out[~live], torch.zeros_like(out[~live]))
+
+
 def test_cuda_impl_on_cpu_tensor_raises():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.paged_attention(*_port(*_case(0)), impl="cuda")
