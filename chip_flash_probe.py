@@ -1,15 +1,22 @@
 #!/usr/bin/env python3
 """Probes of the Hopper designs of the bf16 flash kernels (K3-K5) and of
-the paged decode kernel (K1), on one GPU.
+the paged decode and verify kernels (K1, K2), on one GPU.
 
     python3 chip_flash_probe.py      # from the repository root, one NVIDIA H100
     python3 chip_flash_probe.py --old-k1 OLD.cu   # and phase 6, against an older K1
+    python3 chip_flash_probe.py --old-k2 OLD.cu   # and phase 8, against an older K2
+    python3 chip_flash_probe.py --k2-only [--old-k2 OLD.cu]   # phases 7 and 8 alone
 
-``OLD.cu`` is an earlier ``paged_attention.cu`` with the one-pass C entry
-point ``paged_decode_attention(q, k_pool, v_pool, tables, lengths, out,
-slots, heads, head_dim, num_blocks, block_size, tmax, scale, dtype,
+``--old-k1`` takes an earlier ``paged_attention.cu`` with the one-pass C
+entry point ``paged_decode_attention(q, k_pool, v_pool, tables, lengths,
+out, slots, heads, head_dim, num_blocks, block_size, tmax, scale, dtype,
 stream)``, for example ``git show <commit>:ray_tpu_torch/ops/csrc/
-paged_attention.cu`` of a commit before the split-context design.
+paged_attention.cu`` of a commit before the split-context design;
+``--old-k2`` an earlier ``paged_verify_attention.cu`` with the one-pass
+entry point ``paged_verify_attention(q, k_pool, v_pool, tables, positions,
+out, slots, window, heads, head_dim, num_blocks, block_size, tmax, scale,
+dtype, stream)`` (windows 2-8), for example that file from the commit that
+first added it (``git log --diff-filter=A``).
 
 1. helpers: one product of each ``wgmma`` form the flash kernels use, on
    one 64-row tile, against a torch matmul: S = A B^T with both operands
@@ -43,10 +50,24 @@ paged_attention.cu`` of a commit before the split-context design.
    step (chip_smoke.py phase 7's engine and traffic) with each swapped
    into the model runner in the same process, in turns: wall time per
    step without the profiler, and K1's device time per step under it.
+7. K2 at chip_smoke.py phase 9's shape (8 slots, W 5 at positions
+   1019-1023, bf16): the real kernel at splits of 64, 128 and 256
+   positions, copies of ``paged_verify_attention.cu`` with a 64 KB ring,
+   rows without padding (ldmatrix bank conflicts), K1's two bulk copies a
+   page into unpadded rows, and with ``--old-k2`` the older kernel; each
+   checked against the plain version, the real kernel's live split partials
+   against ``verify_partials_torch``, then timed in turns beside SDPA on
+   pre-gathered K/V; then the split sizes again at phase 12's context
+   (positions 543-547).
+8. with ``--old-k2``: the same as phase 6 for K2: both wrappers' host time
+   per call, then the GPT-J-6B verify step (chip_smoke.py phase 12's
+   engine, traffic and test-double drafter, W 5) with each K2 swapped into
+   the model runner, in turns: wall time per step, and K2's device time
+   per step under the profiler.
 
 Exits non-zero when a build fails, a helper product disagrees, a flash
-copy's dq disagrees with the real K4's or a K1 variant with the plain
-version.
+copy's dq disagrees with the real K4's or a K1 or K2 variant with the
+plain version.
 """
 
 from __future__ import annotations
@@ -227,19 +248,44 @@ K1_VARIANTS = {
 # the real K1 at these split sizes (positions)
 K1_SPLITS = (64, 128, 256)
 
+# each K2 variant: replacements in paged_verify_attention.cu
+K2_VARIANTS = {
+    "ring of 64 KB": [("constexpr int kRingBytes = 32 * 1024;", "constexpr int kRingBytes = 64 * 1024;")],
+    "rows without padding": [("constexpr int kRowPad = 16;", "constexpr int kRowPad = 0;")],
+    "two bulk copies a page (K1's), rows without padding": [
+        ("constexpr int kRowPad = 16;", "constexpr int kRowPad = 0;"),
+        ("  for (int r = threadIdx.x; r < 2 * block_size; r += 32) {\n"
+         "    const bool is_v = r >= block_size;\n"
+         "    const int row = is_v ? r - block_size : r;\n"
+         "    bulk_copy(dst + (is_v ? ring.v_off : 0) + row * ring.stride, (is_v ? v_pool : k_pool) + src + "
+         "(int64_t)row * D,\n"
+         "              kRow, bar, policy);\n  }",
+         "  if (threadIdx.x == 0) {\n"
+         "    bulk_copy(dst, k_pool + src, block_size * kRow, bar, policy);\n"
+         "    bulk_copy(dst + ring.v_off, v_pool + src, block_size * kRow, bar, policy);\n  }")],
+}
+# the real K2 at these split sizes (positions)
+K2_SPLITS = (64, 128, 256)
 
-def build_all(old_k1: str | None) -> dict:
+
+def build_all(old_k1: str | None, old_k2: str | None, k2_only: bool = False) -> dict:
     """The real libraries, the helper probe, every variant and the older K1
-    source ``old_k1`` (under "old K1") if given, one nvcc each, all started
-    together: {name: (library path, -Xptxas -v report)}."""
-    sources = {"helpers": HELPERS_CU.format(source=SOURCE)}
-    sources.update({name: edited_source(edits) for name, edits in VARIANTS.items()})
-    sources.update({name: edited_source(edits, "paged_attention") for name, edits in K1_VARIANTS.items()})
-    if old_k1:
-        with open(old_k1) as f:
-            sources["old K1"] = f.read()
-    with ThreadPoolExecutor(2) as pool:
-        reals = [pool.submit(_kernels.build, name) for name in ("flash_attention", "paged_attention")]
+    and K2 sources (under "old K1", "old K2") if given, one nvcc each, all
+    started together: {name: (library path, -Xptxas -v report)}. With
+    ``k2_only``, the K2 variants and sources alone."""
+    sources = {}
+    if not k2_only:
+        sources["helpers"] = HELPERS_CU.format(source=SOURCE)
+        sources.update({name: edited_source(edits) for name, edits in VARIANTS.items()})
+        sources.update({name: edited_source(edits, "paged_attention") for name, edits in K1_VARIANTS.items()})
+    sources.update({name: edited_source(edits, "paged_verify_attention") for name, edits in K2_VARIANTS.items()})
+    for name, path in (("old K1", old_k1), ("old K2", old_k2)):
+        if path:
+            with open(path) as f:
+                sources[name] = f.read()
+    reals = ("paged_attention", "paged_verify_attention") + (() if k2_only else ("flash_attention",))
+    with ThreadPoolExecutor(len(reals)) as pool:
+        reals = [pool.submit(_kernels.build, name) for name in reals]
         built = build_sources(sources, "probe")
         for real in reals:
             real.result()
@@ -620,32 +666,295 @@ def k1_in_decode_step(built: dict, card: str) -> None:
     eng.step()
 
 
+def old_k2_fn(built: dict):
+    """The older K2's one-pass C entry point (``--old-k2``), or None."""
+    if "old K2" not in built:
+        return None
+    fn = ctypes.CDLL(str(built["old K2"][0])).paged_verify_attention
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def old_k2_wrapper(fn):
+    """The older kernel behind the wrapper it had (the one-pass call: the
+    same argument checks, its window check, ``empty_like``, the launch, the
+    count), for phase 8."""
+
+    def call(q, k_pool, v_pool, block_tables, positions):
+        if q.dim() != 4:
+            raise ValueError(f"paged verify kernel takes q (slots, w, heads, d), got {tuple(q.shape)}")
+        pa._check_kernel_args("paged verify kernel", q, k_pool, v_pool, block_tables, positions, "positions",
+                              (256,))
+        s, w, h, d = q.shape
+        if w not in range(2, 9):
+            raise ValueError(f"the older verify kernel takes windows of 2-8 queries, got {w}")
+        num_blocks, _, block_size, _ = k_pool.shape
+        out = torch.empty_like(q)
+        if s == 0:
+            return out
+        with torch.cuda.device(q.device):
+            err = fn(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+                s, w, h, d, num_blocks, block_size, block_tables.shape[1],
+                d**-0.5, pa._DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream,
+            )
+        pa._launched("paged_verify_attention", err)
+        call.launches += 1
+        return out
+
+    call.launches = 0
+    return call
+
+
+def time_k2_variants(built: dict) -> bool:
+    """Phase 7: the real K2 at each of ``K2_SPLITS``, each copy of
+    ``K2_VARIANTS`` (at the wrapper's split) and the older K2 if built, on
+    chip_smoke.py phase 9's inputs: each against the plain version (phase
+    8's bf16 tolerance, relative), the real K2's live split partials
+    against ``verify_partials_torch`` (``cs.K2_PARTIALS_TOL``), then 200
+    launches each in turns beside SDPA on pre-gathered K/V. Returns whether
+    all agree."""
+    dtype = torch.bfloat16
+    q, kp, vp, tables, positions = cs.k2_inputs(dtype, torch.full((cs.S,), 1019), seed=7)
+    s, w, h, d = q.shape
+    ref = pa.paged_verify_attention_torch(q, kp, vp, tables, positions).float()
+    real = pa._verify_fn()
+    stream = torch.cuda.current_stream().cuda_stream
+    wrapper_split = pa.decode_splits(cs.T, cs.BS)[0]
+
+    def call(fn, split_tokens):
+        pps = split_tokens // cs.BS
+        splits = -(-cs.T // pps)
+        out = torch.empty_like(q)
+        scratch = torch.empty((s, h, splits, w, d + 2), device="cuda")
+        tickets = torch.zeros((s, h), dtype=torch.int32, device="cuda")
+
+        def run():
+            return fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(), positions.data_ptr(),
+                      out.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), s, w, h, d, cs.NB, cs.BS, cs.T,
+                      pps, d ** -0.5, 1, stream)
+
+        run.scratch = scratch  # the last call's partials
+        return out, run
+
+    runs = {f"split {n}": call(real, n) for n in K2_SPLITS}
+    old = old_k2_fn(built)
+    if old is not None:
+        old_out = torch.empty_like(q)
+        runs["old K2 (--old-k2)"] = (old_out, lambda: old(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(), positions.data_ptr(),
+            old_out.data_ptr(), s, w, h, d, cs.NB, cs.BS, cs.T, d ** -0.5, 1, stream))
+    for name in K2_VARIANTS:
+        path, log = built[name]
+        fn = ctypes.CDLL(str(path)).paged_verify_attention
+        fn.argtypes, fn.restype = real.argtypes, real.restype
+        runs[f"{name}, split {wrapper_split}"] = call(fn, wrapper_split)
+        print(f"K2 variant {name}, -Xptxas -v: " + "; ".join(k2_report(log)))
+    print("K2, -Xptxas -v: " + "; ".join(k2_report(_kernels.build_log("paged_verify_attention"))))
+
+    def agrees(out) -> tuple[bool, float]:
+        err = (out.float() - ref).abs()
+        return bool((err <= cs.TOL[dtype] * ref.abs().clamp_min(1)).all()), err.max().item()
+
+    ok = True
+    for name, (out, fn) in runs.items():
+        err = fn()
+        torch.cuda.synchronize()
+        good, gap = agrees(out)
+        ok &= err == 0 and good
+        print(f"K2 {name}: launch {err}, max abs error {gap:.3g} (tol {cs.TOL[dtype]} x max(1, |plain|))")
+    length = (positions[:, -1].long() + 1).clamp(max=cs.T * cs.BS)
+    for n in K2_SPLITS:
+        want = pa.verify_partials_torch(q, kp, vp, tables, positions, n)
+        live = torch.arange(want.shape[2], device="cuda")[None, :] * n < length[:, None]
+        live = live[:, None, :].expand(s, h, -1)
+        got = runs[f"split {n}"][1].scratch
+        gap = ((got[live] - want[live]).abs().max() / want[live].abs().max().clamp_min(1)).item()
+        ok &= gap <= cs.K2_PARTIALS_TOL[dtype]
+        print(f"K2 split {n}: {int(live[0, 0].sum())} live split partials a (slot, head) against "
+              f"verify_partials_torch, largest difference {gap:.3g} of max(1, largest value) (limit "
+              f"{cs.K2_PARTIALS_TOL[dtype]})")
+    # the library yardstick of chip_smoke.py phase 9
+    n_live = (int(positions[:, -1].max().item()) + 1 + cs.BS - 1) // cs.BS
+    idx = tables[:, :n_live].long()
+    kd = kp[idx].transpose(1, 2).reshape(s, h, n_live * cs.BS, d)
+    vd = vp[idx].transpose(1, 2).reshape(s, h, n_live * cs.BS, d)
+    mask = (torch.arange(n_live * cs.BS, device="cuda")[None, None, :] <= positions[:, :, None])[:, None]
+    qh = q.transpose(1, 2)
+    fns = {name: fn for name, (_, fn) in runs.items()}
+    fns["SDPA on pre-gathered K/V"] = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kd, vd, attn_mask=mask)
+    bound = cs.k2_bound_ms(dtype, positions)
+    times = cs.in_turns(fns, 200)
+    print(f"K2 at {cs.S} slots, W {w} at 1019-1023, bf16 (ms per call, in turns; bound {bound:.4f} ms):")
+    for name, ts in times.items():
+        print(f"  {name}: {' / '.join(f'{t:.4f}' for t in ts)} ({min(ts) / bound:.2f}x bound)")
+    # each output again, from the last of its ~800 calls: a merge ticket
+    # left off zero by one launch would break the ones after it
+    for name, (out, _) in runs.items():
+        good, gap = agrees(out)
+        ok &= good
+        if not good:
+            print(f"K2 {name}: max abs error {gap:.3g} after the timed calls")
+    # the split sizes again at chip_smoke.py phase 12's context (~548): the
+    # split is sized from the table width alone, so it serves every context
+    q, kp, vp, tables, positions = cs.k2_inputs(dtype, torch.full((cs.S,), 543), seed=8)
+    ref = pa.paged_verify_attention_torch(q, kp, vp, tables, positions).float()
+    runs = {f"split {n}": call(real, n) for n in K2_SPLITS}
+    for name, (out, fn) in runs.items():
+        err = fn()
+        torch.cuda.synchronize()
+        good, gap = agrees(out)
+        ok &= err == 0 and good
+    bound = cs.k2_bound_ms(dtype, positions)
+    times = cs.in_turns({name: fn for name, (_, fn) in runs.items()}, 200)
+    print(f"K2 at {cs.S} slots, W {w} at 543-547, bf16 (ms per call, in turns; bound {bound:.4f} ms): " + "; ".join(
+        f"{name} {' / '.join(f'{t:.4f}' for t in ts)} ({min(ts) / bound:.2f}x bound)" for name, ts in times.items()))
+    return ok
+
+
+def k2_report(log: str) -> list:
+    """'bf16 d=256 QT=1: 128 registers, 0 bytes spill stores' for each bf16
+    instance of the verify kernel in an -Xptxas -v report."""
+    out, current, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            current = None
+            if "paged_verify_kernel" in name and "nv_bfloat16" in name:
+                dims = name.split("nv_bfloat16")[1]
+                current = f"bf16 d={dims.split('Li')[1].split('E')[0]}"
+                if "ELi" in dims:
+                    current += f" QT={dims.split('ELi')[1].split('E')[0]}"
+        elif current and "spill stores" in line:
+            spill = line.split(",")[1].strip()
+        elif current and "Used" in line and "registers" in line:
+            out.append(f"{current}: {line.split('Used')[1].split(',')[0].strip()}, {spill}")
+            current = None
+    return sorted(out)
+
+
+def k2_in_verify_step(built: dict, card: str) -> None:
+    """Phase 8 (``--old-k2``): this K2 behind its wrapper and the older K2
+    behind the older wrapper (``old_k2_wrapper``). First each wrapper's host
+    time per call, and this kernel's C entry point called alone, at 8
+    slots, W 5 ending at position 547. Then chip_smoke.py phase 12's
+    GPT-J-6B speculating engine (spec_k 4), traffic and always-confident
+    test-double drafter, each wrapper in turn as the model runner's verify
+    attention (this, old, old, this, twice): 2 steps, then 10 timed on the
+    host clock ending in a sync, the acceptance backoff held off before
+    each step; in each arm's first turn 10 more under torch.profiler, for
+    K2's device time per step."""
+    old = old_k2_wrapper(old_k2_fn(built))
+    new = pa.paged_verify_attention_cuda
+    q, kp, vp, tables, positions = cs.k2_inputs(torch.bfloat16, torch.full((cs.S,), 543), seed=2)
+    s, w, h, d = q.shape
+    split_tokens, splits = pa.decode_splits(cs.T, cs.BS)
+    scratch = torch.empty((s, h, splits, w, d + 2), device="cuda")
+    tickets = torch.zeros(s * h, dtype=torch.int32, device="cuda")
+    out = torch.empty_like(q)
+    real, stream = pa._verify_fn(), torch.cuda.current_stream().cuda_stream
+    args = (q, kp, vp, tables, positions)
+    host = host_us({
+        "this wrapper": lambda: new(*args),
+        "older wrapper and kernel": lambda: old(*args),
+        "this kernel's C entry point alone": lambda: real(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), tickets.data_ptr(), s, w, h, d, cs.NB, cs.BS, cs.T, split_tokens // cs.BS,
+            d ** -0.5, 1, stream)})
+    print(f"K2 host time per call at {cs.S} slots, W {w} ending at 547, bf16 (µs, in turns, 200 calls a "
+          "turn): " + "; ".join(f"{n} {' / '.join(f'{t:.2f}' for t in ts)}" for n, ts in host.items()))
+    del q, kp, vp, tables, positions, scratch, tickets, out
+    torch.cuda.empty_cache()
+
+    cfg = cs.GPTJ_6B
+    params = cs.gptj_init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    eng = cs.LLMEngine(cfg, params, cs.EngineConfig(max_slots=8, block_size=16, max_blocks_per_seq=128,
+                                                    num_blocks=1025, prefill_chunk=256, spec_k=4))
+    eng.warmup()
+    eng._drafter = cs.ConfidentDrafter(eng.cfg.spec_k)
+    reqs = cs.steady_batch(eng, 1024)  # ~116 verify steps of up to 5 tokens
+    fns = {"this K2": new, "older K2": old}
+    wall: dict = {name: [] for name in fns}
+    k2_dev: dict = {}
+    steps = 10
+
+    def hold_off_backoff():
+        eng._spec_skip = 0
+
+    try:
+        for name in ("this K2", "older K2", "older K2", "this K2") * 2:
+            model_runner.paged_verify_attention = fns[name]
+            for _ in range(2):
+                hold_off_backoff()
+                eng.step()
+            if name in k2_dev:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    hold_off_backoff()
+                    eng.step()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+            else:
+                wall_ms, _, kernels = cs.profile_steps(eng, steps, hold_off_backoff)
+                k2_dev[name] = sum(e.self_device_time_total for e in kernels
+                                   if "paged_verify_kernel" in e.key) / 1e3 / steps
+            wall[name].append(wall_ms)
+    finally:
+        model_runner.paged_verify_attention = pa.paged_verify_attention
+    if not all(r.state == cs.RUNNING for r in reqs):
+        raise AssertionError("phase 8: a request finished inside the timed steps")
+    print(f"GPT-J-6B verify step [{card}], 8 slots, W 5, at context ~{reqs[0].seq_len}, in turns (this, older, "
+          f"older, this, twice; {steps} steps a turn): " + "; ".join(
+              f"{n} wall {' / '.join(f'{t:.3f}' for t in wall[n])} ms (median {np.median(wall[n]):.3f}), "
+              f"K2 device {k2_dev[n]:.3f} ms per step" for n in fns))
+    for r in reqs:
+        eng.cancel(r.id)
+    eng.step()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--old-k1", help="an earlier paged_attention.cu with the one-pass C entry point "
                         "(phase 6, and a row of phase 3)")
+    parser.add_argument("--old-k2", help="an earlier paged_verify_attention.cu with the one-pass C entry "
+                        "point (phase 8, and a row of phase 7)")
+    parser.add_argument("--k2-only", action="store_true", help="run phases 7 and 8 alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_flash_probe: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     card = cs.card_line()
     print(f"card: {card}")
-    built = build_all(args.old_k1)
-    ok = check_helpers(built["helpers"][0])
-    print(f"helpers {'agree' if ok else 'DISAGREE'} with torch")
-    variants_ok = time_variants(built)
-    k1_ok = time_k1_variants(built)
-    k4_after_others()
+    built = build_all(args.old_k1, args.old_k2, args.k2_only)
+    ok = variants_ok = k1_ok = True
+    if not args.k2_only:
+        ok = check_helpers(built["helpers"][0])
+        print(f"helpers {'agree' if ok else 'DISAGREE'} with torch")
+        variants_ok = time_variants(built)
+        k1_ok = time_k1_variants(built)
+        k4_after_others()
+        torch.cuda.empty_cache()
+        step_with_each_k4(built)
+        torch.cuda.empty_cache()
+        if args.old_k1:
+            k1_in_decode_step(built, card)
+            torch.cuda.empty_cache()
+        else:
+            print("phase 6 skipped: no --old-k1 source")
+    k2_ok = time_k2_variants(built)
     torch.cuda.empty_cache()
-    step_with_each_k4(built)
-    torch.cuda.empty_cache()
-    if args.old_k1:
-        k1_in_decode_step(built, card)
+    if args.old_k2:
+        k2_in_verify_step(built, card)
     else:
-        print("phase 6 skipped: no --old-k1 source")
+        print("phase 8 skipped: no --old-k2 source")
     print(f"flash variants {'agree' if variants_ok else 'DISAGREE'}; "
-          f"K1 variants {'agree' if k1_ok else 'DISAGREE'} with the plain version")
-    return 0 if ok and variants_ok and k1_ok else 1
+          f"K1 variants {'agree' if k1_ok else 'DISAGREE'}; K2 variants {'agree' if k2_ok else 'DISAGREE'} "
+          "with the plain version")
+    return 0 if ok and variants_ok and k1_ok and k2_ok else 1
 
 
 if __name__ == "__main__":

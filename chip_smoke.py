@@ -26,14 +26,17 @@ weights from a seed), plain and speculating, and GPT training at bench.py's
 7. decode profile: device busy time of a steady 8-slot decode step by
    kernel, against its wall time without the profiler, and the host time
    of the step's Gumbel noise;
-8. K2 (paged verify attention) vs its plain version, fp32 and bf16, at
-   every compiled window, and window index by window index vs K1;
-9. K2 timing beside the plain version, the library call, the bound and K1,
-   and at every compiled window;
+8. K2 (paged verify attention) vs its plain version, fp32 and bf16, head
+   dims 64, 128 and 256, windows 1-9, 16, 17 and 33 (an inactive slot, a
+   window straddling a block edge, one straddling a split edge, one past
+   the table), window index by window index vs K1, and its live split
+   partials vs ``verify_partials_torch``;
+9. K2 timing beside the plain version, the library call (in turns), the
+   bound and K1, and across windows 1-16 and 32 (in turns);
 10. fp32 spec identity: a full-width, 2-layer speculating engine is
     token-identical to dense ``gptj_decode`` — with a test-double drafter
-    that makes full, partial and zero acceptance happen, and with the
-    n-gram drafter;
+    that makes full, partial and zero acceptance happen (spec_k 4 and 9),
+    and with the n-gram drafter;
 11. GPT-J-6B spec serve: the phase-6 weights behind a speculating engine
     (spec_k=4, n-gram drafter) serving client threads; checks the audits,
     both kernels' launch counts against the verify and plain decode steps,
@@ -101,13 +104,15 @@ from ray_tpu_torch.ops.flash_attention import (
     kernel_smem_bytes,
 )
 from ray_tpu_torch.ops.fused_ce import fused_softmax_cross_entropy
+from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.ops.paged_attention import (
-    KERNEL_WINDOWS,
+    VERIFY_HEAD_DIMS,
     decode_splits,
     paged_attention,
     paged_attention_cuda,
     paged_verify_attention,
     paged_verify_attention_cuda,
+    verify_partials_torch,
 )
 from ray_tpu_torch.parallel import adamw, build_train_step
 
@@ -123,6 +128,11 @@ KERNELS = ("paged_attention", "paged_verify_attention", "flash_attention")
 S, H, D, BS, T = 8, 16, 256, 16, 128
 W = 5
 NB = S * T + 1  # the serve phase's pool: 1025 blocks, block 0 the trash block
+# phase 8's windows: every width up to 9 (past the first design's widest, 8), one and
+# two 16-row query tiles and one past them (a second walk of the pages);
+# phase 9's sweep
+K2_WINDOWS = (*range(1, 10), 16, 17, 33)
+K2_SWEEP = (*range(1, 17), 32)
 
 # the training slice: bench.py's 406M shape at batch 26 (attention operands
 # (26 x 16, 1024, 64))
@@ -284,16 +294,16 @@ def time_k1() -> dict:
     return rec
 
 
-def k2_inputs(dtype, base, seed, inactive=(), w=W):
+def k2_inputs(dtype, base, seed, inactive=(), w=W, d=D):
     """Random q/pools, window positions ``base[s] + arange(w)`` and per-slot
     tables of distinct live blocks (the live length capped at T*BS), padded
     with the trash block; slots in ``inactive`` get an all-trash table, as
     the engine gives an empty slot."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     positions = (base[:, None] + torch.arange(w)[None, :]).int().cuda()
-    q = torch.randn(S, w, H, D, device="cuda", generator=g).to(dtype)
-    kp = torch.randn(NB, H, BS, D, device="cuda", generator=g).to(dtype)
-    vp = torch.randn(NB, H, BS, D, device="cuda", generator=g).to(dtype)
+    q = torch.randn(S, w, H, d, device="cuda", generator=g).to(dtype)
+    kp = torch.randn(NB, H, BS, d, device="cuda", generator=g).to(dtype)
+    vp = torch.randn(NB, H, BS, d, device="cuda", generator=g).to(dtype)
     tables = (torch.randperm(NB - 1, device="cuda", generator=g)[: S * T] + 1).view(S, T)
     n_live = (positions[:, -1] + 1).clamp(max=T * BS)
     live = torch.arange(T, device="cuda")[None, :] < ((n_live + BS - 1) // BS)[:, None]
@@ -303,83 +313,124 @@ def k2_inputs(dtype, base, seed, inactive=(), w=W):
     return q, kp, vp, tables, positions.contiguous()
 
 
-def k2_bound_ms(dtype, positions) -> float:
+def k2_bound_ms(dtype, positions, d=D) -> float:
     """Least time for one call: each slot's live K/V rows (up to its last
     query, capped at T*BS), q, the live table entries and the positions
-    read once, out written once; 4*D operations per (query, attended
+    read once, out written once; 4*d operations per (query, attended
     row, head)."""
     esize = torch.finfo(dtype).bits // 8
     pos = positions.long().cpu()
     w = pos.shape[1]
     n_live = (pos[:, -1] + 1).clamp(max=T * BS)
     live_entries = int(((n_live + BS - 1) // BS).sum())
-    nbytes = (2 * int(n_live.sum()) * H * D * esize + 2 * S * w * H * D * esize
+    nbytes = (2 * int(n_live.sum()) * H * d * esize + 2 * S * w * H * d * esize
               + 4 * (live_entries + S * w))
-    ops = 4 * int((pos + 1).clamp(max=T * BS).sum()) * H * D
+    ops = 4 * int((pos + 1).clamp(max=T * BS).sum()) * H * d
     return max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]) * 1e3
 
 
+def k2_bases(w: int, rng) -> torch.Tensor:
+    """Phase 8's first positions: slot 0 inactive (base 0, all-trash table:
+    only required finite), a window straddling a block edge, one whose last
+    position is past T*BS, one at 1019, one straddling the split edge, and
+    random ones."""
+    split = decode_splits(T, BS)[0]
+    return torch.tensor([0, 13, T * BS - 2, 1019, split - w // 2 - 1,
+                         *rng.randint(0, T * BS - w, S - 5)])
+
+
+# K2's live split partials against verify_partials_torch: in fp32 both sum
+# exact products in another order; in bf16 the kernel rounds P to bf16
+# (2^-9 relative) before its P V product, so its acc may differ by about
+# one bf16 step of the largest partial
+K2_PARTIALS_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def k2_partials_gap(q, kp, vp, tables, positions) -> float:
+    """K2's live split partials after one launch (read from the stream's
+    workspace, which holds the last launch's) against
+    ``verify_partials_torch``: the largest difference over acc, m and l,
+    relative to max(1, the largest plain value)."""
+    split_tokens, splits = decode_splits(T, BS)
+    s, w, h, d = q.shape
+    paged_verify_attention(q, kp, vp, tables, positions, impl="cuda")
+    torch.cuda.synchronize()
+    ws = pa._workspaces[(q.device, torch.cuda.current_stream().cuda_stream)][0]
+    got = ws[: s * h * splits * w * (d + 2)].view(s, h, splits, w, d + 2)
+    want = verify_partials_torch(q, kp, vp, tables, positions, split_tokens)
+    length = (positions[:, -1].long() + 1).clamp(max=T * BS)
+    live = torch.arange(splits, device="cuda")[None, :] * split_tokens < length[:, None]
+    live = live[:, None, :].expand(s, h, splits)
+    return ((got[live] - want[live]).abs().max() / want[live].abs().max().clamp_min(1)).item()
+
+
 def check_k2() -> float:
-    """Phase 8: K2 vs its plain version and, window index by window index,
-    vs K1; returns the bf16 max abs error against the plain version."""
+    """Phase 8: K2 vs its plain version at every window of ``K2_WINDOWS``
+    and head dim of ``VERIFY_HEAD_DIMS``, in fp32 and bf16 (``k2_bases``),
+    and at head dim 256 window index by window index vs K1; then its live
+    split partials at phase 9's shape. Each element within ``TOL`` x max(1,
+    |reference|): in bf16 both sides round an fp32 value to bf16, one step
+    of which is 2^-8 of its magnitude, and K2 also rounds P to bf16 before
+    its P V product (2^-9 relative), which moves its fp32 value across a
+    rounding boundary more often; outputs of a window over a few tokens
+    reach magnitudes 2-4. Returns the bf16 max abs error against the plain
+    version."""
     rng = np.random.RandomState(4)
-    # slot 0 inactive (base 0, all-trash table: only required finite), a
-    # window straddling a block edge, one whose last position is >= T*BS,
-    # base 1019, and random bases
-    base = torch.tensor([0, 13, T * BS - 2, 1019, *rng.randint(0, T * BS - W, S - 4)])
-    compared = torch.arange(S) != 0
+    compared = (torch.arange(S) != 0).cuda()
     err_bf16 = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        q, kp, vp, tables, positions = k2_inputs(dtype, base, seed=5, inactive=(0,))
-        ref = paged_verify_attention(q, kp, vp, tables, positions, impl="torch")
-        out = paged_verify_attention(q, kp, vp, tables, positions, impl="cuda")
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(out).all()):
-            raise AssertionError(f"K2 {dtype}: non-finite output")
-        err = (out.float() - ref.float()).abs()[compared.cuda()].max().item()
-        # each window index is a decode step at that position: K1 at
-        # lengths positions[:, i] + 1 on the same cache
-        err_k1 = 0.0
-        for i in range(W):
-            one = paged_attention(q[:, i].contiguous(), kp, vp, tables, positions[:, i] + 1,
-                                  impl="cuda")
-            err_k1 = max(err_k1, (out[:, i].float() - one.float()).abs().max().item())
-        print(f"K2 {dtype} S={S} W={W} bases={base.tolist()}: max_abs_err vs plain {err:.3g}, "
-              f"vs K1 per window index {err_k1:.3g} (tol {TOL[dtype]})")
-        if not (err <= TOL[dtype] and err_k1 <= TOL[dtype]):
-            raise AssertionError(f"K2 {dtype}: max abs error {err} / {err_k1} > {TOL[dtype]}")
-        if dtype == torch.bfloat16:
-            err_bf16 = err
-    # every compiled window width, in both dtypes, against the plain version
+        for d in VERIFY_HEAD_DIMS:
+            errs, errs_k1, ok = [], [], True
+            for w in K2_WINDOWS:
+                err_k1 = 0.0
+                q, kp, vp, tables, positions = k2_inputs(dtype, k2_bases(w, rng), seed=5 + w, inactive=(0,),
+                                                         w=w, d=d)
+                ref = paged_verify_attention(q, kp, vp, tables, positions, impl="torch")
+                out = paged_verify_attention(q, kp, vp, tables, positions, impl="cuda")
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"K2 {dtype} d={d} W={w}: non-finite output")
+                err = (out.float() - ref.float()).abs()[compared]
+                errs.append(err.max().item())
+                ok &= bool((err <= TOL[dtype] * ref[compared].float().abs().clamp_min(1)).all())
+                if d == D:
+                    # each window index is a decode step at that position: K1
+                    # at lengths positions[:, i] + 1 on the same cache
+                    for i in range(w):
+                        one = paged_attention(q[:, i].contiguous(), kp, vp, tables, positions[:, i] + 1,
+                                              impl="cuda").float()
+                        err = (out[:, i].float() - one).abs()
+                        ok &= bool((err <= TOL[dtype] * one.abs().clamp_min(1)).all())
+                        err_k1 = max(err_k1, err.max().item())
+                    errs_k1.append(err_k1)
+                del q, kp, vp, ref, out
+            print(f"K2 {dtype} d={d} windows {list(K2_WINDOWS)} vs plain: max_abs_err "
+                  f"{[f'{e:.3g}' for e in errs]}"
+                  + (f"; vs K1 per window index {[f'{e:.3g}' for e in errs_k1]}" if errs_k1 else "")
+                  + f" (tol {TOL[dtype]} x max(1, |reference|))")
+            if not ok:
+                raise AssertionError(f"K2 {dtype} d={d}: an error above {TOL[dtype]} x max(1, |reference|)")
+            if dtype == torch.bfloat16:
+                err_bf16 = max(err_bf16, *errs)
+        torch.cuda.empty_cache()
     for dtype in (torch.float32, torch.bfloat16):
-        errs = []
-        for w in KERNEL_WINDOWS:
-            b = torch.tensor([0, 13, T * BS - 2, *rng.randint(0, T * BS - w, S - 3)])
-            qw, kp, vp, tables, pos = k2_inputs(dtype, b, seed=6, w=w)
-            ref = paged_verify_attention(qw, kp, vp, tables, pos, impl="torch")
-            out = paged_verify_attention(qw, kp, vp, tables, pos, impl="cuda")
-            errs.append((out.float() - ref.float()).abs().max().item())
-            if not errs[-1] <= TOL[dtype]:
-                raise AssertionError(f"K2 {dtype} W={w}: max abs error {errs[-1]}")
-        print(f"K2 {dtype} windows {list(KERNEL_WINDOWS)} vs plain: max_abs_err "
-              f"{[f'{e:.3g}' for e in errs]} (tol {TOL[dtype]})")
-    # a window the kernel is not compiled for raises on the card
-    try:
-        paged_verify_attention(torch.zeros(S, 9, H, D, device="cuda", dtype=kp.dtype), kp, vp, tables,
-                               torch.zeros(S, 9, dtype=torch.int32, device="cuda"))
-    except ValueError as e:
-        print(f"K2 W=9 refused: {e}")
-    else:
-        raise AssertionError("K2 took a window of 9 queries")
+        args = k2_inputs(dtype, torch.tensor([0, 13, T * BS - 2, *[1019] * (S - 3)]), seed=7, inactive=(0,))
+        gap = k2_partials_gap(*args)
+        print(f"K2 {dtype} W={W}: live split partials (acc, m, l) vs verify_partials_torch, largest "
+              f"difference {gap:.3g} of max(1, largest value) (limit {K2_PARTIALS_TOL[dtype]})")
+        if not gap <= K2_PARTIALS_TOL[dtype]:
+            raise AssertionError(f"K2 {dtype}: split partials differ from verify_partials_torch by {gap}")
     return err_bf16
 
 
 def time_k2(k1_ms: float) -> dict:
-    """Phase 9 at the verify shapes: 8 slots, windows at 1019-1023, bf16."""
+    """Phase 9 at the verify shapes: 8 slots, windows at 1019-1023, bf16;
+    the kernel and the library call in turns (``in_turns``), each the mean
+    of its two turns; then the kernel across ``K2_SWEEP`` with the last
+    query at 1023, in turns."""
     dtype = torch.bfloat16
     base = torch.full((S,), 1019)
     q, kp, vp, tables, positions = k2_inputs(dtype, base, seed=7)
-    ms = cuda_ms(lambda: paged_verify_attention(q, kp, vp, tables, positions, impl="cuda"), 200)
     plain_ms = cuda_ms(
         lambda: paged_verify_attention(q, kp, vp, tables, positions, impl="torch"), 20)
     # library yardstick: SDPA with q (S, H, W, D) over K/V gathered to dense
@@ -392,24 +443,36 @@ def time_k2(k1_ms: float) -> dict:
     key_pos = torch.arange(live * BS, device="cuda")
     mask = (key_pos[None, None, :] <= positions[:, :, None])[:, None]  # (S, 1, W, keys)
     qh = q.transpose(1, 2)  # (S, H, W, D)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kd, vd, attn_mask=mask), 200)
+    turns = in_turns({"kernel": lambda: paged_verify_attention(q, kp, vp, tables, positions, impl="cuda"),
+                      "library": lambda: F.scaled_dot_product_attention(qh, kd, vd, attn_mask=mask)}, 200)
+    ms, library_ms = (sum(turns[n]) / 2 for n in ("kernel", "library"))
     rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=k2_bound_ms(dtype, positions))
+    split_tokens, splits = decode_splits(T, BS)
     print(
         f"K2 timing bf16 S={S} W={W} H={H} D={D} BS={BS} positions 1019-1023: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, library (SDPA on pre-gathered K/V with the position mask, "
-        f"gather excluded) {library_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms (bytes); "
-        f"K2 / K1 at the same context {ms / k1_ms:.3f}"
+        f"gather excluded) {library_ms:.4f} ms (kernel/library {ms / library_ms:.3f}x; turns "
+        f"{' / '.join(f'{t:.4f}' for t in turns['kernel'])} and "
+        f"{' / '.join(f'{t:.4f}' for t in turns['library'])}), bound {rec['bound_ms']:.4f} ms "
+        f"(bytes, {ms / rec['bound_ms']:.2f}x); K2 / K1 at the same context {ms / k1_ms:.3f}; split "
+        f"{split_tokens} positions, {splits * H * S} CTAs ({S * H * -(-1024 // split_tokens)} with a "
+        f"live position)"
     )
-    # every compiled window at the same context: a kernel held to its byte
-    # bound takes about the same time at every W (K/V is read once per
-    # window); a kernel held by its per-query work grows with W
-    sweep = []
-    for w in KERNEL_WINDOWS:
-        qw, kp, vp, tables, pos = k2_inputs(dtype, torch.full((S,), 1024 - w), seed=7, w=w)
-        t = cuda_ms(lambda: paged_verify_attention(qw, kp, vp, tables, pos, impl="cuda"), 200)
-        sweep.append(f"W={w} {t:.4f} ms ({t / k1_ms:.2f}x K1, {t / k2_bound_ms(dtype, pos):.2f}x bound)")
-    print(f"K2 by window, bf16, last query at 1023: {'; '.join(sweep)}")
+    del kd, vd, q, kp, vp
+    # the window swept at one context: a kernel held to its byte bound takes
+    # about the same time at every W (K/V is read once per window); one held
+    # by its per-query work grows with W
+    fns, bounds = {}, {}
+    for w in K2_SWEEP:
+        args = k2_inputs(dtype, torch.full((S,), 1024 - w), seed=7, w=w)
+        fns[w] = lambda args=args: paged_verify_attention(*args, impl="cuda")
+        bounds[w] = k2_bound_ms(dtype, args[4])
+    sweep = {w: sum(ts) / 2 for w, ts in in_turns(fns, 200).items()}
+    fastest = min(sweep.values())
+    print("K2 by window, bf16, last query at 1023, in turns: " + "; ".join(
+        f"W={w} {t:.4f} ms ({t / fastest:.2f}x fastest, {t / k1_ms:.2f}x K1, {t / bounds[w]:.2f}x bound)"
+        for w, t in sweep.items()) + f"; slowest/fastest {max(sweep.values()) / fastest:.3f}")
     return rec
 
 
@@ -753,10 +816,11 @@ class DenseDrafter:
 
 
 def fp32_spec_identity() -> None:
-    """Phase 10: full width, 2 layers, fp32, spec_k=4 — the speculating
-    engine's greedy output equals dense decode token for token, first with
-    the test-double drafter (full, partial and zero acceptance), then with
-    the real n-gram drafter on a prompt with a periodic tail."""
+    """Phase 10: full width, 2 layers, fp32 — the speculating engine's
+    greedy output equals dense decode token for token, first with the
+    test-double drafter (full, partial and zero acceptance) at spec_k 4 and
+    9 (a window of 10, past the first design's widest), then with the real n-gram
+    drafter on a prompt with a periodic tail at spec_k 4."""
     cfg = GPTJConfig(n_layers=2, dtype="float32")
     params = gptj_init(cfg, torch.Generator(device="cuda").manual_seed(3), "cuda")
     ecfg = EngineConfig(max_slots=4, block_size=16, max_blocks_per_seq=32, num_blocks=129,
@@ -773,25 +837,29 @@ def fp32_spec_identity() -> None:
     n_new = 32
     prompts = [toks(40), toks(77), toks(130), toks(9)]
     truth = {tuple(p): dense(p, n_new) for p in prompts}
-    eng = LLMEngine(cfg, params, ecfg)
-    double = DenseDrafter(ecfg.spec_k, truth)
-    eng._drafter = double
-    reqs = [eng.submit(p, SamplingParams(max_tokens=n_new)) for p in prompts]
-    while not all(r.finished for r in reqs):
-        eng.step()
-    for p, r in zip(prompts, reqs):
-        if r.out != truth[tuple(p)]:
-            raise AssertionError(f"fp32 spec engine {r.out} != dense decode {truth[tuple(p)]}")
-    st = eng.stats()
-    if not (0 < st["spec_accepted"] < st["spec_proposed"]) or min(double.designed.values()) < 1:
-        raise AssertionError(f"fp32 spec: acceptance not exercised: {st}, {double.designed}")
-    if not (eng.pool.audit()["ok"] and eng.prefix_cache.audit()["ok"]):
-        raise AssertionError("fp32 spec engine: pool or prefix-cache audit failed")
-    print(
-        f"fp32 spec identity (test-double drafter): {len(reqs)} requests x {n_new} tokens equal "
-        f"dense gptj_decode; {st['verify_steps']} verify steps, windows designed "
-        f"{double.designed}, accepted {st['spec_accepted']} of {st['spec_proposed']}"
-    )
+    for k in (4, 9):
+        eng = LLMEngine(cfg, params, dataclasses.replace(ecfg, spec_k=k))
+        double = DenseDrafter(k, truth)
+        eng._drafter = double
+        launches = paged_verify_attention_cuda.launches
+        reqs = [eng.submit(p, SamplingParams(max_tokens=n_new)) for p in prompts]
+        while not all(r.finished for r in reqs):
+            eng.step()
+        for p, r in zip(prompts, reqs):
+            if r.out != truth[tuple(p)]:
+                raise AssertionError(f"fp32 spec engine (spec_k={k}) {r.out} != dense decode {truth[tuple(p)]}")
+        st = eng.stats()
+        if not (0 < st["spec_accepted"] < st["spec_proposed"]) or min(double.designed.values()) < 1:
+            raise AssertionError(f"fp32 spec (spec_k={k}): acceptance not exercised: {st}, {double.designed}")
+        if paged_verify_attention_cuda.launches - launches != cfg.n_layers * st["verify_steps"]:
+            raise AssertionError(f"fp32 spec (spec_k={k}): K2 launches do not match the verify steps")
+        if not (eng.pool.audit()["ok"] and eng.prefix_cache.audit()["ok"]):
+            raise AssertionError(f"fp32 spec engine (spec_k={k}): pool or prefix-cache audit failed")
+        print(
+            f"fp32 spec identity (test-double drafter, spec_k={k}, window {k + 1}): {len(reqs)} requests x "
+            f"{n_new} tokens equal dense gptj_decode; {st['verify_steps']} verify steps, windows designed "
+            f"{double.designed}, accepted {st['spec_accepted']} of {st['spec_proposed']}"
+        )
     pattern = toks(7)
     prompt = toks(30) + pattern * 6  # a periodic tail
     want = dense(prompt, n_new)

@@ -59,7 +59,6 @@ from ray_tpu_torch.llm.scheduler import (
     SamplingParams,
     Scheduler,
 )
-from ray_tpu_torch.ops.paged_attention import KERNEL_WINDOWS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,9 +82,7 @@ class EngineConfig:
     token-identical either way. Adversarial (low-acceptance) workloads are
     bounded by backoff: when a verify step accepts less than ``MIN_ACCEPT``
     of its drafts, the engine plain-decodes for exponentially more steps
-    (doubling up to ``BACKOFF_MAX``) before probing speculation again. On
-    the card ``spec_k + 1`` must be a window the verify kernel is compiled
-    for (``ops.paged_attention.KERNEL_WINDOWS``)."""
+    (doubling up to ``BACKOFF_MAX``) before probing speculation again."""
 
     max_slots: int = 4
     num_blocks: int = 128
@@ -124,13 +121,6 @@ class LLMEngine:
                 "tensor parallelism (tp > 1) is not ported yet: ROADMAP.md, queue A"
             )
         self.device = resolve_device(device)
-        kd = self.cfg.spec_k
-        if self.device.type == "cuda" and kd > 0 and kd + 1 not in KERNEL_WINDOWS:
-            # refuse here, not at the first verify step inside run_loop
-            raise ValueError(
-                f"spec_k={kd}: the verify kernel is compiled for windows of "
-                f"{KERNEL_WINDOWS} queries, and spec_k + 1 must be one of them"
-            )
         pdev = params.lm_head.weight.device
         if pdev != self.device:
             raise ValueError(f"params are on {pdev}, the engine runs on {self.device}")

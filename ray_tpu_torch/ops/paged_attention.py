@@ -137,6 +137,56 @@ def paged_verify_attention_torch(q, k_pool, v_pool, block_tables, positions):
     return torch.einsum("swhk,shkd->swhd", probs, v.float()).to(q.dtype)
 
 
+def verify_partials_torch(q, k_pool, v_pool, block_tables, positions, split_tokens):
+    """The verify kernel's first pass in plain PyTorch: for each (slot,
+    head), each run of ``split_tokens`` cache positions (a split) and each
+    query of the window, the online-softmax state of the split's positions
+    that query attends (at or before its position, within the table).
+    Returns (slots, heads, splits, w, d + 2) fp32: the unnormalised
+    ``sum p v`` in ``[..., :d]``, the max logit ``m`` at ``d`` and ``l = sum
+    p`` at ``d + 1``, with ``p = exp(logit - m)``. A query with no attended
+    position in a split holds m = NEG_INF, l = 0 and zeros there."""
+    s, w, h, d = q.shape
+    scale = d**-0.5
+    idx = block_tables.long()
+    k = k_pool[idx].transpose(1, 2).reshape(s, h, -1, d).float()  # (slots, heads, tmax*block, d)
+    v = v_pool[idx].transpose(1, 2).reshape(s, h, -1, d).float()
+    n = k.shape[2]
+    splits = -(-n // split_tokens)
+    pad = splits * split_tokens - n
+    logits = torch.einsum("swhd,shkd->shwk", q.float(), k) * scale
+    cache_pos = torch.arange(splits * split_tokens, device=q.device)
+    live = (cache_pos[None, None, :] <= positions.long()[:, :, None]) & (cache_pos < n)[None, None, :]
+    live = live[:, None].expand(s, h, w, -1).reshape(s, h, w, splits, split_tokens).transpose(2, 3)
+    logits = F.pad(logits, (0, pad)).reshape(s, h, w, splits, split_tokens).transpose(2, 3)
+    logits = logits.masked_fill(~live, NEG_INF)  # (slots, heads, splits, w, split_tokens)
+    m = logits.amax(-1)
+    p = torch.where(live, torch.exp(logits - m[..., None]), 0.0)
+    v = F.pad(v, (0, 0, 0, pad)).reshape(s, h, splits, split_tokens, d)
+    acc = torch.einsum("shcwn,shcnd->shcwd", p, v)
+    return torch.cat([acc, m[..., None], p.sum(-1)[..., None]], dim=-1)
+
+
+def merge_verify_partials_torch(partials, positions, split_tokens, dtype):
+    """The verify kernel's merge in plain PyTorch: combines each (slot,
+    head)'s splits that hold a live position (``split * split_tokens`` below
+    the slot's live length ``positions[:, -1] + 1``, capped at the table's
+    reach; the others are never read, whatever they hold) into the
+    attention output, (slots, w, heads, d) in ``dtype``. A query that
+    attends no position gives zeros."""
+    d = partials.shape[-1] - 2
+    splits = partials.shape[2]
+    length = (positions.long()[:, -1] + 1).clamp(max=splits * split_tokens)
+    live = torch.arange(splits, device=partials.device)[None, :] * split_tokens < length[:, None]
+    live = live[:, None, :, None]  # (slots, 1, splits, 1)
+    m = torch.where(live, partials[..., d], NEG_INF)
+    wgt = torch.where(live, torch.exp(m - m.amax(2, keepdim=True)), 0.0)
+    num = (torch.where(live[..., None], partials[..., :d], 0.0) * wgt[..., None]).sum(2)
+    den = (torch.where(live, partials[..., d + 1], 0.0) * wgt).sum(2)[..., None]
+    out = torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
+    return out.transpose(1, 2).to(dtype)  # (slots, heads, w, d) -> (slots, w, heads, d)
+
+
 def paged_prefill_attention_torch(q, k_pool, v_pool, block_table, positions):
     """Chunked-prefill attention for ONE sequence: each chunk query at
     ``positions[i]`` attends causally over the sequence's paged cache
@@ -158,23 +208,25 @@ def paged_prefill_attention_torch(q, k_pool, v_pool, block_table, positions):
 # CUDA kernels (csrc/paged_attention.cu, csrc/paged_verify_attention.cu)
 # ---------------------------------------------------------------------------
 
-#: head dims the kernels are compiled for (GPT-J's 256), and their dtypes
-#: (code passed to C)
-KERNEL_HEAD_DIMS = (256,)
-#: cache positions the decode kernel gives one CTA, rounded down to whole
-#: blocks (chip_flash_probe.py times 64, 128 and 256 in turns; PERF.md)
+#: head dims each kernel is compiled for: the decode kernel GPT-J's 256
+#: (each lane owns D/32 elements of a row, four at a time), the verify
+#: kernel 64, 128 and 256 (each of its four warps owns D/4 columns, whole
+#: k16 steps)
+DECODE_HEAD_DIMS = (256,)
+VERIFY_HEAD_DIMS = (64, 128, 256)
+#: cache positions either kernel gives one CTA, rounded down to whole
+#: blocks (chip_flash_probe.py times 64, 128 and 256 in turns for both, the
+#: verify kernel at the verify step's context too; PERF.md)
 SPLIT_TOKENS = 128
-#: largest (block, head) page the decode kernel's shared-memory ring takes
-#: (``kMaxPageBytes`` in its source): it holds at least two K/V page pairs
+#: largest (block, head) page either kernel's shared-memory ring takes
+#: (``kMaxPageBytes`` in their sources): it holds at least two K/V page pairs
 MAX_PAGE_BYTES = 32 * 1024
-#: window widths (spec_k + 1) the verify kernel is compiled for
-KERNEL_WINDOWS = tuple(range(2, 9))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def decode_splits(tmax: int, block_size: int) -> tuple[int, int]:
-    """(split_tokens, splits) of the decode kernel for block tables of
-    ``tmax`` entries of ``block_size`` positions: a split is the whole
+    """(split_tokens, splits) of the split-context kernels for block tables
+    of ``tmax`` entries of ``block_size`` positions: a split is the whole
     number of blocks nearest ``SPLIT_TOKENS`` from below (at least one),
     and the splits cover the whole table. Host-known shapes alone size the
     grid: no length is read on the host, and the launch shape is fixed."""
@@ -197,17 +249,18 @@ def _decode_fn():
 def _verify_fn():
     """K2's C entry point."""
     fn = _kernels.load("paged_verify_attention").paged_verify_attention
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_kernel_args(kernel, q, k_pool, v_pool, block_tables, per_query, per_query_name):
+def _check_kernel_args(kernel, q, k_pool, v_pool, block_tables, per_query, per_query_name, head_dims):
     """Device, dtype, shape and contiguity checks shared by both kernels:
-    q is (slots, [w,] heads, d) and ``per_query`` (lengths or positions)
-    is int32 of q's leading shape, (slots,) or (slots, w)."""
+    q is (slots, [w,] heads, d) with d in ``head_dims`` and ``per_query``
+    (lengths or positions) is int32 of q's leading shape, (slots,) or
+    (slots, w)."""
     tensors = {
         "q": q, "k_pool": k_pool, "v_pool": v_pool, "block_tables": block_tables,
         per_query_name: per_query,
@@ -231,8 +284,8 @@ def _check_kernel_args(kernel, q, k_pool, v_pool, block_tables, per_query, per_q
     _, ph, _, pd = k_pool.shape
     if (ph, pd) != (h, d):
         raise ValueError(f"pool heads/head_dim {(ph, pd)} differ from q {(h, d)}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{kernel} takes head_dim in {KERNEL_HEAD_DIMS}, got {d}")
+    if d not in head_dims:
+        raise ValueError(f"{kernel} takes head_dim in {head_dims}, got {d}")
     s = q.shape[0]
     if block_tables.dim() != 2 or block_tables.shape[0] != s or per_query.shape != q.shape[:-2]:
         raise ValueError(
@@ -241,19 +294,20 @@ def _check_kernel_args(kernel, q, k_pool, v_pool, block_tables, per_query, per_q
         )
 
 
-#: the decode kernel's workspace, one per (device, stream): fp32 scratch
-#: for the split partials and int32 merge tickets. Launches on one stream
-#: run in order, so a launch's partials are merged before the next launch
-#: writes its own, and each launch leaves its tickets at zero: both are
-#: allocated once (again when a call needs more), not per call
-_decode_workspace: dict = {}
+#: the split kernels' workspace, one per (device, stream), shared by K1 and
+#: K2: fp32 scratch for the split partials and int32 merge tickets.
+#: Launches on one stream run in order, so a launch's partials are merged
+#: before the next launch writes its own, and each launch leaves its
+#: tickets at zero: both are allocated once (again when a call needs
+#: more), not per call
+_workspaces: dict = {}
 
 
 def _workspace(device, stream, partials: int, tickets: int):
     key = (device, stream)
-    ws = _decode_workspace.get(key)
+    ws = _workspaces.get(key)
     if ws is None or ws[0].numel() < partials or ws[1].numel() < tickets:
-        ws = _decode_workspace[key] = (
+        ws = _workspaces[key] = (
             torch.empty(partials, dtype=torch.float32, device=device),
             torch.zeros(tickets, dtype=torch.int32, device=device),
         )
@@ -265,21 +319,21 @@ def _launched(name: str, err: int) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
-def _decode_refused(err: int, q, k_pool, v_pool) -> None:
-    """Raises for a decode launch that returned ``err``. The launcher
-    itself refuses a page over ``MAX_PAGE_BYTES`` and a pool off a 16-byte
-    boundary, so the 28 calls of a decode step check neither on the host;
-    this names the reason after the fact."""
+def _refused(kernel: str, entry: str, err: int, q, k_pool, v_pool) -> None:
+    """Raises for a split-kernel launch that returned ``err``. The
+    launchers themselves refuse a page over ``MAX_PAGE_BYTES`` and a pool
+    off a 16-byte boundary, so the 28 calls of a step check neither on the
+    host; this names the reason after the fact."""
     _, _, block_size, d = k_pool.shape
     if block_size * d * q.element_size() > MAX_PAGE_BYTES:
         raise ValueError(
-            f"paged decode kernel takes (block, head) pages of at most {MAX_PAGE_BYTES} bytes, "
+            f"{kernel} takes (block, head) pages of at most {MAX_PAGE_BYTES} bytes, "
             f"got block_size {block_size} x head_dim {d} x {q.element_size()} bytes"
         )
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
         if t.data_ptr() % 16:
-            raise ValueError(f"paged decode kernel needs {name} on a 16-byte boundary (bulk page copies)")
-    _launched("paged_decode_attention", err)
+            raise ValueError(f"{kernel} needs {name} on a 16-byte boundary (bulk copies)")
+    _launched(entry, err)
 
 
 def paged_attention_cuda(q, k_pool, v_pool, block_tables, lengths):
@@ -291,7 +345,8 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, lengths):
     ``paged_attention_cuda.launches`` counts launches."""
     if q.dim() != 3:
         raise ValueError(f"paged decode kernel takes q (slots, heads, d), got {tuple(q.shape)}")
-    _check_kernel_args("paged decode kernel", q, k_pool, v_pool, block_tables, lengths, "lengths")
+    _check_kernel_args("paged decode kernel", q, k_pool, v_pool, block_tables, lengths, "lengths",
+                       DECODE_HEAD_DIMS)
     s, h, d = q.shape
     num_blocks, _, block_size, _ = k_pool.shape
     out = torch.empty_like(q)
@@ -311,7 +366,7 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, lengths):
             d**-0.5, _DTYPE_CODE[q.dtype], stream,
         )
     if err != 0:
-        _decode_refused(err, q, k_pool, v_pool)
+        _refused("paged decode kernel", "paged_decode_attention", err, q, k_pool, v_pool)
     paged_attention_cuda.launches += 1
     return out
 
@@ -321,30 +376,38 @@ paged_attention_cuda.launches = 0
 
 def paged_verify_attention_cuda(q, k_pool, v_pool, block_tables, positions):
     """K2, the hand-written verify kernel; same contract as
-    ``paged_verify_attention_torch``, for windows of ``KERNEL_WINDOWS``
+    ``paged_verify_attention_torch`` for windows of any width of
     consecutive positions (the kernel takes the last query's position as
     the slot's live length). Builds the kernel on first use. Launches on
-    the current stream; ``paged_verify_attention_cuda.launches`` counts
-    launches."""
+    the current stream with that stream's workspace (shared with K1): fp32
+    scratch for (slots, heads, splits, w, d + 2) split partials
+    (``decode_splits``) and the merge tickets.
+    Reads no device value on the host; ``paged_verify_attention_cuda.launches``
+    counts launches."""
     if q.dim() != 4:
         raise ValueError(f"paged verify kernel takes q (slots, w, heads, d), got {tuple(q.shape)}")
-    _check_kernel_args("paged verify kernel", q, k_pool, v_pool, block_tables, positions, "positions")
+    _check_kernel_args("paged verify kernel", q, k_pool, v_pool, block_tables, positions, "positions",
+                       VERIFY_HEAD_DIMS)
     s, w, h, d = q.shape
-    if w not in KERNEL_WINDOWS:
-        raise ValueError(f"paged verify kernel takes windows of {KERNEL_WINDOWS} queries, got {w}")
     num_blocks, _, block_size, _ = k_pool.shape
     out = torch.empty_like(q)
-    if s == 0:
+    if s == 0 or w == 0:
         return out
+    tmax = block_tables.shape[1]
+    split_tokens, splits = decode_splits(tmax, block_size)
     fn = _verify_fn()
     with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        scratch, tickets = _workspace(q.device, stream, s * h * splits * w * (d + 2), s * h)
         err = fn(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            s, w, h, d, num_blocks, block_size, block_tables.shape[1],
-            d**-0.5, _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream,
+            block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            tickets.data_ptr(),
+            s, w, h, d, num_blocks, block_size, tmax, split_tokens // block_size,
+            d**-0.5, _DTYPE_CODE[q.dtype], stream,
         )
-    _launched("paged_verify_attention", err)
+    if err != 0:
+        _refused("paged verify kernel", "paged_verify_attention", err, q, k_pool, v_pool)
     paged_verify_attention_cuda.launches += 1
     return out
 

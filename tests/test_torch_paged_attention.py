@@ -209,3 +209,66 @@ def test_verify_impls_and_errors():
         ops.paged_verify_attention(*case, impl="cuda")
     with pytest.raises(ValueError, match="unknown paged attention impl"):
         ops.paged_verify_attention(*case, impl="pallas")
+
+
+@pytest.mark.parametrize("w", [9, 17])
+@pytest.mark.parametrize("ref_impl", ["xla", "pallas"])
+def test_verify_wide_windows_match_reference(w, ref_impl):
+    """Windows past the first kernel's widest (8) and past one 16-row query
+    tile: the plain version against the reference."""
+    case = _verify_case(w + 1, w=w, tmax=10)
+    ref = np.asarray(ref_ops.paged_verify_attention(*_jax(*case), impl=ref_impl))
+    out = ops.paged_verify_attention(*_port(*case)).numpy()
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+
+
+_VSPLIT_TMAX, _VSPLIT_BS = 24, 4
+# a split of 8 blocks: three splits over the small table (the kernels' own
+# split, decode_splits, would cover it whole)
+_VSPLIT = 8 * _VSPLIT_BS
+_VFULL = _VSPLIT_TMAX * _VSPLIT_BS
+# the live length of the case's slots (the last query's position + 1): an
+# inactive slot (base 0, an all-trash table), lengths on and next to the
+# split edges, the full table, and a window past the table's reach
+_VLENGTHS = {"inactive": None, "one": 1, "split-1": _VSPLIT - 1, "split": _VSPLIT,
+             "split+1": _VSPLIT + 1, "full-table": _VFULL, "past-the-table": _VFULL + 3}
+
+
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("length", list(_VLENGTHS), ids=list(_VLENGTHS))
+@pytest.mark.parametrize("w", [1, 2, 5, 9, 17])
+def test_verify_split_partials_merge_to_the_reference(w, length, d):
+    """The verify kernel's two passes in plain PyTorch: per-split partial
+    states of every query of the window, merged over the slot's live splits,
+    equal the reference's ``paged_verify_attention`` (XLA, and Pallas in
+    interpret mode) and ``paged_verify_attention_torch`` (fp32, 1e-5).
+    Splits with no live position are filled with NaN first: the merge must
+    never read them. Windows 9 and 17 pass the first kernel's widest (8) and
+    one 16-row query tile; a window shorter than its slot's start is placed
+    at base 0, as the engine places an empty slot."""
+    rng = np.random.RandomState(7 * w + d)
+    slots, heads, blocks = 3, 2, 3 * _VSPLIT_TMAX
+    q = rng.randn(slots, w, heads, d).astype(np.float32)
+    kp = rng.randn(blocks, heads, _VSPLIT_BS, d).astype(np.float32)
+    vp = rng.randn(blocks, heads, _VSPLIT_BS, d).astype(np.float32)
+    bt = rng.permutation(blocks)[: slots * _VSPLIT_TMAX].reshape(slots, _VSPLIT_TMAX).astype(np.int32)
+    n = _VLENGTHS[length]
+    if n is None:
+        n = w
+        bt[[0, 2]] = 0  # all-trash tables
+    base = np.array([max(n - w, 0), rng.randint(0, _VFULL - w + 1), max(n - w, 0)])
+    pos = (base[:, None] + np.arange(w)[None, :]).astype(np.int32)
+    tq, tk, tv, tb, tp = _port(q, kp, vp, bt, pos)
+    parts = ops.verify_partials_torch(tq, tk, tv, tb, tp, _VSPLIT)
+    splits = -(-_VSPLIT_TMAX * _VSPLIT_BS // _VSPLIT)
+    assert parts.shape == (slots, heads, splits, w, d + 2)
+    live_len = (tp[:, -1].long() + 1).clamp(max=_VFULL)
+    dead = torch.arange(splits)[None, :] * _VSPLIT >= live_len[:, None]
+    parts[dead[:, None, :].expand(-1, heads, -1)] = float("nan")
+    out = ops.merge_verify_partials_torch(parts, tp, _VSPLIT, tq.dtype)
+    assert out.shape == tq.shape and torch.isfinite(out).all()
+    for impl in ("xla", "pallas"):
+        ref = np.asarray(ref_ops.paged_verify_attention(*_jax(q, kp, vp, bt, pos), impl=impl))
+        np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, err_msg=impl)
+    plain = ops.paged_verify_attention_torch(tq, tk, tv, tb, tp)
+    torch.testing.assert_close(out, plain, rtol=0, atol=1e-5)
