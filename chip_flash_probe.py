@@ -6,6 +6,7 @@ the paged decode and verify kernels (K1, K2), on one GPU.
     python3 chip_flash_probe.py --old-k1 OLD.cu   # and phase 6, against an older K1
     python3 chip_flash_probe.py --old-k2 OLD.cu   # and phase 8, against an older K2
     python3 chip_flash_probe.py --k2-only [--old-k2 OLD.cu]   # phases 7 and 8 alone
+    python3 chip_flash_probe.py --k1-same OLD.cu   # phase 9 alone
 
 ``--old-k1`` takes an earlier ``paged_attention.cu`` with the one-pass C
 entry point ``paged_decode_attention(q, k_pool, v_pool, tables, lengths,
@@ -16,7 +17,10 @@ paged_attention.cu`` of a commit before the split-context design;
 entry point ``paged_verify_attention(q, k_pool, v_pool, tables, positions,
 out, slots, window, heads, head_dim, num_blocks, block_size, tmax, scale,
 dtype, stream)`` (windows 2-8), for example that file from the commit that
-first added it (``git log --diff-filter=A``).
+first added it (``git log --diff-filter=A``). ``--k1-same`` takes an earlier
+``paged_attention.cu`` with the current split entry point, for example
+``git show <parent>:ray_tpu_torch/ops/csrc/paged_attention.cu`` before a
+change that must leave a head dim's arithmetic as it was.
 
 1. helpers: one product of each ``wgmma`` form the flash kernels use, on
    one 64-row tile, against a torch matmul: S = A B^T with both operands
@@ -64,10 +68,15 @@ first added it (``git log --diff-filter=A``).
    engine, traffic and test-double drafter, W 5) with each K2 swapped into
    the model runner, in turns: wall time per step, and K2's device time
    per step under the profiler.
+9. with ``--k1-same``: the earlier K1 and the current one on chip_smoke.py
+   phase 3's inputs at every head dim both compile, fp32 and bf16: their
+   outputs and live split partials compared bit for bit, then both timed
+   in turns at phase 4's shape (8 slots x 1024, bf16) at each such head
+   dim.
 
 Exits non-zero when a build fails, a helper product disagrees, a flash
 copy's dq disagrees with the real K4's or a K1 or K2 variant with the
-plain version.
+plain version, or (phase 9) the two K1 sources differ in a bit.
 """
 
 from __future__ import annotations
@@ -916,6 +925,70 @@ def k2_in_verify_step(built: dict, card: str) -> None:
     eng.step()
 
 
+def k1_same(old_src: str) -> bool:
+    """Phase 9 (``--k1-same``): the current K1 against an earlier source with
+    the same split entry point, at the head dims both take (the earlier
+    one returns an error for the rest, so it is asked at each of
+    ``DECODE_HEAD_DIMS`` and skipped where it refuses). Returns whether
+    every output and live partial is equal bit for bit."""
+    path, log = build_sources({"earlier K1": old_src}, "probe")["earlier K1"]
+    real = pa._decode_fn()
+    old = ctypes.CDLL(str(path)).paged_decode_attention
+    old.argtypes, old.restype = real.argtypes, real.restype
+    print("earlier K1, -Xptxas -v: " + "; ".join(bf16_report(log)))
+    stream = torch.cuda.current_stream().cuda_stream
+    split_tokens, splits = pa.decode_splits(cs.T, cs.BS)
+    rng = np.random.RandomState(0)
+    sp = split_tokens
+    batches = (torch.tensor([1, 15, 16, 17, cs.T * cs.BS, *rng.randint(1, cs.T * cs.BS + 1, 2), 0]),
+               torch.tensor([sp - 1, sp, sp + 1, 2 * sp, 2 * sp + 1, 100, rng.randint(1, cs.T * cs.BS + 1), 0]))
+
+    def launcher(fn, q, kp, vp, tables, lengths):
+        s, h, d = q.shape
+        out = torch.empty_like(q)
+        scratch = torch.empty((s, h, splits, d + 2), device="cuda")
+        tickets = torch.zeros((s, h), dtype=torch.int32, device="cuda")
+
+        def run():
+            return fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
+                      out.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), s, h, d, cs.NB, cs.BS, cs.T,
+                      split_tokens // cs.BS, d ** -0.5, pa._DTYPE_CODE[q.dtype], stream)
+
+        return run, out, scratch
+
+    def takes(d) -> bool:  # the earlier source refuses a head dim it was not compiled for
+        args = cs.k1_inputs(torch.float32, torch.ones(cs.S, dtype=torch.int64), seed=1, d=d, h=1)
+        return launcher(old, *args)[0]() == 0
+
+    dims = [d for d in pa.DECODE_HEAD_DIMS if takes(d)]
+    ok = True
+    for d in dims:
+        h = cs.k1_heads(d)
+        for dtype in (torch.float32, torch.bfloat16):
+            for lens in batches:
+                args = cs.k1_inputs(dtype, lens, seed=1, d=d, h=h)
+                runs = [launcher(fn, *args) for fn in (old, real)]
+                if any(run() != 0 for run, _, _ in runs):
+                    raise RuntimeError(f"K1 d={d}: launch failed")
+                torch.cuda.synchronize()
+                live = torch.arange(splits, device="cuda")[None, :] * split_tokens < args[4].long()[:, None]
+                live = live[:, None, :].expand(-1, h, -1)
+                (_, out_old, part_old), (_, out_new, part_new) = runs
+                same = torch.equal(out_old, out_new) and torch.equal(part_old[live], part_new[live])
+                ok &= same
+                print(f"K1 d={d} {dtype} lengths={lens.tolist()}: earlier and current "
+                      f"{'equal bit for bit' if same else 'DIFFER'} (outputs and live split partials)")
+    for d in dims:
+        h = cs.k1_heads(d)
+        args = cs.k1_inputs(torch.bfloat16, torch.full((cs.S,), 1024), seed=2, d=d, h=h)
+        fns = {"earlier": launcher(old, *args)[0], "current": launcher(real, *args)[0]}
+        times = cs.in_turns(fns, 200)
+        print(f"K1 d={d} at {cs.S} slots x 1024, bf16, in turns: " + "; ".join(
+            f"{name} {' / '.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items()))
+    print(f"earlier K1 takes head dims {dims}")
+    return ok
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--old-k1", help="an earlier paged_attention.cu with the one-pass C entry point "
@@ -923,12 +996,19 @@ def main() -> int:
     parser.add_argument("--old-k2", help="an earlier paged_verify_attention.cu with the one-pass C entry "
                         "point (phase 8, and a row of phase 7)")
     parser.add_argument("--k2-only", action="store_true", help="run phases 7 and 8 alone")
+    parser.add_argument("--k1-same", help="an earlier paged_attention.cu with the current split entry "
+                        "point: run phase 9 alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_flash_probe: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     card = cs.card_line()
     print(f"card: {card}")
+    if args.k1_same:
+        with open(args.k1_same) as f:
+            same = k1_same(f.read())
+        print(f"K1 earlier and current {'equal bit for bit' if same else 'DIFFER'}")
+        return 0 if same else 1
     built = build_all(args.old_k1, args.old_k2, args.k2_only)
     ok = variants_ok = k1_ok = True
     if not args.k2_only:

@@ -6,19 +6,24 @@
 Builds the port's CUDA kernels from the sources in the checkout, holds each
 against its plain PyTorch version at its path's shapes, times it, and drives
 the port's main paths through the entry points a user calls: the paged-KV
-GPT-J serving engine at the full GPT-J-6B width (28 layers, bf16, random
-weights from a seed), plain and speculating, and GPT training at bench.py's
-406M shape (24 layers, bf16, random weights from a seed). Phases, each of which raises on failure:
+serving engine at the full GPT-J-6B width (28 layers, bf16, random weights
+from a seed), plain and speculating; GPT training at bench.py's 406M shape
+(24 layers, bf16, random weights from a seed); and the serving engine at
+GPT-124M (the reference's default GPTConfig, 12 layers, bf16 over fp32
+master weights), plain, speculating and across a weight hot-swap. Phases,
+each of which raises on failure:
 
 1. device: name, compute capability, power limit;
 2. build: the three kernel sources, in parallel, and their ``-Xptxas -v`` register /
    shared-memory reports;
-3. K1 (paged decode attention) vs its plain version, fp32 and bf16, at
-   lengths on the block and split edges;
+3. K1 (paged decode attention) vs its plain version, fp32 and bf16, head
+   dims 64 (GPT's 12 heads), 128 and 256, at lengths on the block and split
+   edges, and its live split partials vs ``decode_partials_torch``;
 4. K1 timing beside the plain version, the library call and the bound,
-   with its split size and CTA count;
-5. fp32 identity: a full-width, 2-layer engine is token-identical to the
-   dense ``gptj_decode``;
+   with its split size and CTA count, at GPT-J-6B's and GPT-124M's decode
+   shapes;
+5. fp32 identity: a full-width, 2-layer GPT-J engine is token-identical to
+   the dense ``gptj_decode``;
 6. GPT-J-6B serve: ``run_loop`` in a thread, requests from several threads
    through ``stream_tokens``, prefix-cache hits, a copy-on-write fork,
    greedy and seeded-sampled requests; checks the pool audit, the kernel's
@@ -33,7 +38,7 @@ weights from a seed), plain and speculating, and GPT training at bench.py's
    partials vs ``verify_partials_torch``;
 9. K2 timing beside the plain version, the library call (in turns), the
    bound and K1, and across windows 1-16 and 32 (in turns);
-10. fp32 spec identity: a full-width, 2-layer speculating engine is
+10. fp32 spec identity: a full-width, 2-layer speculating GPT-J engine is
     token-identical to dense ``gptj_decode`` — with a test-double drafter
     that makes full, partial and zero acceptance happen (spec_k 4 and 9),
     and with the n-gram drafter;
@@ -62,7 +67,20 @@ weights from a seed), plain and speculating, and GPT training at bench.py's
     50304, batch 26, bf16, remat "attn") through ``build_train_step``:
     step 0's qkv weight gradients and loss against the einsum path; step
     time, tokens/s, MFU, losses, peak memory, K3-K5 launches against the
-    expected per-step counts, and a profile of two steps.
+    expected per-step counts, and a profile of two steps;
+18. GPT fp32 identity: a full-width (d 768, 12 heads of 64, vocab 50304),
+    2-layer fp32 GPT engine is token-identical to the dense ``gpt_decode``,
+    plain and speculating at spec_k 4 (test-double and n-gram drafters);
+19. GPT-124M serve: phase 6's traffic, then phase 11's on a speculating
+    engine, at full depth in bf16; checks the audits, K1 at 12 launches a
+    decode step, K2 at 12 a verify step, and every greedy token against the
+    dense forward;
+20. GPT-124M decode and verify profile: phases 7 and 12 on those engines;
+21. GPT-124M hot swap: ``update_weights`` to a second seed's weights while
+    requests are in flight; checks that parameter storage stays in place,
+    the version is stamped, the prefix tree is flushed, and every greedy
+    token submitted after the swap against the dense forward under the new
+    weights; times the swap.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it has
 the card's name and power limit, the one before that the kernels' record.
@@ -90,7 +108,7 @@ from torch.profiler import ProfilerActivity, profile
 from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
 from ray_tpu_torch.llm.model_runner import _row_noise, _window_noise
 from ray_tpu_torch.llm.scheduler import RUNNING
-from ray_tpu_torch.models.gpt import GPTConfig, gpt_init, gpt_loss
+from ray_tpu_torch.models.gpt import GPTConfig, gpt_decode, gpt_forward, gpt_init, gpt_loss
 from ray_tpu_torch.models.gptj import GPTJ_6B, GPTJConfig, gptj_decode, gptj_forward, gptj_init
 from ray_tpu_torch.ops import _kernels
 from ray_tpu_torch.ops.flash_attention import (
@@ -106,6 +124,7 @@ from ray_tpu_torch.ops.flash_attention import (
 from ray_tpu_torch.ops.fused_ce import fused_softmax_cross_entropy
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.ops.paged_attention import (
+    DECODE_HEAD_DIMS,
     VERIFY_HEAD_DIMS,
     decode_splits,
     paged_attention,
@@ -139,6 +158,12 @@ K2_SWEEP = (*range(1, 17), 32)
 TRAIN_406M = GPTConfig(vocab_size=50_304, seq_len=1024, d_model=1024, n_layers=24, n_heads=16,
                        remat_policy="attn", ce_chunks=1)
 TRAIN_B, TRAIN_H, TRAIN_S, TRAIN_D = 26, 16, 1024, 64
+
+# the GPT serving slice: the reference's default GPTConfig, what its
+# serve/llm.py serves for model="gpt" and every RLHF rollout engine runs
+# (vocab 50304, seq 1024, d 768, 12 layers, 12 heads of 64; bf16 over fp32
+# master weights)
+GPT_124M = GPTConfig()
 
 # K1 vs plain: the fp32 pair differs only in summation order (the
 # reference's Pallas-vs-XLA tolerance); in bf16 both round one fp32 result
@@ -206,89 +231,131 @@ def in_turns(fns: dict, iters: int) -> dict:
     return times
 
 
-def k1_inputs(dtype, lengths, seed):
+def k1_inputs(dtype, lengths, seed, d=D, h=H):
     """Random q/pools and per-slot tables of distinct live blocks, padded
     with the trash block past each slot's length."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     lengths = lengths.cuda()
-    q = torch.randn(S, H, D, device="cuda", generator=g).to(dtype)
-    kp = torch.randn(NB, H, BS, D, device="cuda", generator=g).to(dtype)
-    vp = torch.randn(NB, H, BS, D, device="cuda", generator=g).to(dtype)
+    q = torch.randn(S, h, d, device="cuda", generator=g).to(dtype)
+    kp = torch.randn(NB, h, BS, d, device="cuda", generator=g).to(dtype)
+    vp = torch.randn(NB, h, BS, d, device="cuda", generator=g).to(dtype)
     tables = (torch.randperm(NB - 1, device="cuda", generator=g)[: S * T] + 1).view(S, T)
     live = torch.arange(T, device="cuda")[None, :] < ((lengths + BS - 1) // BS)[:, None]
     tables = torch.where(live, tables, 0).int().contiguous()
     return q, kp, vp, tables, lengths.int()
 
 
-def k1_bound_ms(dtype, lengths) -> float:
+def k1_bound_ms(dtype, lengths, d=D, h=H) -> float:
     """Least time for one call: each live K/V row, q, the live table entries
-    and the lengths read once, out written once; 4*D operations per row."""
+    and the lengths read once, out written once; 4*d operations per row."""
     esize = torch.finfo(dtype).bits // 8
     n = int(lengths.sum())
     live_entries = int(((lengths + BS - 1) // BS).sum())
-    nbytes = 2 * n * H * D * esize + 2 * S * H * D * esize + 4 * (live_entries + S)
-    ops = 4 * n * H * D
+    nbytes = 2 * n * h * d * esize + 2 * S * h * d * esize + 4 * (live_entries + S)
+    ops = 4 * n * h * d
     return max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]) * 1e3
 
 
+def k1_heads(d: int) -> int:
+    """Heads of K1's checks at head dim ``d``: GPT-124M's 12 at 64, GPT-J-6B's
+    16 otherwise."""
+    return GPT_124M.n_heads if d == GPT_124M.head_dim else H
+
+
+# K1's live split partials against decode_partials_torch: both sum exact
+# fp32 products in another order (the inputs are rounded to bf16 before
+# either sees them), so the gap is fp32 rounding at the largest partial
+K1_PARTIALS_TOL = 1e-4
+
+
+def k1_partials_gap(q, kp, vp, tables, lengths) -> float:
+    """K1's live split partials after one launch (read from the stream's
+    workspace, which holds the last launch's) against
+    ``decode_partials_torch``: the largest difference over acc, m and l,
+    relative to max(1, the largest plain value)."""
+    split_tokens, splits = decode_splits(T, BS)
+    s, h, d = q.shape
+    paged_attention(q, kp, vp, tables, lengths, impl="cuda")
+    torch.cuda.synchronize()
+    ws = pa._workspaces[(q.device, torch.cuda.current_stream().cuda_stream)][0]
+    got = ws[: s * h * splits * (d + 2)].view(s, h, splits, d + 2)
+    want = pa.decode_partials_torch(q, kp, vp, tables, lengths, split_tokens)
+    live = torch.arange(splits, device="cuda")[None, :] * split_tokens < lengths.long()[:, None]
+    live = live[:, None, :].expand(s, h, splits)
+    return ((got[live] - want[live]).abs().max() / want[live].abs().max().clamp_min(1)).item()
+
+
 def check_k1() -> float:
-    """Phase 3: two batches of 8 slots, lengths on the block edges (15, 16,
-    17), on and next to the split edges (split - 1, split, split + 1, two
-    splits and one more), within a single split (1, 100), the full table
-    (2048), random ones and 0. Returns the bf16 max abs error over the
+    """Phase 3, at every head dim of ``DECODE_HEAD_DIMS`` (64 with GPT's 12
+    heads): two batches of 8 slots, lengths on the block edges (15, 16, 17),
+    on and next to the split edges (split - 1, split, split + 1, two splits
+    and one more), within a single split (1, 100), the full table (2048),
+    random ones and 0; then the live split partials of each batch against
+    ``decode_partials_torch``. Returns the bf16 max abs error over the
     compared rows."""
     rng = np.random.RandomState(0)
     sp = decode_splits(T, BS)[0]
     batches = (torch.tensor([1, 15, 16, 17, T * BS, *rng.randint(1, T * BS + 1, 2), 0]),
                torch.tensor([sp - 1, sp, sp + 1, 2 * sp, 2 * sp + 1, 100, rng.randint(1, T * BS + 1), 0]))
     err_bf16 = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        for lens in batches:
-            compared = lens > 0  # a 0-length row is only required to be finite
-            args = k1_inputs(dtype, lens, seed=1)
-            ref = paged_attention(*args, impl="torch")
-            out = paged_attention(*args, impl="cuda")
-            torch.cuda.synchronize()
-            if not bool(torch.isfinite(out).all()):
-                raise AssertionError(f"K1 {dtype}: non-finite output")
-            err = (out.float() - ref.float()).abs()[compared.cuda()].max().item()
-            print(f"K1 {dtype} split {sp} lengths={lens.tolist()} max_abs_err={err:.3g} tol={TOL[dtype]}")
-            if not err <= TOL[dtype]:
-                raise AssertionError(f"K1 {dtype}: max abs error {err} > {TOL[dtype]}")
-            if dtype == torch.bfloat16:
-                err_bf16 = max(err_bf16, err)
+    for d in DECODE_HEAD_DIMS:
+        h = k1_heads(d)
+        for dtype in (torch.float32, torch.bfloat16):
+            for lens in batches:
+                compared = lens > 0  # a 0-length row is only required to be finite
+                args = k1_inputs(dtype, lens, seed=1, d=d, h=h)
+                ref = paged_attention(*args, impl="torch")
+                out = paged_attention(*args, impl="cuda")
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"K1 {dtype} d={d}: non-finite output")
+                err = (out.float() - ref.float()).abs()[compared.cuda()].max().item()
+                gap = k1_partials_gap(*args)
+                print(f"K1 {dtype} d={d} heads={h} split {sp} lengths={lens.tolist()} max_abs_err={err:.3g} "
+                      f"tol={TOL[dtype]}; live split partials vs decode_partials_torch {gap:.3g} of "
+                      f"max(1, largest value) (limit {K1_PARTIALS_TOL})")
+                if not err <= TOL[dtype]:
+                    raise AssertionError(f"K1 {dtype} d={d}: max abs error {err} > {TOL[dtype]}")
+                if not gap <= K1_PARTIALS_TOL:
+                    raise AssertionError(f"K1 {dtype} d={d}: split partials differ by {gap}")
+                if dtype == torch.bfloat16:
+                    err_bf16 = max(err_bf16, err)
+                del args, ref, out
+        torch.cuda.empty_cache()
     return err_bf16
 
 
-def time_k1() -> dict:
-    """Phase 4 at the decode shapes: 8 slots x 1024 context, bf16; the
-    kernel and the library call in turns (``in_turns``), each the mean of
-    its two turns."""
+def time_k1(d: int = D) -> dict:
+    """Phase 4 at a decode shape: 8 slots x 1024 context, bf16, head dim
+    ``d`` (GPT-J-6B's 16 heads of 256, GPT-124M's 12 of 64); the kernel and
+    the library call in turns (``in_turns``), each the mean of its two
+    turns."""
     dtype = torch.bfloat16
+    h = k1_heads(d)
     lens = torch.full((S,), 1024)
-    q, kp, vp, tables, lengths = k1_inputs(dtype, lens, seed=2)
+    q, kp, vp, tables, lengths = k1_inputs(dtype, lens, seed=2, d=d, h=h)
     plain_ms = cuda_ms(lambda: paged_attention(q, kp, vp, tables, lengths, impl="torch"), 20)
     # library yardstick: SDPA over K/V gathered to dense beforehand (the
     # gather is NOT timed) with the length mask
     live = int(((lens.max() + BS - 1) // BS).item())
     idx = tables[:, :live].long()
-    kd = kp[idx].transpose(1, 2).reshape(S, H, live * BS, D)
-    vd = vp[idx].transpose(1, 2).reshape(S, H, live * BS, D)
+    kd = kp[idx].transpose(1, 2).reshape(S, h, live * BS, d)
+    vd = vp[idx].transpose(1, 2).reshape(S, h, live * BS, d)
     mask = (torch.arange(live * BS, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
     turns = in_turns({"kernel": lambda: paged_attention(q, kp, vp, tables, lengths, impl="cuda"),
                       "library": lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask)}, 200)
     ms, library_ms = (sum(turns[n]) / 2 for n in ("kernel", "library"))
-    rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=k1_bound_ms(dtype, lens))
+    rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=k1_bound_ms(dtype, lens, d, h))
     split_tokens, splits = decode_splits(T, BS)
-    live_ctas = S * H * -(-1024 // split_tokens)
+    live_ctas = S * h * -(-1024 // split_tokens)
     print(
-        f"K1 timing bf16 S={S} H={H} D={D} BS={BS} len=1024: kernel {ms:.4f} ms, plain "
+        f"K1 timing bf16 S={S} H={h} D={d} BS={BS} len=1024: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, library (SDPA on pre-gathered K/V, gather excluded) "
         f"{library_ms:.4f} ms (kernel/library {ms / library_ms:.3f}x; turns "
         f"{' / '.join(f'{t:.4f}' for t in turns['kernel'])} and "
         f"{' / '.join(f'{t:.4f}' for t in turns['library'])}), bound {rec['bound_ms']:.4f} ms "
-        f"(bytes, {ms / rec['bound_ms']:.2f}x); split {split_tokens} positions, {splits * H * S} CTAs "
+        f"(bytes, {ms / rec['bound_ms']:.2f}x); split {split_tokens} positions, {splits * h * S} CTAs "
         f"({live_ctas} with a live position)"
     )
     return rec
@@ -476,10 +543,10 @@ def time_k2(k1_ms: float) -> dict:
     return rec
 
 
-def fp32_identity() -> None:
-    """Phase 5: full width, 2 layers, fp32 — engine greedy == dense decode."""
-    cfg = GPTJConfig(n_layers=2, dtype="float32")
-    params = gptj_init(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+def engine_identity(cfg, params, decode, label: str) -> None:
+    """A 4-slot engine's greedy output equals the dense ``decode`` token for
+    token: four requests, one after another's prompt is cached (a prefix
+    hit), one diverging inside a cached block (a copy-on-write fork)."""
     eng = LLMEngine(
         cfg, params,
         EngineConfig(max_slots=4, block_size=16, max_blocks_per_seq=32, num_blocks=129,
@@ -501,16 +568,26 @@ def fp32_identity() -> None:
     while not all(r.finished for r in reqs):
         eng.step()
     for p, r in zip(prompts, reqs):
-        ref = gptj_decode(cfg, params, torch.tensor([p], device="cuda"), n_new)[0, len(p):]
+        ref = decode(cfg, params, torch.tensor([p], device="cuda"), n_new)[0, len(p):]
         if r.out != ref.tolist():
-            raise AssertionError(f"fp32 engine {r.out} != dense decode {ref.tolist()}")
+            raise AssertionError(f"fp32 engine {r.out} != dense {label} {ref.tolist()}")
     pc = eng.prefix_cache.stats()
     if not (eng.pool.audit()["ok"] and eng.prefix_cache.audit()["ok"]):
         raise AssertionError("fp32 engine: pool or prefix-cache audit failed")
+    if pc["hit_tokens"] <= 0 or pc["cow_forks"] < 1:
+        raise AssertionError(f"fp32 engine: expected prefix hits and a CoW fork, got {pc}")
     print(
-        f"fp32 identity: {len(reqs)} requests x {n_new} tokens equal dense gptj_decode "
+        f"fp32 identity: {len(reqs)} requests x {n_new} tokens equal dense {label} "
         f"(prefix hit tokens {pc['hit_tokens']}, cow forks {pc['cow_forks']})"
     )
+
+
+def fp32_identity() -> None:
+    """Phase 5: GPT-J at full width, 2 layers, fp32 — engine greedy == dense
+    decode."""
+    cfg = GPTJConfig(n_layers=2, dtype="float32")
+    params = gptj_init(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    engine_identity(cfg, params, gptj_decode, "gptj_decode")
 
 
 def serve_threads(eng: LLMEngine, first, make_rest, first_to_end: bool = False):
@@ -580,14 +657,22 @@ def check_served(eng: LLMEngine, results: dict, label: str) -> None:
         raise AssertionError(f"{label}: audit failed {audit} {pc_audit}")
 
 
-def check_greedy(cfg, params, results: dict, label: str) -> None:
-    """Every greedy token against the dense forward over prompt + output."""
+def gpt_forward_plain(cfg: GPTConfig, params, tokens):
+    """The dense GPT forward as an oracle: plain attention (the reference's
+    ``impl="xla"``, no kernel), no remat, fp32 logits."""
+    with torch.no_grad():
+        return gpt_forward(dataclasses.replace(cfg, attn_impl="xla", remat=False), params, tokens)
+
+
+def check_greedy(cfg, params, results: dict, label: str, forward=gptj_forward, indices=None) -> None:
+    """Every greedy token (of the requests in ``indices``, default all)
+    against the dense ``forward`` over prompt + output."""
     checked = excused = 0
     for idx, (prompt, sp, req, _) in sorted(results.items()):
-        if sp.temperature > 0:
+        if sp.temperature > 0 or (indices is not None and idx not in indices):
             continue
         seq = torch.tensor([prompt + req.out[:-1]], device="cuda")
-        logits = gptj_forward(cfg, params, seq)[0, len(prompt) - 1 :]  # predicts out[j]
+        logits = forward(cfg, params, seq)[0, len(prompt) - 1 :]  # predicts out[j]
         top2 = logits.topk(2, dim=-1).values
         for j, tok in enumerate(req.out):
             checked += 1
@@ -601,6 +686,8 @@ def check_greedy(cfg, params, results: dict, label: str) -> None:
                     f"argmax (top-2 gap {gap:.4f}, margin {BF16_TOP2_MARGIN})"
                 )
             excused += 1
+    if checked == 0:
+        raise AssertionError(f"{label}: no greedy token to check")
     print(
         f"{label} greedy check: {checked} tokens against the dense bf16 forward, {excused} "
         f"differ within the top-2 margin {BF16_TOP2_MARGIN}"
@@ -610,6 +697,65 @@ def check_greedy(cfg, params, results: dict, label: str) -> None:
 def ttft_ms(results: dict) -> str:
     ttft = sorted(r[2].first_token_t - r[2].arrival_t for r in results.values())
     return f"{ttft[0] * 1e3:.1f}/{ttft[len(ttft) // 2] * 1e3:.1f}/{ttft[-1] * 1e3:.1f} ms"
+
+
+def serve_mix(eng: LLMEngine, params, label: str, card: str, forward, longest: int = 1024) -> dict:
+    """Phase 6's traffic on a warmed-up engine: 9 requests from client
+    threads (``serve_threads``), prompts 64 to ``longest`` tokens, shared
+    256-token heads (prefix hits), one diverging inside a cached block (a
+    CoW fork), greedy and seeded-sampled, 32 new tokens each. Checks every
+    request, both audits, K1's launches per decode step and every greedy
+    token against the dense ``forward``. Returns the K1 launches, the
+    engine, and the requests."""
+    cfg = eng.model_cfg
+    V = cfg.vocab_size
+    rng = np.random.RandomState(2)
+
+    def toks(n):
+        return [int(t) for t in rng.randint(0, V, n)]
+
+    greedy = SamplingParams(max_tokens=32)
+    head = toks(256)  # shared head: 16 full blocks
+    first = (head + toks(192), greedy)
+    rest = [
+        (head + toks(64), greedy),
+        (head + toks(512), SamplingParams(max_tokens=32, temperature=0.8, top_k=50, top_p=0.95, seed=7)),
+        (head[:200] + toks(300), greedy),  # diverges inside block 12: a CoW fork
+        (toks(64), greedy),
+        (toks(longest), SamplingParams(max_tokens=32, temperature=1.0, seed=11)),
+        (toks(100), greedy),
+        (head + toks(32), greedy),
+        (toks(700), SamplingParams(max_tokens=32, temperature=0.7, top_p=0.9, seed=5)),
+    ]
+    base = eng.stats()
+    results, wall = serve_threads(eng, first, lambda _: rest)
+    st = eng.stats()
+    k1_launches = paged_attention_cuda.launches
+    decode_steps = eng.runner.launches["decode"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    check_served(eng, results, label)
+    pc = st["prefix_cache"]
+    if pc["hit_tokens"] <= 0 or pc["cow_forks"] < 1:
+        raise AssertionError(f"{label}: expected prefix hits and a CoW fork, got {pc}")
+    if decode_steps < 1 or k1_launches != cfg.n_layers * decode_steps:
+        raise AssertionError(
+            f"{label}: K1 launched {k1_launches} times over {decode_steps} decode steps "
+            f"(expected {cfg.n_layers} per step)"
+        )
+    check_greedy(cfg, params, results, label, forward)
+
+    n_tok = st["tokens_generated"] - base["tokens_generated"]
+    d_steps = st["decode_steps"] - base["decode_steps"]
+    step_ms = (st["decode_s"] - base["decode_s"]) / max(d_steps, 1) * 1e3
+    print(
+        f"{label} [{card}]: {len(results)} requests, {n_tok} tokens in {wall:.3f} s "
+        f"= {n_tok / wall:.2f} tokens/s; TTFT min/median/max {ttft_ms(results)}; "
+        f"decode step {step_ms:.3f} ms over {d_steps} steps; K1 launches {k1_launches} = "
+        f"{cfg.n_layers} x {decode_steps}; prefix hit tokens {pc['hit_tokens']}, cow forks "
+        f"{pc['cow_forks']}, preemptions {st['preemptions']}; peak memory {peak_gb:.2f} GB"
+    )
+    return dict(launches=k1_launches, engine=eng, results=results)
 
 
 def serve_6b(card: str) -> dict:
@@ -626,54 +772,7 @@ def serve_6b(card: str) -> dict:
                      prefill_chunk=256),
     )
     eng.warmup()
-    V = cfg.vocab_size
-    rng = np.random.RandomState(2)
-
-    def toks(n):
-        return [int(t) for t in rng.randint(0, V, n)]
-
-    greedy = SamplingParams(max_tokens=32)
-    head = toks(256)  # shared head: 16 full blocks
-    first = (head + toks(192), greedy)
-    rest = [
-        (head + toks(64), greedy),
-        (head + toks(512), SamplingParams(max_tokens=32, temperature=0.8, top_k=50, top_p=0.95, seed=7)),
-        (head[:200] + toks(300), greedy),  # diverges inside block 12: a CoW fork
-        (toks(64), greedy),
-        (toks(1024), SamplingParams(max_tokens=32, temperature=1.0, seed=11)),
-        (toks(100), greedy),
-        (head + toks(32), greedy),
-        (toks(700), SamplingParams(max_tokens=32, temperature=0.7, top_p=0.9, seed=5)),
-    ]
-    base = eng.stats()
-    results, wall = serve_threads(eng, first, lambda _: rest)
-    st = eng.stats()
-    k1_launches = paged_attention_cuda.launches
-    decode_steps = eng.runner.launches["decode"]
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
-    check_served(eng, results, "serve")
-    pc = st["prefix_cache"]
-    if pc["hit_tokens"] <= 0 or pc["cow_forks"] < 1:
-        raise AssertionError(f"serve: expected prefix hits and a CoW fork, got {pc}")
-    if decode_steps < 1 or k1_launches != cfg.n_layers * decode_steps:
-        raise AssertionError(
-            f"serve: K1 launched {k1_launches} times over {decode_steps} decode steps "
-            f"(expected {cfg.n_layers} per step)"
-        )
-    check_greedy(cfg, params, results, "serve")
-
-    n_tok = st["tokens_generated"] - base["tokens_generated"]
-    d_steps = st["decode_steps"] - base["decode_steps"]
-    step_ms = (st["decode_s"] - base["decode_s"]) / max(d_steps, 1) * 1e3
-    print(
-        f"GPT-J-6B serve [{card}]: {len(results)} requests, {n_tok} tokens in {wall:.3f} s "
-        f"= {n_tok / wall:.2f} tokens/s; TTFT min/median/max {ttft_ms(results)}; "
-        f"decode step {step_ms:.3f} ms over {d_steps} steps; K1 launches {k1_launches} = "
-        f"{cfg.n_layers} x {decode_steps}; prefix hit tokens {pc['hit_tokens']}, cow forks "
-        f"{pc['cow_forks']}, preemptions {st['preemptions']}; peak memory {peak_gb:.2f} GB"
-    )
-    return dict(launches=k1_launches, engine=eng, params=params)
+    return dict(serve_mix(eng, params, "GPT-J-6B serve", card, gptj_forward), params=params)
 
 
 def noise_host_ms(eng: LLMEngine, reqs) -> tuple[float, float]:
@@ -737,7 +836,7 @@ def print_device_split(kernels, steps: int, wall_ms: float, attn: str, attn_key:
     print(
         f"  device busy {busy:.3f} ms/step (idle share {1 - busy / wall_ms:.3f} of the "
         f"unprofiled step), {n_launch:.0f} device ops/step; GEMM {gemm:.3f} ms, "
-        f"{attn} {k:.3f} ms, other {busy - gemm - k:.3f} ms per step"
+        f"{attn} {k:.3f} ms ({k / busy:.3f} of busy), other {busy - gemm - k:.3f} ms per step"
     )
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"  {dev_ms([e]):8.3f} ms/step  {e.count // steps:5d}/step  {e.key[:90]}")
@@ -759,7 +858,7 @@ def steady_batch(eng: LLMEngine, max_tokens: int):
     return reqs
 
 
-def profile_decode(eng: LLMEngine, card: str) -> None:
+def profile_decode(eng: LLMEngine, card: str, label: str = "decode profile") -> None:
     """Phase 7: where a steady decode step's time goes — every slot decoding
     after a 512-token prompt (half greedy, half sampled); device time by
     kernel against the step's wall time without the profiler."""
@@ -771,7 +870,7 @@ def profile_decode(eng: LLMEngine, card: str) -> None:
     noise_ms, noise_greedy_ms = noise_host_ms(eng, reqs)
     n_sampled = sum(r.params.temperature > 0 for r in reqs)
     print(
-        f"decode profile [{card}]: {len(reqs)} slots ({n_sampled} sampled) at context "
+        f"{label} [{card}]: {len(reqs)} slots ({n_sampled} sampled) at context "
         f"~{reqs[0].seq_len}: {wall_ms:.3f} ms/step wall without the profiler, "
         f"{prof_wall_ms:.3f} ms/step with it; host Gumbel noise {noise_ms:.3f} ms/step "
         f"for this batch, {noise_greedy_ms:.3f} ms/step all greedy"
@@ -783,16 +882,17 @@ def profile_decode(eng: LLMEngine, card: str) -> None:
 
 
 class DenseDrafter:
-    """Test double for phase 10: proposes each request's dense greedy
+    """Test double for phases 10 and 18: proposes each request's dense greedy
     continuation, always confident, with one token deliberately wrong in
     every row on every third call (at index (call // 3 + row) % k), so
     full, partial and zero acceptance all run whatever the random model
     does. ``designed`` counts the windows by the acceptance the double
     built in."""
 
-    def __init__(self, k: int, truth: dict):
+    def __init__(self, k: int, truth: dict, vocab: int):
         self.k = k
         self.truth = truth  # prompt tuple -> dense continuation
+        self.vocab = vocab
         self.calls = 0
         self.designed = {"full": 0, "partial": 0, "zero": 0}
         self.last_matched = np.zeros(0, bool)
@@ -805,7 +905,7 @@ class DenseDrafter:
             row = (self.truth[prompt][done:] + [0] * self.k)[: self.k]
             if self.calls % 3 == 2:
                 j = (self.calls // 3 + r) % self.k
-                row[j] = (row[j] + 1) % GPTJ_6B.vocab_size
+                row[j] = (row[j] + 1) % self.vocab
                 self.designed["zero" if j == 0 else "partial"] += 1
             else:
                 self.designed["full"] += 1
@@ -816,13 +916,20 @@ class DenseDrafter:
 
 
 def fp32_spec_identity() -> None:
-    """Phase 10: full width, 2 layers, fp32 — the speculating engine's
-    greedy output equals dense decode token for token, first with the
-    test-double drafter (full, partial and zero acceptance) at spec_k 4 and
-    9 (a window of 10, past the first design's widest), then with the real n-gram
-    drafter on a prompt with a periodic tail at spec_k 4."""
+    """Phase 10: GPT-J at full width, 2 layers, fp32 — the speculating
+    engine's greedy output equals dense decode token for token
+    (``spec_identity``) at spec_k 4 and 9 (a window of 10, past the first
+    design's widest)."""
     cfg = GPTJConfig(n_layers=2, dtype="float32")
     params = gptj_init(cfg, torch.Generator(device="cuda").manual_seed(3), "cuda")
+    spec_identity(cfg, params, gptj_decode, "gptj_decode", (4, 9))
+
+
+def spec_identity(cfg, params, decode, label: str, ks) -> None:
+    """A speculating 4-slot engine's greedy output equals the dense
+    ``decode`` token for token, first with the test-double drafter (full,
+    partial and zero acceptance) at each spec_k of ``ks``, then with the
+    real n-gram drafter on a prompt with a periodic tail at spec_k 4."""
     ecfg = EngineConfig(max_slots=4, block_size=16, max_blocks_per_seq=32, num_blocks=129,
                         prefill_chunk=64, spec_k=4)
     rng = np.random.RandomState(5)
@@ -831,15 +938,15 @@ def fp32_spec_identity() -> None:
         return [int(t) for t in rng.randint(0, cfg.vocab_size, n)]
 
     def dense(prompt, n):
-        out = gptj_decode(cfg, params, torch.tensor([prompt], device="cuda"), n)
+        out = decode(cfg, params, torch.tensor([prompt], device="cuda"), n)
         return out[0, len(prompt):].tolist()
 
     n_new = 32
     prompts = [toks(40), toks(77), toks(130), toks(9)]
     truth = {tuple(p): dense(p, n_new) for p in prompts}
-    for k in (4, 9):
+    for k in ks:
         eng = LLMEngine(cfg, params, dataclasses.replace(ecfg, spec_k=k))
-        double = DenseDrafter(k, truth)
+        double = DenseDrafter(k, truth, cfg.vocab_size)
         eng._drafter = double
         launches = paged_verify_attention_cuda.launches
         reqs = [eng.submit(p, SamplingParams(max_tokens=n_new)) for p in prompts]
@@ -857,7 +964,7 @@ def fp32_spec_identity() -> None:
             raise AssertionError(f"fp32 spec engine (spec_k={k}): pool or prefix-cache audit failed")
         print(
             f"fp32 spec identity (test-double drafter, spec_k={k}, window {k + 1}): {len(reqs)} requests x "
-            f"{n_new} tokens equal dense gptj_decode; {st['verify_steps']} verify steps, windows designed "
+            f"{n_new} tokens equal dense {label}; {st['verify_steps']} verify steps, windows designed "
             f"{double.designed}, accepted {st['spec_accepted']} of {st['spec_proposed']}"
         )
     pattern = toks(7)
@@ -872,7 +979,7 @@ def fp32_spec_identity() -> None:
         raise AssertionError(f"fp32 spec (n-gram): no verify step ran: {st}")
     print(
         f"fp32 spec identity (n-gram drafter, periodic tail): {n_new} tokens equal dense "
-        f"gptj_decode; {st['verify_steps']} verify steps, accepted {st['spec_accepted']} of "
+        f"{label}; {st['verify_steps']} verify steps, accepted {st['spec_accepted']} of "
         f"{st['spec_proposed']}"
     )
 
@@ -880,14 +987,24 @@ def fp32_spec_identity() -> None:
 def spec_serve_6b(params, card: str) -> dict:
     """Phase 11: GPT-J-6B, bf16, phase 6's weights, speculating (spec_k=4,
     n-gram drafter), served by run_loop to client threads."""
-    cfg = GPTJ_6B
     torch.cuda.reset_peak_memory_stats()
     eng = LLMEngine(
-        cfg, params,
+        GPTJ_6B, params,
         EngineConfig(max_slots=8, block_size=16, max_blocks_per_seq=128, num_blocks=1025,
                      prefill_chunk=256, spec_k=4),
     )
     eng.warmup()
+    return spec_serve(eng, params, "GPT-J-6B spec serve", card, gptj_forward)
+
+
+def spec_serve(eng: LLMEngine, params, label: str, card: str, forward) -> dict:
+    """Phase 11's traffic on a warmed-up speculating engine: a first request
+    to its end, then 9 from client threads — a regeneration, periodic
+    tails, shared heads, greedy and seeded-sampled, 48 new tokens each.
+    Checks every request, both audits, K2's launches per verify step, K1's
+    per plain decode step and every greedy token against the dense
+    ``forward``. Returns the K2 and K1 launches and the engine."""
+    cfg = eng.model_cfg
     V = cfg.vocab_size
     rng = np.random.RandomState(6)
 
@@ -930,18 +1047,18 @@ def spec_serve_6b(params, card: str) -> dict:
     verify_steps = eng.runner.launches["verify"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    check_served(eng, results, "spec serve")
+    check_served(eng, results, label)
     if verify_steps < 1 or k2_launches != cfg.n_layers * verify_steps:
         raise AssertionError(
-            f"spec serve: K2 launched {k2_launches} times over {verify_steps} verify steps "
+            f"{label}: K2 launched {k2_launches} times over {verify_steps} verify steps "
             f"(expected {cfg.n_layers} per step)"
         )
     if k1_launches != cfg.n_layers * decode_steps:
         raise AssertionError(
-            f"spec serve: K1 launched {k1_launches} times over {decode_steps} plain decode "
+            f"{label}: K1 launched {k1_launches} times over {decode_steps} plain decode "
             f"steps (expected {cfg.n_layers} per step)"
         )
-    check_greedy(cfg, params, results, "spec serve")
+    check_greedy(cfg, params, results, label, forward)
 
     def delta(key):
         return st[key] - base[key]
@@ -962,7 +1079,7 @@ def spec_serve_6b(params, card: str) -> dict:
     torch.cuda.synchronize()
     noise_ms = (time.perf_counter() - t0) * 1e3 / 20
     print(
-        f"GPT-J-6B spec serve [{card}]: {len(results)} requests, {n_tok} tokens in {wall:.3f} s "
+        f"{label} [{card}]: {len(results)} requests, {n_tok} tokens in {wall:.3f} s "
         f"= {n_tok / wall:.2f} tokens/s; TTFT min/median/max {ttft_ms(results)}; "
         f"{v_steps} verify steps at {delta('verify_s') / max(v_steps, 1) * 1e3:.3f} ms, "
         f"{d_steps} plain decode steps at {delta('decode_s') / max(d_steps, 1) * 1e3:.3f} ms; "
@@ -977,7 +1094,7 @@ def spec_serve_6b(params, card: str) -> dict:
         f"{st['prefix_cache']['hit_tokens']}, preemptions {st['preemptions']}; peak memory "
         f"{peak_gb:.2f} GB"
     )
-    return dict(launches=k2_launches, engine=eng)
+    return dict(launches=k2_launches, k1_launches=k1_launches, engine=eng)
 
 
 class ConfidentDrafter:
@@ -993,7 +1110,7 @@ class ConfidentDrafter:
         return np.asarray([[ctx[-1]] * self.k for ctx in contexts], np.int32)
 
 
-def profile_verify(eng: LLMEngine, card: str) -> None:
+def profile_verify(eng: LLMEngine, card: str, label: str = "verify profile") -> None:
     """Phase 12: where a steady verify step's time goes — phase 7's traffic
     on phase 11's speculating engine. The test-double drafter is always
     confident and the acceptance backoff is held off before each step, so
@@ -1029,7 +1146,7 @@ def profile_verify(eng: LLMEngine, card: str) -> None:
     noise_ms = (time.perf_counter() - t0) * 1e3 / 20
     n_sampled = sum(t > 0 for t in temps)
     print(
-        f"verify profile [{card}]: {len(reqs)} slots ({n_sampled} sampled), W={w}, at context "
+        f"{label} [{card}]: {len(reqs)} slots ({n_sampled} sampled), W={w}, at context "
         f"~{reqs[0].seq_len}: {wall_ms:.3f} ms/step wall without the profiler, "
         f"{prof_wall_ms:.3f} ms/step with it; host Gumbel noise {noise_ms:.3f} ms/step "
         f"for this batch"
@@ -1038,6 +1155,158 @@ def profile_verify(eng: LLMEngine, card: str) -> None:
     for r in reqs:
         eng.cancel(r.id)
     eng.step()
+
+
+# GPT-124M's serving engine: 8 slots, block 16, tables of 64 blocks (the
+# positional table's 1024 positions), a pool that holds every slot's table
+GPT_ENGINE = EngineConfig(max_slots=8, block_size=16, max_blocks_per_seq=64, num_blocks=513,
+                          prefill_chunk=256)
+
+
+def gpt_fp32_identity() -> None:
+    """Phase 18: GPT at full width (vocab 50304, d 768, 12 heads of 64), 2
+    layers, fp32 — the engine's greedy output equals the dense
+    ``gpt_decode`` token for token, plain (``engine_identity``) and
+    speculating at spec_k 4 (``spec_identity``)."""
+    cfg = dataclasses.replace(GPT_124M, n_layers=2, dtype="float32")
+    params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(21), "cuda")
+    engine_identity(cfg, params, gpt_decode, "gpt_decode")
+    spec_identity(cfg, params, gpt_decode, "gpt_decode", (4,))
+
+
+def serve_gpt(card: str) -> dict:
+    """Phase 19: GPT-124M, bf16 over fp32 master weights, full depth: phase
+    6's traffic (``serve_mix``, the longest prompt cut to 960 so prompt +
+    32 fits the 1024 positions), then phase 11's on a speculating engine
+    over the same weights (``spec_serve``)."""
+    cfg = GPT_124M
+    torch.cuda.reset_peak_memory_stats()
+    params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    eng = LLMEngine(cfg, params, GPT_ENGINE)
+    eng.warmup()
+    served = serve_mix(eng, params, "GPT-124M serve", card, gpt_forward_plain, longest=960)
+    torch.cuda.reset_peak_memory_stats()
+    spec_eng = LLMEngine(cfg, params, dataclasses.replace(GPT_ENGINE, spec_k=4))
+    spec_eng.warmup()
+    spec = spec_serve(spec_eng, params, "GPT-124M spec serve", card, gpt_forward_plain)
+    return dict(k1=served["launches"], k2=spec["launches"], engine=eng, spec_engine=spec_eng)
+
+
+def hot_swap_gpt(eng: LLMEngine, card: str) -> dict:
+    """Phase 21: ``update_weights`` to a second seed's weights in the middle
+    of traffic. Four requests of 256 tokens (greedy and sampled, two with a
+    cached 256-token head) stream under ``run_loop`` until each has 8
+    tokens; the loop pauses, the swap lands between two steps with the four
+    in flight, the loop resumes; four more requests of 48 tokens follow,
+    and the same weights are swapped in once more with the loop busy (the
+    time a swap waits for the engine lock under traffic). Checks that every parameter keeps
+    its storage, the version moves by one and is stamped on each request,
+    the prefix tree is emptied and its epoch bumped, every request is served
+    (the early ones continue under the new weights) with K1 at 12 launches
+    a decode step, and every greedy token of the later requests against the
+    dense forward under the NEW weights. Times the swap (host clock, device
+    synced)."""
+    cfg = eng.model_cfg
+    new = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    ptrs = {n: p.data_ptr() for n, p in eng.runner.params.named_parameters()}
+    version0, epoch0 = eng.weights_version, eng.prefix_cache.epoch
+    rng = np.random.RandomState(9)
+
+    def toks(n):
+        return [int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+
+    greedy = SamplingParams(max_tokens=48)
+    sampled = SamplingParams(max_tokens=48, temperature=0.9, top_k=40, seed=3)
+    # the early requests run long enough that none can end before the swap
+    long_greedy, long_sampled = (dataclasses.replace(sp, max_tokens=256) for sp in (greedy, sampled))
+    head = toks(256)
+    eng.generate(head + toks(16), SamplingParams(max_tokens=2))  # the head's blocks in the tree
+    early = [(head + toks(64), long_greedy), (toks(300), long_sampled), (head + toks(200), long_greedy),
+             (toks(90), long_greedy)]
+    late = [(head + toks(32), greedy), (toks(100), greedy), (head[:100] + toks(50), greedy), (toks(60), sampled)]
+    results = {}
+
+    def start_loop():
+        stop = threading.Event()
+        loop = threading.Thread(target=eng.run_loop, args=(stop,), daemon=True)
+        loop.start()
+        return stop, loop
+
+    def stop_loop(stop, loop):
+        stop.set()
+        loop.join(timeout=60)
+        if loop.is_alive():
+            raise AssertionError("hot swap: run_loop did not stop")
+
+    def wait(cond, what):
+        deadline = time.monotonic() + 300
+        while not cond():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"hot swap: {what}")
+            time.sleep(0.002)
+
+    # the path's run starts here: every count from 0
+    paged_attention_cuda.launches = 0
+    paged_verify_attention_cuda.launches = 0
+    eng.runner.launches = dict.fromkeys(eng.runner.launches, 0)
+    loop = start_loop()
+    try:
+        reqs = [eng.submit(p, sp) for p, sp in early]
+        wait(lambda: all(len(r.out) >= 8 for r in reqs), "the early requests did not start")
+        # the loop pauses for the swap: a thread blocked on the engine lock
+        # can wait many steps behind a busy run_loop, whose next step takes
+        # the lock again at once (Python's locks are not fair)
+        stop_loop(*loop)
+        cached = eng.prefix_cache.stats()["cached_blocks"]
+        in_flight = sum(not r.finished for r in reqs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        version = eng.update_weights(new)
+        torch.cuda.synchronize()
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        after = eng.prefix_cache.stats()["cached_blocks"]
+        loop = start_loop()
+        reqs += [eng.submit(p, sp) for p, sp in late]
+        # the same weights again with the loop busy: how long a swap waits
+        # for the engine lock under traffic (the values do not change)
+        t0 = time.perf_counter()
+        busy_version = eng.update_weights(new)
+        torch.cuda.synchronize()
+        busy_swap_ms = (time.perf_counter() - t0) * 1e3
+        busy_steps = eng.stats()["steps"]
+        wait(lambda: all(r.finished for r in reqs), "a request did not finish")
+    finally:
+        stop_loop(*loop)
+    k1_launches = paged_attention_cuda.launches
+    decode_steps = eng.runner.launches["decode"]
+    for idx, ((prompt, sp), req) in enumerate(zip(early + late, reqs)):
+        results[idx] = (prompt, sp, req, list(eng.stream_tokens(req, timeout=5)))
+    check_served(eng, results, "hot swap")
+    if {n: p.data_ptr() for n, p in eng.runner.params.named_parameters()} != ptrs:
+        raise AssertionError("hot swap: a parameter moved to new storage")
+    if version != version0 + 1 or busy_version != version + 1 or eng.weights_version != busy_version:
+        raise AssertionError(f"hot swap: version {version0} -> {version} -> {busy_version}")
+    stamps = [r.weights_version for r in reqs]
+    if stamps != [version0] * len(early) + [version] * len(late):
+        raise AssertionError(f"hot swap: request versions {stamps}")
+    if not (cached > 0 and after == 0 and eng.prefix_cache.epoch == epoch0 + 2):
+        raise AssertionError(f"hot swap: prefix tree {cached} -> {after} blocks, epoch {epoch0} -> "
+                             f"{eng.prefix_cache.epoch}")
+    if in_flight != len(early):
+        raise AssertionError(f"hot swap: {len(early) - in_flight} early requests ended before the swap")
+    if decode_steps < 1 or k1_launches != cfg.n_layers * decode_steps:
+        raise AssertionError(f"hot swap: K1 launched {k1_launches} times over {decode_steps} decode steps")
+    check_greedy(cfg, new, results, "hot swap (requests after the swap, new weights)", gpt_forward_plain,
+                 indices=range(len(early), len(reqs)))
+    print(
+        f"GPT-124M hot swap [{card}]: update_weights {swap_ms:.3f} ms (host clock, device synced; "
+        f"{sum(p.numel() for p in new.parameters()) / 1e6:.1f}M fp32 parameters copied in place), version "
+        f"{version0} -> {version}; with run_loop busy {busy_swap_ms:.3f} ms (lock wait included; "
+        f"{busy_steps} engine steps so far); {in_flight} requests in flight across it; prefix tree {cached} -> "
+        f"{after} cached blocks, epoch {epoch0} -> {eng.prefix_cache.epoch} (two swaps); {len(reqs)} requests served, "
+        f"K1 launches {k1_launches} = {cfg.n_layers} x {decode_steps}"
+    )
+    return dict(swap_ms=swap_ms, busy_swap_ms=busy_swap_ms, launches=k1_launches)
 
 
 def flash_bound(nbytes: int, ops: float) -> tuple[float, str]:
@@ -1486,6 +1755,7 @@ def main() -> int:
 
     phase("4 K1 timing")
     timing = time_k1()
+    timing64 = time_k1(GPT_124M.head_dim)
 
     phase("5 fp32 identity")
     fp32_identity()
@@ -1533,6 +1803,22 @@ def main() -> int:
 
     phase("17 406M training")
     trained = train_406m(card)
+    torch.cuda.empty_cache()
+
+    phase("18 GPT fp32 identity")
+    gpt_fp32_identity()
+    torch.cuda.empty_cache()
+
+    phase("19 GPT-124M serve")
+    gpt_served = serve_gpt(card)
+
+    phase("20 GPT-124M decode and verify profile")
+    profile_decode(gpt_served["engine"], card, "GPT-124M decode profile")
+    profile_verify(gpt_served.pop("spec_engine"), card, "GPT-124M verify profile")
+    torch.cuda.empty_cache()
+
+    phase("21 GPT-124M hot swap")
+    swapped = hot_swap_gpt(gpt_served.pop("engine"), card)
 
     kernels = [
         dict(
@@ -1540,20 +1826,25 @@ def main() -> int:
             route="cuda",
             source="ray_tpu_torch/ops/csrc/paged_attention.cu",
             replaces="ray_tpu/ops/paged_attention.py:203",
-            launches=served["launches"],
+            launches=served["launches"] + gpt_served["k1"] + swapped["launches"],
             max_abs_err=err,
             ms=timing["ms"],
             plain_ms=timing["plain_ms"],
             bound_ms=timing["bound_ms"],
             bound_by="bytes",
             library_ms=timing["library_ms"],
+            head_dims=list(DECODE_HEAD_DIMS),
+            launches_by_path={"gptj_6b_serve": served["launches"], "gpt_124m_serve": gpt_served["k1"],
+                              "gpt_124m_hot_swap": swapped["launches"]},
+            at_head_dim_64=dict(timing64, bound_by="bytes"),
         ),
         dict(
             name="paged_verify_attention",
             route="cuda",
             source="ray_tpu_torch/ops/csrc/paged_verify_attention.cu",
             replaces="ray_tpu/ops/paged_attention.py:304",
-            launches=spec["launches"],
+            launches=spec["launches"] + gpt_served["k2"],
+            launches_by_path={"gptj_6b_spec_serve": spec["launches"], "gpt_124m_spec_serve": gpt_served["k2"]},
             max_abs_err=err2,
             ms=timing2["ms"],
             plain_ms=timing2["plain_ms"],

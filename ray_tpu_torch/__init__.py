@@ -5,11 +5,12 @@ nothing from it and nothing of JAX. Module paths mirror the reference so
 each port sits next to its counterpart by name
 (``ray_tpu_torch/llm/engine.py`` ↔ ``ray_tpu/llm/engine.py``).
 
-Ported so far: the paged-KV LLM serving path for GPT-J — the model
-(``models.gptj``), sampling (``models.sampling``), paged decode/verify/prefill
-attention with hand-written Hopper kernels for decode and speculative
-verification (``ops.paged_attention``), and the engine with its drafters
-(``llm``); and GPT training on one device — the model (``models.gpt``),
+Ported so far: the paged-KV LLM serving path for GPT and GPT-J — the models
+(``models.gpt``, ``models.gptj``) with their dense decoders, sampling
+(``models.sampling``), paged decode/verify/prefill attention with
+hand-written Hopper kernels for decode and speculative verification
+(``ops.paged_attention``), and the engine with its drafters and weight
+hot-swap (``llm``); and GPT training on one device — the model (``models.gpt``),
 causal attention with hand-written flash forward and backward kernels
 (``ops.attention``, ``ops.flash_attention``), the fused cross-entropy
 (``ops.fused_ce``) and the AdamW train step (``parallel``). ROADMAP.md lists
@@ -37,5 +38,6 @@ from ray_tpu_torch.models.gptj import (  # noqa: F401
     gptj_init,
     params_from_jax,
 )
-from ray_tpu_torch.models.gpt import GPTConfig, gpt_init, gpt_loss  # noqa: F401
+from ray_tpu_torch.models.gpt import GPTConfig, gpt_decode, gpt_init, gpt_loss  # noqa: F401
+from ray_tpu_torch.models.sampling import sample_tokens  # noqa: F401
 from ray_tpu_torch.parallel import adamw, build_train_step  # noqa: F401

@@ -1,6 +1,6 @@
-"""ray_tpu_torch.llm: continuous-batching GPT-J serving over a paged KV
-cache, on one CUDA device, with speculative decoding (port of
-``ray_tpu.llm``).
+"""ray_tpu_torch.llm: continuous-batching GPT and GPT-J serving over a
+paged KV cache, on one CUDA device, with speculative decoding and weight
+hot-swap (port of ``ray_tpu.llm``).
 
     from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
 
@@ -9,6 +9,7 @@ cache, on one CUDA device, with speculative decoding (port of
                                                    temperature=0.8))
     for tok in engine.stream_tokens(req):   # a loop thread drives step()
         ...
+    engine.update_weights(new_params)       # between steps, mid-traffic
 """
 
 from ray_tpu_torch.llm.cache import CacheConfig, KVBlockPool  # noqa: F401

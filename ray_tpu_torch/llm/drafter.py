@@ -17,9 +17,9 @@ Two built-ins:
   device work; very effective on repetitive or structured text — code,
   templated output, and self-repeating greedy continuations — where the
   future literally already appeared. A copy of the reference's.
-* ``SmallModelDrafter`` — a small GPT-J proposes greedily with the port's
-  ``gptj_decode`` on its parameters' device. Fixed shapes: ``(slots,
-  ctx_window)`` prompts decoding ``k`` tokens. Contexts are truncated to
+* ``SmallModelDrafter`` — a small GPT or GPT-J proposes greedily with the
+  port's ``gpt_decode`` or ``gptj_decode`` on its parameters' device. Fixed
+  shapes: ``(slots, ctx_window)`` prompts decoding ``k`` tokens. Contexts are truncated to
   the last ``ctx_window`` tokens and left-padded with 0 when shorter —
   padding skews short-context drafts (draft QUALITY only; verification
   keeps the output exact).
@@ -37,6 +37,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ray_tpu_torch.models.gpt import GPTConfig, gpt_decode
 from ray_tpu_torch.models.gptj import GPTJConfig, gptj_decode
 
 
@@ -169,24 +170,30 @@ class NGramDrafter:
 
 
 class SmallModelDrafter:
-    """Greedy ``k``-token proposals from a small draft GPT-J.
+    """Greedy ``k``-token proposals from a small KV-cached draft model.
 
-    ``model_cfg``/``params`` are a ``models.gptj`` config and ``GPTJ``
-    parameters (typically a much smaller model than the target); the
-    drafter runs on the parameters' device. ``slots`` fixes the batch
-    dimension — callers pass the engine's ``max_slots`` and may propose for
-    fewer contexts (the batch is padded; padded rows cost compute only).
-    The reference also drafts with a GPT model; the port's GPT arch is not
-    written yet (ROADMAP.md)."""
+    ``model_cfg``/``params`` are a ``models.gpt`` or ``models.gptj`` config
+    and its parameters (``GPT`` or ``GPTJ``; typically a much smaller model
+    than the target); the drafter runs on the parameters' device. ``slots``
+    fixes the batch dimension — callers pass the engine's ``max_slots`` and
+    may propose for fewer contexts (the batch is padded; padded rows cost
+    compute only). A GPT draft model's positional table must hold
+    ``ctx_window + k`` positions."""
 
     def __init__(self, model_cfg, params, k: int, slots: int, ctx_window: int = 16):
         if k < 1 or slots < 1 or ctx_window < 1:
             raise ValueError("k, slots and ctx_window must be >= 1")
-        if not isinstance(model_cfg, GPTJConfig):
-            raise NotImplementedError(
-                f"the port's draft model runs GPT-J only, got {type(model_cfg).__name__} "
-                "(the GPT arch is queued in ROADMAP.md)"
-            )
+        if isinstance(model_cfg, GPTJConfig):
+            self._decode = gptj_decode
+        elif isinstance(model_cfg, GPTConfig):
+            self._decode = gpt_decode
+            if ctx_window + k > model_cfg.seq_len:
+                raise ValueError(
+                    f"ctx_window ({ctx_window}) + k ({k}) exceeds the draft "
+                    f"model's positional table (seq_len={model_cfg.seq_len})"
+                )
+        else:
+            raise TypeError(f"unsupported draft model config {type(model_cfg).__name__}")
         self.cfg = model_cfg
         self.k = k
         self.slots = slots
@@ -203,7 +210,7 @@ class SmallModelDrafter:
             tail = list(ctx[-W:])
             batch[i, W - len(tail) :] = tail
         tokens = torch.from_numpy(batch).to(self.device)
-        out = gptj_decode(self.cfg, self._params, tokens, self.k)  # (slots, W + k)
+        out = self._decode(self.cfg, self._params, tokens, self.k)  # (slots, W + k)
         return out[: len(contexts), W:].cpu().numpy().astype(np.int32)
 
 

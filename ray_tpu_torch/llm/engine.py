@@ -1,8 +1,8 @@
 """LLMEngine: the continuous-batching step loop (port of
 ``ray_tpu/llm/engine.py``).
 
-One engine owns one GPT-J model, one paged KV pool on one device, and one
-scheduler. ``step()`` is the whole design:
+One engine owns one GPT or GPT-J model, one paged KV pool on one device,
+and one scheduler. ``step()`` is the whole design:
 
 1. reap cancellations and blown deadlines;
 2. admit waiting requests into free decode slots (FIFO, memory-gated, and
@@ -24,11 +24,12 @@ scheduler. ``step()`` is the whole design:
 
 Threading: ``step()`` serializes on an internal lock — any number of
 submitter threads can feed the engine while one loop thread
-(``run_loop``) turns the crank.
+(``run_loop``) turns the crank, and ``update_weights`` hot-swaps the
+parameters between two steps without draining in-flight requests.
 
-Not ported yet (ROADMAP.md): tensor parallelism (``tp > 1``), weight
-hot-swap, overload shedding, the watchdog, and the metrics/events/phase/
-tracing hooks (the speculative path's included).
+Not ported yet (ROADMAP.md): tensor parallelism (``tp > 1``), overload
+shedding, the watchdog, and the metrics/events/phase/tracing hooks (the
+speculative path's included).
 """
 
 from __future__ import annotations
@@ -173,9 +174,22 @@ class LLMEngine:
         self._spec_draft_s = 0.0
         self._spec_skip = 0  # plain-decode steps left before re-probing
         self._spec_backoff = 0  # current backoff length (0 = speculating)
-        # model-length cap: the paged table width (rotary GPT-J has no
-        # absolute position table)
+        # liveness beat, read LOCK-FREE by ``progress`` (a wedged step holds
+        # the engine lock, so an observer must never need it): (monotonic t
+        # of the last completed step — idle ticks count, a wedge does not —,
+        # pending work then). One-tuple assignment keeps the read torn-free
+        # under the GIL.
+        self._beat: tuple[float, int] = (time.monotonic(), 0)
+        # learner-to-engine weight sync: monotonic version of the parameters
+        # the steps currently read; update_weights swaps them between steps
+        # and every submit stamps the version onto its Request
+        self._weights_version = 0
+        # model-length cap: the paged table width, and the learned
+        # positional table for GPT (rotary GPT-J has no absolute cap of its
+        # own)
         self.max_model_len = cache_cfg.max_seq_len
+        if self.runner.arch == "gpt":
+            self.max_model_len = min(self.max_model_len, model_cfg.seq_len)
 
     # -- public API --------------------------------------------------------
 
@@ -228,6 +242,10 @@ class LLMEngine:
             )
         deadline = time.time() + deadline_s if deadline_s is not None else None
         req = Request(prompt, params, deadline=deadline, resume_tokens=resume_tokens)
+        # staleness stamp: the weights version this request STARTS under (a
+        # swap mid-generation is fine — per-token behavior logprobs stay
+        # exact either way)
+        req.weights_version = self._weights_version
         # a resume that already satisfies its stopping condition finishes
         # without touching the scheduler (the earlier engine died between
         # delivering the final token and the stream's "done")
@@ -242,8 +260,19 @@ class LLMEngine:
             req.stream.put(("done", done_reason))
             return req
         with self._lock:
+            # re-stamp under the lock: a swap that landed between the
+            # Request's construction and here is the version it decodes under
+            req.weights_version = self._weights_version
             self._requests[req.id] = req
             self.scheduler.add(req)
+            # liveness beat: raise the pending count, and if the engine was
+            # idle until now restart the age clock — the age must measure
+            # how long work waited, not how long the engine idled before it
+            t, prev_pending = self._beat
+            self._beat = (
+                time.monotonic() if prev_pending == 0 else t,
+                self.scheduler.num_running + self.scheduler.num_waiting,
+            )
         return req
 
     def cancel(self, req_id: str) -> bool:
@@ -253,6 +282,70 @@ class LLMEngine:
             return False
         req.cancelled.set()
         return True
+
+    def has_work(self) -> bool:
+        with self._lock:
+            return self.scheduler.has_work()
+
+    def progress(self) -> tuple[float, int]:
+        """(seconds since the last completed step tick, pending work at that
+        tick) — lock-free, safe to call while a step is wedged."""
+        t, pending = self._beat
+        return time.monotonic() - t, pending
+
+    @property
+    def weights_version(self) -> int:
+        """Version of the parameters the engine currently decodes with."""
+        return self._weights_version
+
+    def update_weights(self, params, version: Optional[int] = None) -> int:
+        """Hot-swap the model parameters between two ``step()`` calls
+        WITHOUT draining in-flight requests (the learner-to-engine weight
+        sync of RLHF rollouts).
+
+        ``params`` is a module like the engine's (``GPT`` or ``GPTJ``, on
+        any device): the same parameter names, shapes and dtypes, or
+        ``ValueError``. Each new value is written INTO the existing
+        parameter storage with ``copy_``, under the engine lock, on the
+        current stream (the steps' stream: the engine never switches
+        streams), so the next step reads it; no tensor is rebound, so
+        nothing that captured the storage can keep stale weights. In-flight
+        requests continue under the new weights from their next step (their
+        per-token behavior logprobs were captured at sample time). The
+        prefix cache is flushed: its k/v was computed under the old weights.
+
+        ``version`` must not go backwards (default: current + 1). Returns
+        the installed version."""
+        new = params.state_dict()
+        with self._lock:
+            old = self.runner.params.state_dict(keep_vars=True)
+            if list(new) != list(old):
+                raise ValueError(
+                    f"update_weights parameter structure mismatch: {list(new)} != {list(old)}"
+                )
+            for name, dst in old.items():
+                src = new[name]
+                if src.shape != dst.shape or src.dtype != dst.dtype:
+                    raise ValueError(
+                        f"update_weights mismatch at {name}: {tuple(src.shape)}/{src.dtype} != "
+                        f"{tuple(dst.shape)}/{dst.dtype}"
+                    )
+            if version is None:
+                version = self._weights_version + 1
+            if version < self._weights_version:
+                raise ValueError(
+                    f"weights_version must not go backwards: {version} < {self._weights_version}"
+                )
+            with torch.no_grad():
+                for name, dst in old.items():
+                    dst.copy_(new[name])
+            self._weights_version = version
+            # cached prefix KV was computed under the OLD weights: no new
+            # request may seed from it (in-flight requests keep their own
+            # references, and their epoch stamp keeps a prefill that
+            # straddled the swap out of the tree)
+            self.prefix_cache.flush(reason="weights_update")
+        return version
 
     def stream_tokens(self, req: Request, timeout: float = 60.0) -> Iterator[int]:
         """Yield the request's tokens as the engine produces them; raises
@@ -335,6 +428,7 @@ class LLMEngine:
                 "preemptions": self._preemptions,
                 "decode_steps": self._decode_steps,
                 "decode_s": self._decode_s,
+                "weights_version": self._weights_version,
                 "prefix_cache": self.prefix_cache.stats(),
             }
             if self._drafter is not None:
@@ -360,6 +454,7 @@ class LLMEngine:
         with self._lock:
             sched = self.scheduler
             if not sched.has_work():
+                self._beat = (time.monotonic(), 0)
                 return False
             self._step_n += 1
             self._reap()
@@ -376,6 +471,7 @@ class LLMEngine:
             # prune finished requests: callers keep their own references;
             # cancel() of a pruned id is a no-op, correct for finished work
             self._requests = {k: r for k, r in self._requests.items() if not r.finished}
+            self._beat = (time.monotonic(), sched.num_running + sched.num_waiting)
             return did or sched.has_work()
 
     # -- internals (all called under the lock) -----------------------------
@@ -422,9 +518,11 @@ class LLMEngine:
         req.prefill_pos += n_valid
         self._prefill_tokens += n_valid
         # register the now-complete PROMPT blocks (generated tokens never
-        # enter the tree)
+        # enter the tree); the admission epoch keeps a request whose prefill
+        # straddled a weight-swap flush from re-inserting old-weight KV
         self.prefix_cache.insert(
-            req.prompt, self.pool.blocks_of(req.id), limit=min(req.prefill_pos, len(req.prompt))
+            req.prompt, self.pool.blocks_of(req.id), limit=min(req.prefill_pos, len(req.prompt)),
+            epoch=req.cache_epoch,
         )
         if req.prefill_pos >= len(full):
             # final chunk: its last position's logits seed generation

@@ -1,10 +1,25 @@
 """Paged-cache model execution: prefill-chunk and decode-step functions
-(port of ``ray_tpu/llm/model_runner.py``, GPT-J only).
+(port of ``ray_tpu/llm/model_runner.py``) for both of the model zoo's
+archs:
 
-Where ``gptj_decode`` owns a dense per-call cache, these functions write
-the SHARED block pool in place — scatter the new positions' k/v into
-physical blocks, attend via ``ops.paged_attention`` — where the reference
-threads donated pool buffers through its jitted steps.
+* GPT-J (``models.gptj``): rotary positions, parallel residual over one
+  layernorm, no q/k/v/out biases, an lm head with bias; its matmul weights
+  are stored in the activation dtype.
+* GPT (``models.gpt``): learned positions (clamped to ``seq_len - 1`` at
+  the embedding: padded prefill-tail positions may run past the table), a
+  fused qkv projection with bias split q|k|v, sequential residual through
+  ln2, an out-projection bias and no lm-head bias. Its fp32 master weights
+  are cast to the activation dtype at each use, as the reference casts
+  them: the runner keeps no copies, so a weight swap that writes the
+  masters in place (``LLMEngine.update_weights``) reaches every step.
+  Mixture-of-experts GPT (``n_experts > 0``) raises, as in the reference.
+
+Both give fp32 logits. Where the dense decoders (``gptj_decode``,
+``gpt_decode``) own a per-call cache, these functions write the SHARED
+block pool in place — scatter the new positions' k/v into physical
+blocks, attend via ``ops.paged_attention`` — where the reference threads
+donated pool buffers through its jitted steps. Every step reads the
+parameters from ``self.params`` at call time.
 
 * ``decode_step`` — one token per slot, batched across heterogeneous
   sequences (different lengths, block tables, sampling params). Inactive
@@ -37,8 +52,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ray_tpu_torch.models.gptj import GPTJ, GPTJConfig, _apply_rotary, _rotary_sincos
+from ray_tpu_torch.models.gpt import GPTConfig, _linear
+from ray_tpu_torch.models.gptj import GPTJConfig, _apply_rotary, _rotary_sincos
 from ray_tpu_torch.models.sampling import (
     gumbel_noise,
     row_generator,
@@ -127,14 +144,19 @@ def _fork_impl(k_pool, v_pool, src, dst):
 
 
 class PagedModelRunner:
-    """The step functions for one (config, params) pair."""
+    """The step functions for one (config, params) pair: a ``GPTJConfig``
+    with ``GPTJ`` parameters or a dense ``GPTConfig`` with ``GPT``
+    parameters."""
 
-    def __init__(self, cfg: GPTJConfig, params: GPTJ, block_size: int):
-        if not isinstance(cfg, GPTJConfig):
-            raise NotImplementedError(
-                f"the port's paged engine runs GPT-J only, got {type(cfg).__name__} "
-                "(the GPT arch is queued in ROADMAP.md)"
-            )
+    def __init__(self, cfg, params, block_size: int):
+        if isinstance(cfg, GPTJConfig):
+            self.arch = "gptj"
+        elif isinstance(cfg, GPTConfig):
+            if cfg.n_experts > 0:
+                raise NotImplementedError("paged decode supports dense GPT only")
+            self.arch = "gpt"
+        else:
+            raise TypeError(f"unsupported model config {type(cfg).__name__}")
         self.cfg = cfg
         self.params = params
         self.block_size = block_size
@@ -146,13 +168,55 @@ class PagedModelRunner:
     def _dev(self, a, dtype) -> torch.Tensor:
         return torch.tensor(np.asarray(a), dtype=dtype).to(self.device, non_blocking=True)
 
+    # -- shared layer math -------------------------------------------------
+
+    def _embed(self, tokens, positions):
+        """(n,) tokens at (n,) positions → (n, d) in the activation dtype."""
+        p = self.params
+        if self.arch == "gptj":
+            return p.embed(tokens)
+        # gather fp32 rows, then cast; clamp: padded prefill-tail positions
+        # may run past the positional table
+        dt = self.cfg.torch_dtype
+        pos = positions.clamp_max(self.cfg.seq_len - 1)
+        return F.embedding(tokens, p.embed.weight).to(dt) + F.embedding(pos, p.pos_embed.weight).to(dt)
+
+    def _logits(self, x):
+        """Final layernorm and the lm head: (n, d) → (n, vocab) fp32."""
+        p = self.params
+        if self.arch == "gptj":
+            return p.logits(x)
+        return p.ln_f(x).float() @ p.lm_head.weight.t()
+
     def _qkv_rows(self, layer, h, positions):
-        """h: (n, d) post-ln hidden → q/k/v (n, heads, hd), rotary applied."""
+        """h: (n, d) post-ln hidden → q/k/v (n, heads, hd), rotary applied
+        for GPT-J."""
         n = h.shape[0]
-        nh, hd, r = self.cfg.n_heads, self.cfg.head_dim, self.cfg.rotary_dim
-        q = _rotary_rows(layer.q(h).view(n, nh, hd), positions, r)
-        k = _rotary_rows(layer.k(h).view(n, nh, hd), positions, r)
-        return q, k, layer.v(h).view(n, nh, hd)
+        nh, hd = self.cfg.n_heads, self.cfg.head_dim
+        if self.arch == "gptj":
+            r = self.cfg.rotary_dim
+            q = _rotary_rows(layer.q(h).view(n, nh, hd), positions, r)
+            k = _rotary_rows(layer.k(h).view(n, nh, hd), positions, r)
+            return q, k, layer.v(h).view(n, nh, hd)
+        q, k, v = _linear(h, layer.attn_qkv).split(self.cfg.d_model, dim=-1)
+        # the split leaves strided views; the attention kernels take q
+        # contiguous (k and v are scattered into the pools)
+        return q.reshape(n, nh, hd).contiguous(), k.reshape(n, nh, hd), v.reshape(n, nh, hd)
+
+    def _layer(self, layer, x, positions, attend):
+        """One block over rows ``x`` (n, d) at ``positions``; ``attend(q, k,
+        v)`` writes the rows' k/v into this layer's pools and returns their
+        attention (n, heads, hd)."""
+        n = x.shape[0]
+        if self.arch == "gptj":
+            h = layer.ln1(x)
+            att = attend(*self._qkv_rows(layer, h, positions))
+            att = layer.attn_out(att.to(x.dtype).reshape(n, self.cfg.d_model))
+            return x + att + layer.mlp(h)  # parallel residual
+        att = attend(*self._qkv_rows(layer, layer.ln1(x), positions))
+        h = x + _linear(att.to(x.dtype).reshape(n, self.cfg.d_model), layer.attn_out)
+        mid = F.gelu(_linear(layer.ln2(h), layer.mlp_in), approximate="tanh")
+        return h + _linear(mid, layer.mlp_out)  # sequential residual
 
     # -- decode step -------------------------------------------------------
 
@@ -163,8 +227,7 @@ class PagedModelRunner:
         (slots, tmax)). Writes the slots' k/v into the pools in place and
         returns (next tokens, their logprobs) as device tensors."""
         self.launches["decode"] += 1
-        cfg, p = self.cfg, self.params
-        noise = _row_noise(seeds, counters, temp, cfg.vocab_size, self.device)
+        noise = _row_noise(seeds, counters, temp, self.cfg.vocab_size, self.device)
         tok = self._dev(tokens, torch.int64)
         pos = self._dev(positions, torch.int64)
         tbl = self._dev(tables, torch.int32)
@@ -172,16 +235,16 @@ class PagedModelRunner:
         phys = tbl.long().gather(1, (pos // bs)[:, None])[:, 0]
         off = pos % bs
         lengths = (pos + 1).int()
-        x = p.embed(tok)  # (S, d)
-        for li, layer in enumerate(p.blocks):
-            h = layer.ln1(x)
-            q, k, v = self._qkv_rows(layer, h, pos)
-            _scatter_kv(k_pool[li], k, phys, off)
-            _scatter_kv(v_pool[li], v, phys, off)
-            att = paged_attention(q, k_pool[li], v_pool[li], tbl, lengths)
-            att = layer.attn_out(att.to(x.dtype).reshape(x.shape[0], cfg.d_model))
-            x = x + att + layer.mlp(h)  # parallel residual
-        return _sample_rows(p.logits(x), noise, temp, top_k, top_p)
+        x = self._embed(tok, pos)  # (S, d)
+        for li, layer in enumerate(self.params.blocks):
+
+            def attend(q, k, v, li=li):
+                _scatter_kv(k_pool[li], k, phys, off)
+                _scatter_kv(v_pool[li], v, phys, off)
+                return paged_attention(q, k_pool[li], v_pool[li], tbl, lengths)
+
+            x = self._layer(layer, x, pos, attend)
+        return _sample_rows(self._logits(x), noise, temp, top_k, top_p)
 
     # -- speculative verification step -------------------------------------
 
@@ -194,7 +257,7 @@ class PagedModelRunner:
         into the pools in place and returns (n_accepted (slots,), window
         tokens (slots, w), their logprobs (slots, w)) as device tensors."""
         self.launches["verify"] += 1
-        cfg, p = self.cfg, self.params
+        cfg = self.cfg
         S, W = np.shape(tokens)
         # the host noise first, so the layers queue behind it
         noise = _window_noise(seeds, counters, temp, W, cfg.vocab_size, self.device)
@@ -220,18 +283,18 @@ class PagedModelRunner:
         # the GEMMs below see S*W rows where a decode step's see S, so
         # cuBLAS may pick other kernels: in bf16 a verify and a plain step
         # can round differently and part at near-ties; fp32 stays identical
-        x = p.embed(tok.reshape(-1))  # (S*W, d)
-        for li, layer in enumerate(p.blocks):
-            h = layer.ln1(x)
-            q, k, v = self._qkv_rows(layer, h, pos_flat)
-            _scatter_kv(k_pool[li], k, phys, off)
-            _scatter_kv(v_pool[li], v, phys, off)
-            att = paged_verify_attention(
-                q.view(S, W, cfg.n_heads, cfg.head_dim), k_pool[li], v_pool[li], tbl, pos32
-            )
-            att = layer.attn_out(att.to(x.dtype).reshape(S * W, cfg.d_model))
-            x = x + att + layer.mlp(h)  # parallel residual
-        logits = p.logits(x).view(S, W, -1)
+        x = self._embed(tok.reshape(-1), pos_flat)  # (S*W, d)
+        for li, layer in enumerate(self.params.blocks):
+
+            def attend(q, k, v, li=li):
+                _scatter_kv(k_pool[li], k, phys, off)
+                _scatter_kv(v_pool[li], v, phys, off)
+                return paged_verify_attention(
+                    q.view(S, W, cfg.n_heads, cfg.head_dim), k_pool[li], v_pool[li], tbl, pos32
+                ).reshape(S * W, cfg.n_heads, cfg.head_dim)
+
+            x = self._layer(layer, x, pos_flat, attend)
+        logits = self._logits(x).view(S, W, -1)
         return _verify_rows(logits, tok[:, 1:], noise, temp, top_k, top_p)
 
     # -- copy-on-write block fork (llm.prefix_cache) -----------------------
@@ -253,7 +316,6 @@ class PagedModelRunner:
         sequence's block table. Writes k/v in place and returns the last
         valid position's logits (vocab,) fp32 on the device."""
         self.launches["prefill"] += 1
-        cfg, p = self.cfg, self.params
         chunk = len(tokens)
         bs = self.block_size
         tbl = self._dev(table, torch.int32)
@@ -264,13 +326,13 @@ class PagedModelRunner:
         logical = (positions // bs).clamp_max(tbl.shape[0] - 1)
         phys = torch.where(valid, tbl.long()[logical], 0)  # padded → trash
         off = positions % bs
-        x = p.embed(self._dev(tokens, torch.int64))  # (chunk, d)
-        for li, layer in enumerate(p.blocks):
-            h = layer.ln1(x)
-            q, k, v = self._qkv_rows(layer, h, positions)
-            _scatter_kv(k_pool[li], k, phys, off)
-            _scatter_kv(v_pool[li], v, phys, off)
-            att = paged_prefill_attention_torch(q, k_pool[li], v_pool[li], tbl, positions)
-            att = layer.attn_out(att.to(x.dtype).reshape(chunk, cfg.d_model))
-            x = x + att + layer.mlp(h)
-        return p.logits(x[max(n_valid - 1, 0)][None, :])[0]
+        x = self._embed(self._dev(tokens, torch.int64), positions)  # (chunk, d)
+        for li, layer in enumerate(self.params.blocks):
+
+            def attend(q, k, v, li=li):
+                _scatter_kv(k_pool[li], k, phys, off)
+                _scatter_kv(v_pool[li], v, phys, off)
+                return paged_prefill_attention_torch(q, k_pool[li], v_pool[li], tbl, positions)
+
+            x = self._layer(layer, x, positions, attend)
+        return self._logits(x[max(n_valid - 1, 0)][None, :])[0]

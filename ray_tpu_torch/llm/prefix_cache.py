@@ -1,6 +1,5 @@
 """Cross-request prefix cache: a radix tree of shared KV blocks (copy of
-``ray_tpu/llm/prefix_cache.py`` without its metrics and events hooks; the
-weight-swap flush comes with the feature that uses it, see ROADMAP.md).
+``ray_tpu/llm/prefix_cache.py`` without its metrics and events hooks).
 
 Prefill work becomes proportional to the *uncached suffix*: a tree keyed
 by block contents maps token blocks to resident physical KV blocks, and
@@ -25,6 +24,10 @@ off.
   together, so the tree never holds a dangling block id.
 * **drafting corpus** — ``paths`` lists the most recently used root-to-leaf
   token sequences for the n-gram drafter (``llm.drafter``).
+* **flush on a weight swap** — ``flush`` drops the whole tree (its k/v was
+  computed under the old parameters) and bumps ``epoch``; ``insert``
+  refuses blocks of a request admitted under an older epoch, whose
+  prefill straddled the swap.
 
 All tree mutations happen under the engine lock; the internal lock makes
 reads (stats, audit) safe from other threads. Lock order is always
@@ -80,6 +83,12 @@ class PrefixCache:
         self._by_block: dict[int, _Node] = {}
         self._clock = itertools.count(1)
         self._lock = threading.Lock()
+        #: bumped by every flush(). Admission stamps the current epoch onto
+        #: the request; ``insert`` refuses blocks from an older epoch — a
+        #: request mid-prefill across a weight swap computed (some of) its
+        #: KV under the OLD parameters, and re-registering it would hand
+        #: stale KV to the very requests the flush protects.
+        self.epoch = 0
         self.hit_tokens = 0
         self.miss_tokens = 0
         self.evicted_blocks = 0
@@ -138,13 +147,21 @@ class PrefixCache:
 
     # -- insertion ---------------------------------------------------------
 
-    def insert(self, tokens: Sequence[int], blocks: Sequence[int], limit: int) -> int:
+    def insert(self, tokens: Sequence[int], blocks: Sequence[int], limit: int,
+               epoch: Optional[int] = None) -> int:
         """Register the sequence's fully-prefilled prompt blocks: block
         ``b`` is inserted once positions ``[b*bs, (b+1)*bs)`` all sit below
         ``limit`` (callers pass ``min(prefill_pos, len(prompt))`` — only
         PROMPT blocks are cacheable). Existing nodes are touched, not
         duplicated; a new node takes a cache reference on the block.
-        Returns the number of nodes created."""
+        Returns the number of nodes created.
+
+        ``epoch`` — the flush epoch the sequence was ADMITTED under
+        (``self.epoch`` at admission). A stale epoch means a weight swap
+        flushed the tree mid-prefill: this sequence's KV is (partly)
+        old-parameter output and must not re-enter the tree."""
+        if epoch is not None and epoch != self.epoch:
+            return 0
         bs = self.pool.cfg.block_size
         n_full = min(limit // bs, len(blocks))
         created = 0
@@ -199,6 +216,23 @@ class PrefixCache:
                 freed += 1
             self.evicted_blocks += freed
         return freed
+
+    def flush(self, reason: str = "flush") -> int:
+        """Drop the whole tree (weight hot-swap: cached k/v was computed
+        under the old parameters) and bump ``epoch``. Blocks still
+        referenced by in-flight sequences keep THEIR references — only the
+        cache's are released; such blocks return to the free list when
+        their sequences finish. Returns the number of blocks dropped.
+        ``reason`` names the cause where the reference records it in its
+        events (not ported: ROADMAP.md, queue A)."""
+        with self._lock:
+            n = len(self._by_block)
+            for blk in list(self._by_block):
+                self.pool.cache_release(blk)
+            self._by_block.clear()
+            self._root = _Node((), -1, None)
+            self.epoch += 1  # in-flight prefills may no longer insert
+        return n
 
     # -- drafting corpus ---------------------------------------------------
 

@@ -101,8 +101,15 @@ class Request:
         # behavior logprob of out[i] (models.sampling convention), aligned
         # 1:1 with ``out``; resumed tokens were sampled elsewhere — NaN
         self.out_logprobs: list[float] = [float("nan")] * len(self.out)
+        # engine weights_version at submit (staleness accounting for
+        # learner-to-engine weight sync; None until the engine stamps it)
+        self.weights_version: Optional[int] = None
         self.resumed_from = len(self.out)  # output index generation restarts at
         self.prefill_pos = 0          # prompt tokens already in the cache
+        # prefix-cache flush epoch at admission: a weight swap mid-prefill
+        # bumps the cache's epoch, and this request's (partly old-weight)
+        # blocks then must not enter the tree (prefix_cache.insert)
+        self.cache_epoch = 0
         self.first_token_t: Optional[float] = None
         self.cancelled = threading.Event()
         # stream events: ("token", id) ... ("done", reason)
@@ -198,6 +205,7 @@ class Scheduler:
                 self.slots[slot] = req
                 req.state = PREFILL
                 req.prefill_pos = match.matched
+                req.cache_epoch = self.prefix_cache.epoch
                 if match.cow_src is not None:
                     # the forked block sits right after the shared prefix;
                     # its first cow_tokens positions become valid at copy time

@@ -1,5 +1,5 @@
-"""Decoder-only transformer (GPT family) for training (port of the dense
-path of ``ray_tpu/models/gpt.py``).
+"""Decoder-only transformer (GPT family) for training and serving (port of
+the dense path of ``ray_tpu/models/gpt.py``).
 
 * Parameters live in an ``nn.Module`` (``GPT``) as **fp32 master weights**;
   every use casts them to the activation dtype (``cfg.dtype``), as the
@@ -15,6 +15,9 @@ path of ``ray_tpu/models/gpt.py``).
   kernels K3 (forward) and K4/K5 (backward).
 * ``gpt_loss`` feeds the final hidden state to the fused cross-entropy
   (``ops.fused_ce``) when ``cfg.fused_loss``.
+* ``gpt_decode`` is the dense KV-cached decoder (greedy or sampled per
+  token), the oracle the paged engine (``llm.model_runner``) is tested
+  against and the GPT draft model's proposer (``llm.drafter``).
 
 Rematerialization (``cfg.remat``) maps to ``torch.utils.checkpoint`` per
 block: ``"full"`` recomputes the whole block in the backward (K3 runs again
@@ -39,7 +42,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.device import resolve_device
-from ray_tpu_torch.models.gptj import LayerNorm
+from ray_tpu_torch.models.gptj import LayerNorm, _attend_cached
+from ray_tpu_torch.models.sampling import pick_tokens
 from ray_tpu_torch.ops.attention import causal_attention
 from ray_tpu_torch.ops.fused_ce import fused_softmax_cross_entropy
 
@@ -311,3 +315,61 @@ def gpt_loss(cfg: GPTConfig, params: GPT, tokens: torch.Tensor) -> torch.Tensor:
     logits = hidden.float() @ params.lm_head.weight.t()
     logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
+
+
+# ---------------------------------------------------------------------------
+# KV-cache decode (inference path; sampling shared with models.sampling)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def gpt_decode(cfg: GPTConfig, params: GPT, prompt: torch.Tensor, n_new: int, *, key=None,
+               temperature=0.0, top_k=0, top_p=1.0) -> torch.Tensor:
+    """Decode ``n_new`` tokens after ``prompt`` (b, s0) → (b, s0 + n_new):
+    one dense forward captures each layer's k/v into a per-call cache, then
+    each new token is a single-position pass over it. Its attention is
+    plain (the reference's ``impl="xla"``). Greedy by default; with an int
+    ``key``, per-token temperature/top-k/top-p sampling via
+    ``models.sampling.sample_tokens`` (scalars or per-row tensors), step
+    ``i`` keyed ``fold_in(key, i)``.
+
+    Dense blocks only (``n_experts == 0``); the learned positional table
+    caps ``s0 + n_new`` at ``cfg.seq_len``."""
+    if cfg.n_experts > 0:
+        raise NotImplementedError("gpt_decode supports dense (non-MoE) configs only")
+    dt = cfg.torch_dtype
+    b, s0 = prompt.shape
+    max_len = s0 + n_new
+    if max_len > cfg.seq_len:
+        raise ValueError(
+            f"prompt ({s0}) + n_new ({n_new}) exceeds the positional table (seq_len={cfg.seq_len})"
+        )
+    dev = prompt.device
+    x = F.embedding(prompt, params.embed.weight).to(dt) + params.pos_embed.weight[:s0].to(dt)
+    caches = []
+    for layer in params.blocks:
+        q, k, v = _attn_in(cfg, x, layer)
+        x = _attn_out_mlp(cfg, x, causal_attention(q, k, v, impl="xla"), layer)
+        kc = torch.zeros(b, cfg.n_heads, max_len, cfg.head_dim, dtype=dt, device=dev)
+        vc = torch.zeros_like(kc)
+        kc[:, :, :s0] = k
+        vc[:, :, :s0] = v
+        caches.append((kc, vc))
+
+    def logits(h):  # (b, d) → fp32 (b, vocab)
+        return params.ln_f(h).float() @ params.lm_head.weight.t()
+
+    tokens = torch.cat([prompt, torch.zeros(b, n_new, dtype=prompt.dtype, device=dev)], dim=1)
+    tokens[:, s0] = pick_tokens(logits(x[:, -1]), key, 0, temperature, top_k, top_p)
+    for i in range(n_new - 1):
+        pos = s0 + i  # position of the token being FED
+        x1 = F.embedding(tokens[:, pos : pos + 1], params.embed.weight).to(dt)
+        x1 = x1 + params.pos_embed.weight[pos].to(dt)  # (b, 1, d)
+        for layer, (kc, vc) in zip(params.blocks, caches):
+            q, k, v = _attn_in(cfg, x1, layer)  # (b, heads, 1, hd) each
+            kc[:, :, pos] = k[:, :, 0]
+            vc[:, :, pos] = v[:, :, 0]
+            att = _attend_cached(q[:, :, 0], kc, vc, pos + 1).to(dt)[:, :, None]
+            x1 = _attn_out_mlp(cfg, x1, att, layer)
+        tokens[:, pos + 1] = pick_tokens(logits(x1[:, 0]), key, i + 1, temperature, top_k, top_p)
+    return tokens

@@ -13,8 +13,8 @@ lm head stay fp32, because the reference computes the lm head in fp32.
 ``nn.Linear`` keeps its weight as (out, in) where the reference's kernels
 are (in, out): ``params_from_jax`` transposes when it carries weights over.
 
-``gptj_forward`` and the greedy ``gptj_decode`` are the dense oracles the
-engine is tested against.
+``gptj_forward`` and ``gptj_decode`` (greedy, or sampled per token) are the
+dense oracles the engine is tested against.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.models.sampling import pick_tokens
 from ray_tpu_torch.ops.attention import causal_attention
 
 
@@ -247,10 +248,16 @@ def _attend_cached(q1, k_cache, v_cache, length: int):
 
 
 @torch.no_grad()
-def gptj_decode(cfg: GPTJConfig, params: GPTJ, prompt: torch.Tensor, n_new: int) -> torch.Tensor:
-    """Greedy decode of ``n_new`` tokens after ``prompt`` (b, s0) →
-    (b, s0 + n_new). The prompt's k/v come from one dense forward; each new
-    token is a single-position pass over a dense per-call cache."""
+def gptj_decode(cfg: GPTJConfig, params: GPTJ, prompt: torch.Tensor, n_new: int, *, key=None,
+                temperature=0.0, top_k=0, top_p=1.0) -> torch.Tensor:
+    """Decode ``n_new`` tokens after ``prompt`` (b, s0) → (b, s0 + n_new).
+    The prompt's k/v come from one dense forward; each new token is a
+    single-position pass over a dense per-call cache.
+
+    Greedy by default (``key=None``). With an int ``key``, per-token
+    temperature / top-k / top-p sampling via ``models.sampling.sample_tokens``
+    (scalars or per-row tensors); step ``i`` keys off ``fold_in(key, i)``
+    (``models.sampling.pick_tokens``)."""
     dt = cfg.torch_dtype
     b, s0 = prompt.shape
     dev = prompt.device
@@ -265,7 +272,7 @@ def gptj_decode(cfg: GPTJConfig, params: GPTJ, prompt: torch.Tensor, n_new: int)
         vc[:, :, :s0] = v
         caches.append((kc, vc))
     tokens = torch.cat([prompt, torch.zeros(b, n_new, dtype=prompt.dtype, device=dev)], dim=1)
-    tokens[:, s0] = params.logits(x[:, -1]).argmax(-1)
+    tokens[:, s0] = pick_tokens(params.logits(x[:, -1]), key, 0, temperature, top_k, top_p)
     for i in range(n_new - 1):
         pos = s0 + i  # position of the token being FED
         x1 = params.embed(tokens[:, pos])  # (b, d)
@@ -278,5 +285,5 @@ def gptj_decode(cfg: GPTJConfig, params: GPTJ, prompt: torch.Tensor, n_new: int)
             att = _attend_cached(q[:, :, 0], kc, vc, pos + 1).to(dt)
             # (b, h, hd) merges h-major straight back to (b, d)
             x1 = x1 + layer.attn_out(att.reshape(b, cfg.d_model)) + layer.mlp(h1[:, 0])
-        tokens[:, pos + 1] = params.logits(x1).argmax(-1)
+        tokens[:, pos + 1] = pick_tokens(params.logits(x1), key, i + 1, temperature, top_k, top_p)
     return tokens

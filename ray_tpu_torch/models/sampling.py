@@ -51,6 +51,13 @@ def row_generator(seed: int, counter: int) -> torch.Generator:
     return torch.Generator().manual_seed(_mix64(int(seed), int(counter)))
 
 
+def fold_in(key: int, data: int) -> int:
+    """A new 32-bit key from ``key`` and ``data`` (the role of
+    ``jax.random.fold_in``): the dense decoders key step ``i`` of a call
+    with ``fold_in(key, i)``."""
+    return _mix64(int(key), int(data)) & 0xFFFFFFFF
+
+
 def _filtered_logits(logits, temp, kk, pp):
     """Temperature-scaled logits with top-k/top-p support masked to
     ``_NEG_INF``. logits: (b, v) fp32; temp/kk/pp: (b,) tensors."""
@@ -130,6 +137,32 @@ def sample_tokens_logprobs(
     sampled = (masked + noise).argmax(-1)
     tok = torch.where(temp > 0.0, sampled, greedy)
     return tok, _chosen_logprob(logits, masked, temp, tok)
+
+
+def sample_tokens(logits: torch.Tensor, key: int, temperature=0.0, top_k=0, top_p=1.0) -> torch.Tensor:
+    """Sample one token id per row: (b, v) logits → (b,) int64.
+
+    ``temperature``/``top_k``/``top_p`` are scalars or (b,) tensors.
+    ``top_k <= 0`` disables the k-truncation; ``top_p >= 1`` the nucleus
+    truncation; ``temperature <= 0`` selects greedy argmax for that row.
+    ``key`` is one int key for the whole call: row ``i`` draws from
+    ``row_generator(key, i)``, so the same (key, row) pair always
+    reproduces (the reference splits its one PRNG key per row). Reads the
+    temperatures on the host to draw noise for the sampled rows only."""
+    b, v = logits.shape
+    temps = torch.broadcast_to(torch.as_tensor(temperature, dtype=torch.float32).cpu(), (b,))
+    gens = [row_generator(key, i) if t > 0 else None for i, t in enumerate(temps.tolist())]
+    noise = gumbel_noise(gens, v, logits.device)
+    return sample_tokens_logprobs(logits, noise, temperature, top_k, top_p)[0]
+
+
+def pick_tokens(logits: torch.Tensor, key, step: int, temperature=0.0, top_k=0, top_p=1.0) -> torch.Tensor:
+    """The dense decoders' choice at ``step`` of a call: greedy argmax when
+    ``key`` is None, else ``sample_tokens`` keyed ``fold_in(key, step)``, so
+    a continuation from any prefix reproduces."""
+    if key is None:
+        return logits.argmax(-1)
+    return sample_tokens(logits, fold_in(key, step), temperature, top_k, top_p)
 
 
 def token_logprobs(

@@ -16,8 +16,10 @@
 // What bounds it: memory bytes. Each (slot, head) reads its live K and V
 // rows once and does 4*D flops per row, far below the card's ~295 flops
 // per byte. At 8 slots x 1024 context, 16 heads, D=256 in bf16, K+V is
-// 134.2 MB per layer call: about 40 us at 3.35 TB/s, against 0.13 GFLOP.
-// Reaching it needs many bytes in flight on every SM at once.
+// 134.2 MB per layer call: about 40 us at 3.35 TB/s, against 0.13 GFLOP;
+// at GPT's 12 heads of 64 it is 25.2 MB, about 7.5 us, where the start of
+// the CTAs and the merge tail weigh more. Reaching it needs many bytes in
+// flight on every SM at once.
 //
 // Design: split context, then merge (flash-decoding). The TPU kernel walks
 // a slot's blocks in grid order with the online-softmax state carried in
@@ -33,18 +35,24 @@
 //     fixed; a CTA whose split starts at or past its slot's length exits at
 //     once.
 //   - A (block, head) page of the pool is block_size x D contiguous
-//     elements (8 KB in bf16 at 16 x 256). One thread brings each K page and
-//     V page into shared memory with one 1-D bulk copy (cp.async.bulk, no
-//     tensor map) into a ring of kRingBytes (two page pairs in bf16 and in
-//     fp32), each stage completing on its own mbarrier, so the next pages
+//     elements (8 KB in bf16 at 16 x 256, 2 KB at 16 x 64). One thread
+//     brings each K page and V page into shared memory with one 1-D bulk
+//     copy (cp.async.bulk, no tensor map) into a ring of kRingBytes (two
+//     page pairs at D 256, the whole 8-page split in bf16 at 16 x 64), each
+//     stage completing on its own mbarrier, so the next pages
 //     are in flight while the warps compute on the landed one, and five
 //     CTAs fit on an SM. The split's table entries are read once, clamped to
 //     [0, num_blocks) as the reference's XLA gather clamps a bad entry.
-//   - Warp w takes kUnroll consecutive tokens of each page; each lane owns
-//     D/32 consecutive elements of a row, reduces a score with five
-//     shuffles and keeps its warp's (max, sum, acc) online-softmax state in
-//     registers; the warps merge through shared memory and the CTA writes
-//     its partial (acc, m, l) in fp32 to scratch.
+//   - Warp w takes kUnroll consecutive tokens of each page. A row is read
+//     by kLanes lanes, each owning D/kLanes consecutive elements loaded four
+//     at a time (one 8-byte bf16 or 16-byte fp32 vector): at D 128 and 256
+//     the whole warp reads one row (kLanes 32, five shuffles reduce a
+//     score); at GPT's D 64 each half-warp reads its own row (kLanes 16,
+//     four shuffles within the half), so a warp takes its two tokens at
+//     once and every load is a full vector. Each group of kLanes lanes keeps
+//     its own (max, sum, acc) online-softmax state in registers; the groups
+//     merge through shared memory and the CTA writes its partial (acc, m, l)
+//     in fp32 to scratch.
 //   - The merge: every CTA then takes a ticket from its (slot, head)'s
 //     counter; the last of the live splits to finish combines them all
 //     into out and sets the counter back to zero, so the wrapper zeroes a
@@ -179,14 +187,23 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                           const int* __restrict__ lengths, float* __restrict__ scratch,
                           int* __restrict__ tickets, T* __restrict__ out, int heads, int num_blocks,
                           int block_size, int tmax, int pages_per_split, int stages, float scale) {
-  constexpr int kPerLane = D / 32;       // elements of a row each lane owns
-  constexpr int kQuads = kPerLane / 4;   // vector loads per lane per row
+  constexpr int kLanes = D >= 128 ? 32 : D / 4;  // lanes that read one row
+  constexpr int kRows = 32 / kLanes;             // rows a warp reads at once
+  constexpr int kPerLane = D / kLanes;           // elements of a row each lane owns
+  constexpr int kQuads = kPerLane / 4;           // vector loads per lane per row
+  constexpr int kSteps = kUnroll / kRows;        // passes over a warp's kUnroll tokens
+  constexpr int kGroups = kWarps * kRows;        // lane groups, each with its own softmax state
+  static_assert(D % 4 == 0 && kLanes * kPerLane == D && kQuads * 4 == kPerLane, "row layout");
+  static_assert(kRows * kSteps == kUnroll, "a warp's tokens split evenly over its rows");
   using Q = Quad<T>;
   using V = typename Q::V;
 
   const int split = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int row = lane / kLanes;  // which of the warp's kRows rows this lane reads
+  const int col = lane % kLanes;  // which kPerLane elements of it
+  const int group = warp * kRows + row;
   const int length = max(0, min(lengths[s], tmax * block_size));
   const int tok0 = split * pages_per_split * block_size;
   if (tok0 >= length) {  // no live position: the merge skips this split
@@ -220,7 +237,7 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
   float qv[kPerLane];
   {
-    const V* qp = reinterpret_cast<const V*>(q + ((int64_t)s * heads + h) * D + lane * kPerLane);
+    const V* qp = reinterpret_cast<const V*>(q + ((int64_t)s * heads + h) * D + col * kPerLane);
 #pragma unroll
     for (int c = 0; c < kQuads; ++c) Q::widen(qp[c], qv + 4 * c);
   }
@@ -237,14 +254,17 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     const T* kp = ring + (int64_t)2 * st * page_elems;
     const T* vp = kp + page_elems;
     const int live = min(block_size, length - (tok0 + i * block_size));  // live tokens of the page
+    // the loop bound is uniform across the warp, so every lane reaches the
+    // shuffles; token base + u * kRows + row is this lane's at step u
     for (int base = warp * kUnroll; base < live; base += kWarps * kUnroll) {
-      float score[kUnroll];
+      float score[kSteps];
       float m_new = m;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < kSteps; ++u) {
+        const int t = base + u * kRows + row;
         float dot = 0.f;
-        if (base + u < live) {
-          const V* kr = reinterpret_cast<const V*>(kp + (base + u) * D + lane * kPerLane);
+        if (t < live) {
+          const V* kr = reinterpret_cast<const V*>(kp + t * D + col * kPerLane);
 #pragma unroll
           for (int c = 0; c < kQuads; ++c) {
             float kf[4];
@@ -255,15 +275,15 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         }
         score[u] = dot;
       }
-      // the branches above are uniform across the warp, so every lane joins
+      // reduce within each group of kLanes lanes (the whole warp, or a half)
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
+      for (int off = kLanes / 2; off > 0; off >>= 1) {
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) score[u] += __shfl_xor_sync(0xffffffffu, score[u], off);
+        for (int u = 0; u < kSteps; ++u) score[u] += __shfl_xor_sync(0xffffffffu, score[u], off);
       }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        score[u] = base + u < live ? score[u] * scale : kNegInf;
+      for (int u = 0; u < kSteps; ++u) {
+        score[u] = base + u * kRows + row < live ? score[u] * scale : kNegInf;
         m_new = fmaxf(m_new, score[u]);
       }
       const float alpha = expf(m - m_new);
@@ -271,11 +291,12 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
       for (int e = 0; e < kPerLane; ++e) acc[e] *= alpha;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (base + u < live) {
+      for (int u = 0; u < kSteps; ++u) {
+        const int t = base + u * kRows + row;
+        if (t < live) {
           const float p = expf(score[u] - m_new);
           l += p;
-          const V* vr = reinterpret_cast<const V*>(vp + (base + u) * D + lane * kPerLane);
+          const V* vr = reinterpret_cast<const V*>(vp + t * D + col * kPerLane);
 #pragma unroll
           for (int c = 0; c < kQuads; ++c) {
             float vf[4];
@@ -292,26 +313,26 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       load_page(i + stages, stages, phys, k_pool, v_pool, block_stride, head_off, page_elems, ring, bars);
   }
 
-  // merge the warps' online-softmax states into the split's partial
-  __shared__ float sm_m[kWarps];
-  __shared__ float sm_l[kWarps];
-  __shared__ float sm_acc[kWarps][D];
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
+  // merge the groups' online-softmax states into the split's partial
+  __shared__ float sm_m[kGroups];
+  __shared__ float sm_l[kGroups];
+  __shared__ float sm_acc[kGroups][D];
+  if (col == 0) {
+    sm_m[group] = m;
+    sm_l[group] = l;
   }
 #pragma unroll
-  for (int e = 0; e < kPerLane; ++e) sm_acc[warp][lane * kPerLane + e] = acc[e];
+  for (int e = 0; e < kPerLane; ++e) sm_acc[group][col * kPerLane + e] = acc[e];
   __syncthreads();
 
   float mx = kNegInf;
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w]);
-  float wgt[kWarps];
+  for (int w = 0; w < kGroups; ++w) mx = fmaxf(mx, sm_m[w]);
+  float wgt[kGroups];
   float denom = 0.f;
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    wgt[w] = expf(sm_m[w] - mx);  // 0 for a warp that saw no live token
+  for (int w = 0; w < kGroups; ++w) {
+    wgt[w] = expf(sm_m[w] - mx);  // 0 for a group that saw no live token
     denom += sm_l[w] * wgt[w];
   }
   float* parts = scratch + ((int64_t)s * heads + h) * gridDim.x * (D + 2);  // this (slot, head)'s
@@ -319,7 +340,7 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   for (int d = threadIdx.x; d < D; d += kThreads) {
     float x = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) x += sm_acc[w][d] * wgt[w];
+    for (int w = 0; w < kGroups; ++w) x += sm_acc[w][d] * wgt[w];
     part[d] = x;
   }
   if (threadIdx.x == 0) {
@@ -395,7 +416,11 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pool, const v
 #define RT_LAUNCH(T, D)                                                                     \
   launch<T, D>(q, k_pool, v_pool, tables, lengths, out, scratch, tickets, slots, heads, num_blocks, \
                block_size, tmax, pages_per_split, scale, st)
-  // GPT-J's head_dim only; another width comes with the model that needs it
+  // GPT's 64, 128, and GPT-J's 256
+  if (dtype == 0 && head_dim == 64) return static_cast<int>(RT_LAUNCH(float, 64));
+  if (dtype == 1 && head_dim == 64) return static_cast<int>(RT_LAUNCH(__nv_bfloat16, 64));
+  if (dtype == 0 && head_dim == 128) return static_cast<int>(RT_LAUNCH(float, 128));
+  if (dtype == 1 && head_dim == 128) return static_cast<int>(RT_LAUNCH(__nv_bfloat16, 128));
   if (dtype == 0 && head_dim == 256) return static_cast<int>(RT_LAUNCH(float, 256));
   if (dtype == 1 && head_dim == 256) return static_cast<int>(RT_LAUNCH(__nv_bfloat16, 256));
 #undef RT_LAUNCH

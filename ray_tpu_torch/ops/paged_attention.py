@@ -208,11 +208,11 @@ def paged_prefill_attention_torch(q, k_pool, v_pool, block_table, positions):
 # CUDA kernels (csrc/paged_attention.cu, csrc/paged_verify_attention.cu)
 # ---------------------------------------------------------------------------
 
-#: head dims each kernel is compiled for: the decode kernel GPT-J's 256
-#: (each lane owns D/32 elements of a row, four at a time), the verify
-#: kernel 64, 128 and 256 (each of its four warps owns D/4 columns, whole
-#: k16 steps)
-DECODE_HEAD_DIMS = (256,)
+#: head dims each kernel is compiled for: the decode kernel 64, 128 and
+#: 256 (a row read four elements a lane at a time, by the whole warp at 128
+#: and 256, by each half-warp at 64), the verify kernel 64, 128 and 256
+#: (each of its four warps owns D/4 columns, whole k16 steps)
+DECODE_HEAD_DIMS = (64, 128, 256)
 VERIFY_HEAD_DIMS = (64, 128, 256)
 #: cache positions either kernel gives one CTA, rounded down to whole
 #: blocks (chip_flash_probe.py times 64, 128 and 256 in turns for both, the

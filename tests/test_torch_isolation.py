@@ -175,10 +175,15 @@ def test_flash_on_a_card_raises_for_a_head_dim_the_kernels_lack(monkeypatch):
 
 
 def test_engine_refuses_the_training_gpt():
+    """The engine serves the dense GPT (capped at its positional table) and
+    refuses a mixture-of-experts one, as the reference's runner does."""
+    import dataclasses
+
     from ray_tpu_torch.llm import LLMEngine
     from ray_tpu_torch.models.gpt import GPTConfig, gpt_init
 
     cfg = GPTConfig(vocab_size=16, seq_len=8, d_model=8, n_layers=1, n_heads=2, dtype="float32")
     params = gpt_init(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        LLMEngine(cfg, params, device="cpu")
+    assert LLMEngine(cfg, params, device="cpu").max_model_len == cfg.seq_len
+    with pytest.raises(NotImplementedError, match="dense GPT only"):
+        LLMEngine(dataclasses.replace(cfg, n_experts=4), params, device="cpu")

@@ -9,7 +9,7 @@ report the same proposed and accepted draft counts for the same request
 sequence — through mixed prefill and decode, stop tokens inside the
 window, preemption, the model drafter, the length cap inside the window,
 backoff and the no-match gate (the cases of tests/test_llm_spec.py; its
-GPT-arch case has no counterpart, the GPT arch is not ported). Sampled
+GPT-arch cases are in tests/test_torch_gpt_serve.py). Sampled
 spec output is checked within the port: it reproduces per seed and equals
 the port's plain engine.
 """
@@ -19,6 +19,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +47,7 @@ from ray_tpu_torch.llm import (
     SmallModelDrafter,
     make_drafter,
 )
+from ray_tpu_torch.models.gpt import GPTConfig, gpt_init
 from ray_tpu_torch.models.gptj import GPTJConfig, params_from_jax
 
 TINY_REF = RefGPTJConfig(
@@ -209,10 +211,18 @@ def test_small_model_drafter_matches_reference(draft_params):
 
 
 def test_drafter_factory_and_gpt_draft_config(draft_params):
-    """The GPT arch is not ported: a GPT draft config is refused with a
-    pointer to ROADMAP.md; the factory keeps the reference's messages."""
+    """A GPT draft config is taken (its positional table must hold the
+    context window and the drafts), a config of neither arch (here the
+    reference's own) is refused; the factory keeps the reference's
+    messages."""
+    gpt_cfg = GPTConfig(vocab_size=96, seq_len=48, d_model=32, n_layers=2, n_heads=2, dtype="float32")
+    gpt_params = gpt_init(gpt_cfg, torch.Generator().manual_seed(0), "cpu")
+    drafter = make_drafter("model", 2, 3, draft_cfg=gpt_cfg, draft_params=gpt_params, draft_ctx=8)
+    assert drafter.propose([[1, 2, 3]]).shape == (1, 2)
+    with pytest.raises(ValueError, match="positional table"):
+        SmallModelDrafter(gpt_cfg, gpt_params, k=2, slots=3, ctx_window=47)
     gpt = RefGPTConfig(vocab_size=96, seq_len=48, d_model=32, n_layers=2, n_heads=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="unsupported draft model config"):
         SmallModelDrafter(gpt, draft_params[1], k=2, slots=3)
     assert isinstance(make_drafter("ngram", 3, 2, ngram_max=2), NGramDrafter)
     assert isinstance(make_drafter("model", 2, 3, draft_cfg=TINY, draft_params=draft_params[1]),
