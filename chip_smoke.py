@@ -37,7 +37,8 @@ each of which raises on failure:
    the table), window index by window index vs K1, and its live split
    partials vs ``verify_partials_torch``;
 9. K2 timing beside the plain version, the library call (in turns), the
-   bound and K1, and across windows 1-16 and 32 (in turns);
+   bound and K1, at GPT-J-6B's verify shape and at GPT-124M's (12 heads of
+   64), and across windows 1-16 and 32 (in turns);
 10. fp32 spec identity: a full-width, 2-layer speculating GPT-J engine is
     token-identical to dense ``gptj_decode`` — with a test-double drafter
     that makes full, partial and zero acceptance happen (spec_k 4 and 9),
@@ -80,7 +81,20 @@ each of which raises on failure:
     requests are in flight; checks that parameter storage stays in place,
     the version is stamped, the prefix tree is flushed, and every greedy
     token submitted after the swap against the dense forward under the new
-    weights; times the swap.
+    weights; times the swap;
+22. GPT-124M production engine: phase 19's engines with the production
+    half on. (a) phase 19's traffic, plain and at spec_k=4: the metric
+    counters against the tokens streamed and the engines' own counts, the
+    inter-token latency histogram against the tokens, each request's
+    flight-recorder events in order and its phases summing to finish -
+    submit; (b) the HBM ledger against ``torch.cuda.memory_allocated`` and
+    the pool tensors; (c) the watchdog under a real device wedge (a ~4 s
+    spin in front of one decode step): the stall event and counter, the
+    step-age gauge, a deadline request's stream ended and
+    ``EngineStalledError`` raised while the device still spins, then a
+    clean recovery; (d) deadline shedding at the card's measured service
+    rate; (e) the hooks' cost per decode and verify step, on and off in
+    turns; K1 and K2 at 12 launches a step throughout.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it has
 the card's name and power limit, the one before that the kernels' record.
@@ -93,6 +107,7 @@ import copy
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -105,7 +120,12 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+from ray_tpu_torch._private import events
+from ray_tpu_torch.exceptions import OverloadedError
+from ray_tpu_torch.llm import EngineConfig, EngineStalledError, LLMEngine, SamplingParams
+from ray_tpu_torch.llm import engine as engine_mod
+from ray_tpu_torch.llm import prefix_cache as prefix_mod
+from ray_tpu_torch.llm import watchdog as watchdog_mod
 from ray_tpu_torch.llm.model_runner import _row_noise, _window_noise
 from ray_tpu_torch.llm.scheduler import RUNNING
 from ray_tpu_torch.models.gpt import GPTConfig, gpt_decode, gpt_forward, gpt_init, gpt_loss
@@ -134,6 +154,7 @@ from ray_tpu_torch.ops.paged_attention import (
     verify_partials_torch,
 )
 from ray_tpu_torch.parallel import adamw, build_train_step
+from ray_tpu_torch.util import metrics, phases, tracing
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and operations/s by input type
 HBM_BYTES_PER_S = 3.35e12
@@ -361,16 +382,16 @@ def time_k1(d: int = D) -> dict:
     return rec
 
 
-def k2_inputs(dtype, base, seed, inactive=(), w=W, d=D):
+def k2_inputs(dtype, base, seed, inactive=(), w=W, d=D, h=H):
     """Random q/pools, window positions ``base[s] + arange(w)`` and per-slot
     tables of distinct live blocks (the live length capped at T*BS), padded
     with the trash block; slots in ``inactive`` get an all-trash table, as
     the engine gives an empty slot."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     positions = (base[:, None] + torch.arange(w)[None, :]).int().cuda()
-    q = torch.randn(S, w, H, d, device="cuda", generator=g).to(dtype)
-    kp = torch.randn(NB, H, BS, d, device="cuda", generator=g).to(dtype)
-    vp = torch.randn(NB, H, BS, d, device="cuda", generator=g).to(dtype)
+    q = torch.randn(S, w, h, d, device="cuda", generator=g).to(dtype)
+    kp = torch.randn(NB, h, BS, d, device="cuda", generator=g).to(dtype)
+    vp = torch.randn(NB, h, BS, d, device="cuda", generator=g).to(dtype)
     tables = (torch.randperm(NB - 1, device="cuda", generator=g)[: S * T] + 1).view(S, T)
     n_live = (positions[:, -1] + 1).clamp(max=T * BS)
     live = torch.arange(T, device="cuda")[None, :] < ((n_live + BS - 1) // BS)[:, None]
@@ -380,7 +401,7 @@ def k2_inputs(dtype, base, seed, inactive=(), w=W, d=D):
     return q, kp, vp, tables, positions.contiguous()
 
 
-def k2_bound_ms(dtype, positions, d=D) -> float:
+def k2_bound_ms(dtype, positions, d=D, h=H) -> float:
     """Least time for one call: each slot's live K/V rows (up to its last
     query, capped at T*BS), q, the live table entries and the positions
     read once, out written once; 4*d operations per (query, attended
@@ -390,9 +411,9 @@ def k2_bound_ms(dtype, positions, d=D) -> float:
     w = pos.shape[1]
     n_live = (pos[:, -1] + 1).clamp(max=T * BS)
     live_entries = int(((n_live + BS - 1) // BS).sum())
-    nbytes = (2 * int(n_live.sum()) * H * d * esize + 2 * S * w * H * d * esize
+    nbytes = (2 * int(n_live.sum()) * h * d * esize + 2 * S * w * h * d * esize
               + 4 * (live_entries + S * w))
-    ops = 4 * int((pos + 1).clamp(max=T * BS).sum()) * H * d
+    ops = 4 * int((pos + 1).clamp(max=T * BS).sum()) * h * d
     return max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]) * 1e3
 
 
@@ -490,14 +511,17 @@ def check_k2() -> float:
     return err_bf16
 
 
-def time_k2(k1_ms: float) -> dict:
-    """Phase 9 at the verify shapes: 8 slots, windows at 1019-1023, bf16;
-    the kernel and the library call in turns (``in_turns``), each the mean
-    of its two turns; then the kernel across ``K2_SWEEP`` with the last
-    query at 1023, in turns."""
+def time_k2(k1_ms: float, d: int = D) -> dict:
+    """Phase 9 at a verify shape: 8 slots, windows at 1019-1023, bf16, head
+    dim ``d`` (GPT-J-6B's 16 heads of 256, GPT-124M's 12 of 64); the kernel
+    and the library call in turns (``in_turns``), each the mean of its two
+    turns; then, at GPT-J-6B's shape, the kernel across ``K2_SWEEP`` with
+    the last query at 1023, in turns. ``k1_ms`` is K1's time at the same
+    shape."""
     dtype = torch.bfloat16
+    h = k1_heads(d)
     base = torch.full((S,), 1019)
-    q, kp, vp, tables, positions = k2_inputs(dtype, base, seed=7)
+    q, kp, vp, tables, positions = k2_inputs(dtype, base, seed=7, d=d, h=h)
     plain_ms = cuda_ms(
         lambda: paged_verify_attention(q, kp, vp, tables, positions, impl="torch"), 20)
     # library yardstick: SDPA with q (S, H, W, D) over K/V gathered to dense
@@ -505,8 +529,8 @@ def time_k2(k1_ms: float) -> dict:
     n = int(positions[:, -1].max().item()) + 1
     live = (n + BS - 1) // BS
     idx = tables[:, :live].long()
-    kd = kp[idx].transpose(1, 2).reshape(S, H, live * BS, D)
-    vd = vp[idx].transpose(1, 2).reshape(S, H, live * BS, D)
+    kd = kp[idx].transpose(1, 2).reshape(S, h, live * BS, d)
+    vd = vp[idx].transpose(1, 2).reshape(S, h, live * BS, d)
     key_pos = torch.arange(live * BS, device="cuda")
     mask = (key_pos[None, None, :] <= positions[:, :, None])[:, None]  # (S, 1, W, keys)
     qh = q.transpose(1, 2)  # (S, H, W, D)
@@ -514,19 +538,21 @@ def time_k2(k1_ms: float) -> dict:
                       "library": lambda: F.scaled_dot_product_attention(qh, kd, vd, attn_mask=mask)}, 200)
     ms, library_ms = (sum(turns[n]) / 2 for n in ("kernel", "library"))
     rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=k2_bound_ms(dtype, positions))
+               bound_ms=k2_bound_ms(dtype, positions, d, h))
     split_tokens, splits = decode_splits(T, BS)
     print(
-        f"K2 timing bf16 S={S} W={W} H={H} D={D} BS={BS} positions 1019-1023: kernel {ms:.4f} ms, "
+        f"K2 timing bf16 S={S} W={W} H={h} D={d} BS={BS} positions 1019-1023: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, library (SDPA on pre-gathered K/V with the position mask, "
         f"gather excluded) {library_ms:.4f} ms (kernel/library {ms / library_ms:.3f}x; turns "
         f"{' / '.join(f'{t:.4f}' for t in turns['kernel'])} and "
         f"{' / '.join(f'{t:.4f}' for t in turns['library'])}), bound {rec['bound_ms']:.4f} ms "
         f"(bytes, {ms / rec['bound_ms']:.2f}x); K2 / K1 at the same context {ms / k1_ms:.3f}; split "
-        f"{split_tokens} positions, {splits * H * S} CTAs ({S * H * -(-1024 // split_tokens)} with a "
+        f"{split_tokens} positions, {splits * h * S} CTAs ({S * h * -(-1024 // split_tokens)} with a "
         f"live position)"
     )
     del kd, vd, q, kp, vp
+    if d != D:
+        return rec
     # the window swept at one context: a kernel held to its byte bound takes
     # about the same time at every W (K/V is read once per window); one held
     # by its per-query work grows with W
@@ -1094,7 +1120,7 @@ def spec_serve(eng: LLMEngine, params, label: str, card: str, forward) -> dict:
         f"{st['prefix_cache']['hit_tokens']}, preemptions {st['preemptions']}; peak memory "
         f"{peak_gb:.2f} GB"
     )
-    return dict(launches=k2_launches, k1_launches=k1_launches, engine=eng)
+    return dict(launches=k2_launches, k1_launches=k1_launches, engine=eng, results=results)
 
 
 class ConfidentDrafter:
@@ -1192,6 +1218,21 @@ def serve_gpt(card: str) -> dict:
     return dict(k1=served["launches"], k2=spec["launches"], engine=eng, spec_engine=spec_eng)
 
 
+def start_loop(eng: LLMEngine):
+    """``run_loop`` in a daemon thread; returns (stop event, thread)."""
+    stop = threading.Event()
+    loop = threading.Thread(target=eng.run_loop, args=(stop,), daemon=True)
+    loop.start()
+    return stop, loop
+
+
+def stop_loop(stop, loop) -> None:
+    stop.set()
+    loop.join(timeout=60)
+    if loop.is_alive():
+        raise AssertionError("run_loop did not stop")
+
+
 def hot_swap_gpt(eng: LLMEngine, card: str) -> dict:
     """Phase 21: ``update_weights`` to a second seed's weights in the middle
     of traffic. Four requests of 256 tokens (greedy and sampled, two with a
@@ -1226,18 +1267,6 @@ def hot_swap_gpt(eng: LLMEngine, card: str) -> dict:
     late = [(head + toks(32), greedy), (toks(100), greedy), (head[:100] + toks(50), greedy), (toks(60), sampled)]
     results = {}
 
-    def start_loop():
-        stop = threading.Event()
-        loop = threading.Thread(target=eng.run_loop, args=(stop,), daemon=True)
-        loop.start()
-        return stop, loop
-
-    def stop_loop(stop, loop):
-        stop.set()
-        loop.join(timeout=60)
-        if loop.is_alive():
-            raise AssertionError("hot swap: run_loop did not stop")
-
     def wait(cond, what):
         deadline = time.monotonic() + 300
         while not cond():
@@ -1249,7 +1278,7 @@ def hot_swap_gpt(eng: LLMEngine, card: str) -> dict:
     paged_attention_cuda.launches = 0
     paged_verify_attention_cuda.launches = 0
     eng.runner.launches = dict.fromkeys(eng.runner.launches, 0)
-    loop = start_loop()
+    loop = start_loop(eng)
     try:
         reqs = [eng.submit(p, sp) for p, sp in early]
         wait(lambda: all(len(r.out) >= 8 for r in reqs), "the early requests did not start")
@@ -1265,7 +1294,7 @@ def hot_swap_gpt(eng: LLMEngine, card: str) -> dict:
         torch.cuda.synchronize()
         swap_ms = (time.perf_counter() - t0) * 1e3
         after = eng.prefix_cache.stats()["cached_blocks"]
-        loop = start_loop()
+        loop = start_loop(eng)
         reqs += [eng.submit(p, sp) for p, sp in late]
         # the same weights again with the loop busy: how long a swap waits
         # for the engine lock under traffic (the values do not change)
@@ -1307,6 +1336,593 @@ def hot_swap_gpt(eng: LLMEngine, card: str) -> dict:
         f"K1 launches {k1_launches} = {cfg.n_layers} x {decode_steps}"
     )
     return dict(swap_ms=swap_ms, busy_swap_ms=busy_swap_ms, launches=k1_launches)
+
+
+# phase 22: GPT-124M's engine with the production half on — phase 19's
+# engines (watchdog deadlines cut to 1 s and 0.1 s so a wedge of a few
+# seconds reads as a stall)
+GPT_PROD_ENGINE = dataclasses.replace(GPT_ENGINE, watchdog_stall_s=1.0, watchdog_interval_s=0.1)
+WEDGE_S = 4.0  # the device spin phase 22 (c) puts in front of one decode step
+HOOK_PAIRS = {"decode": 100, "verify": 40}  # phase 22 (e): on/off pairs of steps
+HOOK_STEPS = 10  # phase 22 (e): warm-up steps, which also count an on step's records
+
+
+def metric_value(metric, tags: str = ""):
+    """A metric's merged value in this process (a float, or a histogram's
+    buckets + sum + count)."""
+    return metric._snapshot()["data"].get(tags, 0.0)
+
+
+def hist_delta(metric, before) -> list:
+    """A histogram's buckets + sum + count gained since ``before``."""
+    now = metric_value(metric)
+    if not isinstance(now, list):
+        return [0] * (len(metric.boundaries) + 3)
+    if not isinstance(before, list):
+        return list(now)
+    return [a - b for a, b in zip(now, before)]
+
+
+def reset_counts(*engines) -> None:
+    """Every kernel launch count and the engines' step counts to 0: a part
+    of phase 22 starts here."""
+    paged_attention_cuda.launches = 0
+    paged_verify_attention_cuda.launches = 0
+    for eng in engines:
+        eng.runner.launches = dict.fromkeys(eng.runner.launches, 0)
+
+
+def check_counts(label: str, *engines) -> tuple[int, int]:
+    """K1 at n_layers launches a decode step and K2 at n_layers a verify
+    step of ``engines`` since ``reset_counts``; returns (K1, K2) launches."""
+    layers = engines[0].model_cfg.n_layers
+    decode = sum(e.runner.launches["decode"] for e in engines)
+    verify = sum(e.runner.launches["verify"] for e in engines)
+    k1, k2 = paged_attention_cuda.launches, paged_verify_attention_cuda.launches
+    if k1 != layers * decode or k2 != layers * verify:
+        raise AssertionError(f"{label}: K1 {k1} launches over {decode} decode steps, K2 {k2} over "
+                             f"{verify} verify steps (expected {layers} a step)")
+    return k1, k2
+
+
+def check_request_hooks(eng: LLMEngine, results: dict, label: str) -> dict:
+    """Per request of ``results``: its flight-recorder events run submit →
+    admit → first token → ... → finish; its engine phases sum to finish −
+    submit within 1e-6 s (the ledger's cursor ends at the finish stamp);
+    verify time lands in ``spec_verify`` (a request with verify steps has
+    some, one without has none) and a request with no plain decode step
+    has no more than its finish tail in ``decode``. Returns the phase
+    totals over the requests."""
+    totals = dict.fromkeys(phases.ENGINE_PHASES, 0.0)
+    worst = 0.0
+    for idx, (_prompt, _sp, req, _) in sorted(results.items()):
+        types = [e["type"] for e in events.snapshot(req.trace_id)]
+        order = [types.index(t) if t in types else -1
+                 for t in ("llm.submit", "llm.admit", "llm.first_token", "llm.phase.ledger", "llm.finish")]
+        if order != sorted(order) or order[0] != 0 or -1 in order or types[-1] != "llm.finish":
+            raise AssertionError(f"{label}: request {idx} events out of order: {types[:6]} ... {types[-3:]}")
+        led = req.phase_led
+        gap = abs(sum(led[1:]) - (led[0] - req.arrival_t))
+        worst = max(worst, gap)
+        if gap > 1e-6:
+            raise AssertionError(f"{label}: request {idx} phases sum {sum(led[1:])} s, finish - submit "
+                                 f"{led[0] - req.arrival_t} s")
+        got = dict(zip(phases.ENGINE_PHASES, led[1:]))
+        if (got["spec_verify"] > 0) != ("llm.verify" in types):
+            raise AssertionError(f"{label}: request {idx} spec_verify {got['spec_verify']} with "
+                                 f"{types.count('llm.verify')} verify steps")
+        if "llm.decode" not in types and got["decode"] > 1e-3:
+            raise AssertionError(f"{label}: request {idx} has no plain decode step but {got['decode']} s "
+                                 f"in decode")
+        for k, v in got.items():
+            totals[k] += v
+    print(f"  {label}: {len(results)} requests' events in order; phases sum to finish - submit within "
+          f"{worst:.3g} s; phase totals " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in totals.items()))
+    return totals
+
+
+def hooks_under_traffic(eng: LLMEngine, spec_eng: LLMEngine, params, card: str) -> tuple[int, int]:
+    """Phase 22 (a): phase 19's traffic, plain (``serve_mix``) and at
+    spec_k=4 (``spec_serve``), with every hook on; the counters against
+    what was streamed and the engines' own counts, the inter-token latency
+    histogram against the tokens, each request's events and phases."""
+    m = engine_mod._metrics()
+    k1 = k2 = 0
+    for label, engine in (("plain", eng), ("spec_k=4", spec_eng)):
+        keys = ("tokens", "finished", "spec_proposed", "spec_accepted")
+        before = {k: metric_value(m[k]) for k in keys}
+        itl0, ttft0 = metric_value(m["itl"]), metric_value(m["ttft"])
+        base = engine.stats()
+        events.clear()
+        if engine is eng:
+            served = serve_mix(engine, params, "GPT-124M serve, hooks on", card, gpt_forward_plain, longest=960)
+        else:
+            served = spec_serve(engine, params, "GPT-124M spec serve, hooks on", card, gpt_forward_plain)
+        results = served["results"]
+        a, b = check_counts(f"hooks ({label})", engine)
+        k1, k2 = k1 + a, k2 + b
+        st = engine.stats()
+        got = {k: metric_value(m[k]) - before[k] for k in keys}
+        streamed = sum(len(r[3]) for r in results.values())
+        if got["tokens"] != streamed or got["finished"] != len(results):
+            raise AssertionError(f"hooks ({label}): llm_generated_tokens +{got['tokens']} for {streamed} "
+                                 f"streamed, llm_finished_requests +{got['finished']} for {len(results)}")
+        spec = (st.get("spec_proposed", 0) - base.get("spec_proposed", 0),
+                st.get("spec_accepted", 0) - base.get("spec_accepted", 0))
+        if (got["spec_proposed"], got["spec_accepted"]) != spec:
+            raise AssertionError(f"hooks ({label}): spec counters {got} against the engine's {spec}")
+        itl, ttft = hist_delta(m["itl"], itl0), hist_delta(m["ttft"], ttft0)
+        if itl[-1] != streamed - len(results) or ttft[-1] != len(results):
+            raise AssertionError(f"hooks ({label}): {itl[-1]} inter-token gaps and {ttft[-1]} first tokens "
+                                 f"for {streamed} tokens of {len(results)} requests")
+        itl_median = metrics.percentiles_from_buckets(m["itl"].boundaries, itl[:-2], 0.5)
+        steps = st["decode_steps"] - base["decode_steps"]
+        step_ms = (st["decode_s"] - base["decode_s"]) / max(steps, 1) * 1e3
+        if engine is spec_eng:
+            v_steps = st["verify_steps"] - base["verify_steps"]
+            step_ms = (st["verify_s"] - base["verify_s"] + st["decode_s"] - base["decode_s"]) / max(
+                steps + v_steps, 1) * 1e3
+        print(f"  hooks ({label}) [{card}]: llm_generated_tokens +{got['tokens']:.0f} = streamed, "
+              f"llm_finished_requests +{got['finished']:.0f}, spec draft/accepted +{got['spec_proposed']:.0f}/"
+              f"+{got['spec_accepted']:.0f} = the engine's; inter-token latency: {itl[-1]} gaps (tokens - "
+              f"requests), median {itl_median * 1e3:.3f} ms (bucket interpolation) against the host-clock "
+              f"decode{'/verify' if engine is spec_eng else ''} step of this run {step_ms:.3f} ms; mean "
+              f"{itl[-2] / max(itl[-1], 1) * 1e3:.3f} ms")
+        totals = check_request_hooks(engine, results, f"hooks ({label})")
+        if (totals["spec_verify"] > 0) != (engine is spec_eng):
+            raise AssertionError(f"hooks ({label}): spec_verify total {totals['spec_verify']}")
+    return k1, k2
+
+
+def ledger_against_card(eng: LLMEngine, spec_eng: LLMEngine, params, swap_bytes) -> None:
+    """Phase 22 (b): the HBM ledger against the card's own accounting, and
+    (``swap_bytes``, when phase 21 ran) phase 21's engine's params_bytes
+    before and after its ``update_weights``."""
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    unique = {p.untyped_storage().data_ptr(): p.untyped_storage().nbytes() for p in params.parameters()}
+    n_values = sum(p.numel() for p in params.parameters())
+    total = 0
+    for label, engine in (("plain", eng), ("spec_k=4", spec_eng)):
+        led = engine.hbm_ledger()
+        usable = engine.pool.cfg.num_blocks - 1
+        if led["params_bytes"] != sum(unique.values()):
+            raise AssertionError(f"ledger ({label}): params_bytes {led['params_bytes']} != "
+                                 f"{sum(unique.values())} of unique storage")
+        if led["pool_bytes"] != engine.pool.k.nbytes + engine.pool.v.nbytes:
+            raise AssertionError(f"ledger ({label}): pool_bytes {led['pool_bytes']}")
+        if led["seq_bytes"] + led["cache_bytes"] + led["free_bytes"] != usable * led["block_bytes"]:
+            raise AssertionError(f"ledger ({label}): partition {led} != {usable} x block_bytes")
+        held = led["params_bytes"] + led["pool_bytes"] + led["drafter_bytes"]
+        if held > allocated:
+            raise AssertionError(f"ledger ({label}): {held} bytes held > memory_allocated {allocated}")
+        total += led["pool_bytes"] + led["drafter_bytes"]
+        print(f"  ledger ({label}): params {led['params_bytes']} B ({n_values / 1e6:.1f}M fp32 values, "
+              f"{len(unique)} storages), pool {led['pool_bytes']} B = k + v, block {led['block_bytes']} B, "
+              f"seq {led['seq_bytes']} + cache {led['cache_bytes']} + free {led['free_bytes']} = {usable} "
+              f"usable blocks; params + pool + drafter {held} B <= memory_allocated {allocated} B")
+    total += sum(unique.values())
+    print(f"  ledger: both engines (params shared) hold {total} B of memory_allocated {allocated} B; the "
+          f"rest, {allocated - total} B ({(allocated - total) / 1e6:.1f} MB), is activations, workspace "
+          f"and the kernels' per-stream workspace")
+    if swap_bytes is None:
+        return
+    if swap_bytes[0] != swap_bytes[1]:
+        raise AssertionError(f"ledger: params_bytes {swap_bytes[0]} before phase 21's update_weights, "
+                             f"{swap_bytes[1]} after")
+    print(f"  ledger: phase 21's engine params_bytes {swap_bytes[0]} before update_weights, {swap_bytes[1]} "
+          f"after (written in place)")
+
+
+def spin_cycles(seconds: float) -> int:
+    """Clock cycles of ``torch.cuda._sleep`` that spin the device about
+    ``seconds``, calibrated with CUDA events on a 50 ms spin."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    n = 100_000_000
+    for _ in range(2):  # the first spin pays the launch's setup
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(n)
+        end.record()
+        torch.cuda.synchronize()
+        per_ms = n / start.elapsed_time(end)
+        n = int(per_ms * 50)
+    return int(per_ms * seconds * 1e3)
+
+
+def device_spin(cycles: int):
+    """Spin the current stream for ``cycles``; returns an event that is
+    complete once the spin has ended (``query()`` is False until then)."""
+    torch.cuda._sleep(cycles)
+    done = torch.cuda.Event()
+    done.record()
+    return done
+
+
+def watchdog_wedge(eng: LLMEngine, params, card: str) -> tuple[int, int]:
+    """Phase 22 (c): the watchdog under a real device wedge. A test double
+    wraps ``runner.decode_step`` for one call and puts a ~4 s device spin in
+    front of the real call; the step's one host sync then waits on the
+    device while the step holds the engine lock. While the device spins:
+    one stall event, the stall counter +1, the step-age gauge >= 1 s, a
+    1.5 s-deadline request's stream ended by the watchdog's lockless
+    unblock, and ``stream_tokens(timeout=2.0)`` raising
+    ``EngineStalledError``. After: the engine resumes, the step age returns
+    to 0, the audits are clean, and the surviving requests' greedy tokens
+    match the dense forward. None of this can happen unless the step
+    thread's device wait releases the GIL: then the phase fails."""
+    wm = watchdog_mod._metrics()
+    cycles = spin_cycles(WEDGE_S)
+    rng = np.random.RandomState(12)
+
+    def toks(n):
+        return [int(t) for t in rng.randint(0, eng.model_cfg.vocab_size, n)]
+
+    real_decode = eng.runner.decode_step
+    wedge: dict = {}
+
+    def wedged_decode(*args, **kw):
+        eng.runner.decode_step = real_decode  # one call only
+        wedge["t0"] = time.monotonic()
+        wedge["done"] = device_spin(cycles)
+        return real_decode(*args, **kw)
+
+    def spinning() -> bool:
+        return "done" in wedge and not wedge["done"].query()
+
+    outcome: dict = {}
+
+    def consume(name, req, timeout):
+        got = []
+        try:
+            for t in eng.stream_tokens(req, timeout=timeout):
+                got.append(t)
+            outcome[name] = ("ended", time.monotonic(), spinning(), got)
+        except EngineStalledError as err:
+            outcome[name] = ("stalled", time.monotonic(), spinning(), err)
+        except BaseException as err:  # surfaced below
+            outcome[name] = ("error", time.monotonic(), False, err)
+
+    wd = eng.start_watchdog()  # after warmup(): kernel builds are not stalls
+    stalls0, leaks0, wd_stalls0 = metric_value(wm["stalls"]), metric_value(wm["leaks"]), wd.stall_count
+    reset_counts(eng)
+    events.clear()
+    greedy = SamplingParams(max_tokens=48)
+    # every request is in before the loop starts (a submit from another
+    # thread can wait several steps for the engine lock): the doomed one
+    # first, into an empty engine (no backlog: never shed), then the
+    # survivors and the probe; the wedge is armed, and the loop's first
+    # step prefills the doomed request and decodes it behind the spin
+    doomed = eng.submit(toks(32), SamplingParams(max_tokens=200), deadline_s=1.5)
+    survivors = [(p, greedy) for p in (toks(64), toks(150), toks(200))]
+    reqs = [eng.submit(p, sp) for p, sp in survivors]
+    probe = eng.submit(toks(40), SamplingParams(max_tokens=16))
+    eng.runner.decode_step = wedged_decode
+    consumers = [threading.Thread(target=consume, args=("doomed", doomed, 60)),
+                 threading.Thread(target=consume, args=("probe", probe, 2.0))]
+    consumers += [threading.Thread(target=consume, args=(i, r, 60)) for i, r in enumerate(reqs)]
+    for t in consumers:
+        t.start()
+    loop = start_loop(eng)
+    try:
+        age_max = 0.0
+        t_arm = time.monotonic()
+        while "done" not in wedge or spinning():
+            age_max = max(age_max, metric_value(wm["step_age"]))
+            time.sleep(0.02)
+            if time.monotonic() - t_arm > 60:
+                raise AssertionError("wedge: the spin did not start or did not end")
+        spin_s = time.monotonic() - wedge["t0"]
+        for t in consumers:
+            t.join(timeout=120)
+        if any(t.is_alive() for t in consumers):
+            raise AssertionError("wedge: a consumer did not finish")
+        # the engine has resumed: let the loop drain, then the watchdog tick
+        deadline = time.monotonic() + 60
+        while eng.has_work() or metric_value(wm["step_age"]) != 0.0:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"wedge: step age {metric_value(wm['step_age'])} after the spin")
+            time.sleep(0.02)
+    finally:
+        eng.runner.decode_step = real_decode
+        stop_loop(*loop)
+    stall_events = [e for e in events.snapshot() if e["type"] == "llm.watchdog.stall"]
+    by_watchdog = [e for e in stall_events if e.get("source") == "watchdog"]
+    reap_events = [e for e in events.snapshot() if e["type"] == "llm.watchdog.reap"]
+    leak_events = [e for e in events.snapshot() if e["type"] == "llm.watchdog.leak"]
+    kind, t_doomed, doomed_spinning, _ = outcome["doomed"]
+    pkind, t_probe, probe_spinning, err = outcome["probe"]
+    if len(by_watchdog) != 1 or metric_value(wm["stalls"]) - stalls0 != 1 or wd.stall_count - wd_stalls0 != 1:
+        raise AssertionError(f"wedge: {len(by_watchdog)} watchdog stall events, counter "
+                             f"+{metric_value(wm['stalls']) - stalls0}")
+    if age_max < 1.0 or by_watchdog[0]["last_step_age_s"] < 1.0:
+        raise AssertionError(f"wedge: step age gauge peaked at {age_max} s")
+    if kind != "ended" or not doomed_spinning or doomed.finish_reason != "deadline":
+        raise AssertionError(f"wedge: the doomed stream {kind}, device spinning then: {doomed_spinning}, "
+                             f"finish {doomed.finish_reason}")
+    if not any(e["mode"] == "emergency" for e in reap_events):
+        raise AssertionError(f"wedge: no lockless reap: {reap_events}")
+    if pkind != "stalled" or not probe_spinning or err.last_step_age_s < 1.0 or err.queue_depth < 1:
+        raise AssertionError(f"wedge: the probe {pkind} ({err!r}), device spinning then: {probe_spinning}")
+    audit = wd.check_once()["audit"]
+    if not audit["ok"] or leak_events or metric_value(wm["leaks"]) != leaks0 or metric_value(wm["audit_ok"]) != 1.0:
+        raise AssertionError(f"wedge: audit {audit}, leak events {leak_events}")
+    results = {i: (p, sp, r, outcome[i][3]) for i, ((p, sp), r) in enumerate(zip(survivors, reqs))}
+    check_served(eng, results, "wedge survivors")
+    check_greedy(eng.model_cfg, params, results, "wedge survivors", gpt_forward_plain)
+    k1, k2 = check_counts("wedge", eng)
+    print(
+        f"  wedge [{card}]: device spin {spin_s:.2f} s ({cycles} cycles) in front of one decode step; "
+        f"watchdog stall event at step age {by_watchdog[0]['last_step_age_s']:.3f} s, gauge peak "
+        f"{age_max:.3f} s; the 1.5 s-deadline stream ended {t_doomed - wedge['t0']:.3f} s into the spin "
+        f"(lockless reap); the probe's stream_tokens(timeout=2.0) raised EngineStalledError "
+        f"{t_probe - wedge['t0']:.3f} s into it (last_step_age_s {err.last_step_age_s:.3f}, queue_depth "
+        f"{err.queue_depth}, kv_utilization {err.kv_utilization:.3f}); after: step age 0, audit ok, no leak "
+        f"event, {len(reqs)} survivors served; K1 launches {k1}"
+    )
+    return k1, k2
+
+
+def shed_at_service_rate(eng: LLMEngine, card: str) -> tuple[int, int]:
+    """Phase 22 (d): deadline shedding at the card's own service rate. Eight
+    slots of 256-token requests serve for more than one 0.5 s rate window;
+    a request whose deadline is below backlog / rate is refused with
+    ``OverloadedError`` (``retry_after_s`` = estimate - deadline), an
+    ``llm.shed`` event and ``llm_shed_requests`` + 1; one with ten times the
+    estimate is admitted and finishes inside it."""
+    m = engine_mod._metrics()
+    rng = np.random.RandomState(13)
+    V = eng.model_cfg.vocab_size
+    reset_counts(eng)
+    events.clear()
+    shed0 = metric_value(m["shed"])
+    loop = start_loop(eng)
+    try:
+        fill = [eng.submit([int(t) for t in rng.randint(0, V, 128)], SamplingParams(max_tokens=256))
+                for _ in range(eng.cfg.max_slots)]
+        t0 = time.monotonic()
+        # the rate is read without the engine lock: a thread waiting for it
+        # can wait many steps behind the busy loop (Python's locks are not fair)
+        while time.monotonic() - t0 < 0.6 or eng._rate <= 0:
+            if time.monotonic() - t0 > 60:
+                raise AssertionError("shed: no service rate measured")
+            time.sleep(0.05)
+        # the loop pauses for the two submits, as phase 21 pauses it for its
+        # swap: a submit blocked on the engine lock can wait out the backlog
+        stop_loop(*loop)
+        rate = eng._rate
+        n_new = 64
+        backlog = sum(max(r.params.max_tokens - len(r.out), 0) for r in fill)
+        est = (backlog + n_new) / rate
+        deadline = est / 4
+        try:
+            eng.submit([int(t) for t in rng.randint(0, V, 64)], SamplingParams(max_tokens=n_new),
+                       deadline_s=deadline)
+            raise AssertionError(f"shed: a {deadline:.3f} s deadline against a {est:.3f} s estimate was admitted")
+        except OverloadedError as err:
+            refused = err
+        (ev,) = [e for e in events.snapshot() if e["type"] == "llm.shed"]
+        loose_s = 10 * est
+        loose = eng.submit([int(t) for t in rng.randint(0, V, 64)], SamplingParams(max_tokens=n_new),
+                           deadline_s=loose_s)
+        loop = start_loop(eng)
+        streamed = list(eng.stream_tokens(loose, timeout=loose_s + 30))
+        took = time.time() - loose.arrival_t
+        for r in fill:
+            eng.cancel(r.id)
+        while eng.has_work():
+            time.sleep(0.01)
+    finally:
+        stop_loop(*loop)
+    if refused.retry_after_s != max(0.1, round(ev["estimate_s"] - deadline, 2)):
+        raise AssertionError(f"shed: retry_after_s {refused.retry_after_s} against the event's {ev}")
+    if abs(ev["estimate_s"] - est) > 0.2 * est or metric_value(m["shed"]) - shed0 != 1:
+        raise AssertionError(f"shed: engine estimate {ev['estimate_s']} s against {est:.3f} s, counter "
+                             f"+{metric_value(m['shed']) - shed0}")
+    if loose.finish_reason != "length" or len(streamed) != n_new or took > loose_s:
+        raise AssertionError(f"shed: the loose request ended {loose.finish_reason} after {took:.3f} s "
+                             f"(deadline {loose_s:.3f} s)")
+    k1, k2 = check_counts("shed", eng)
+    print(
+        f"  shed [{card}]: service rate {rate:.1f} tokens/s with {len(fill)} slots of 256-token requests; "
+        f"backlog {backlog} + {n_new} tokens -> estimate {est:.3f} s (engine's {ev['estimate_s']:.3f} s); a "
+        f"{deadline:.3f} s deadline refused with OverloadedError, retry_after_s {refused.retry_after_s} "
+        f"(estimate - deadline {ev['estimate_s'] - deadline:.3f} s), llm_shed_requests +1; a {loose_s:.3f} s "
+        f"deadline admitted, finished in {took:.3f} s"
+    )
+    return k1, k2
+
+
+def hooks_off(reqs) -> dict:
+    """Everything the hooks cost turned off: the flight recorder, the phase
+    gate, and tracing at sample rate 0 on the stepping thread (an unsampled
+    context, so the step span is the shared null span). A request carries
+    its phase ledger from submit; requests submitted with the gate off
+    carry none, as ``reqs`` do while it is off. Returns what ``hooks_on``
+    restores."""
+    saved = dict(env=os.environ.get("RAY_TPU_TRACE_SAMPLE"), led={r.id: r.phase_led for r in reqs})
+    events.set_enabled(False)
+    phases.set_enabled(False)
+    for r in reqs:
+        r.phase_led = None
+    os.environ["RAY_TPU_TRACE_SAMPLE"] = "0"
+    saved["ctx"] = tracing.set_trace_context(tracing.mint_context())
+    return saved
+
+
+def hooks_on(reqs, saved: dict) -> None:
+    events.set_enabled(True)
+    phases.set_enabled(True)
+    for r in reqs:
+        r.phase_led = saved["led"][r.id]
+    if saved["env"] is None:
+        os.environ.pop("RAY_TPU_TRACE_SAMPLE", None)
+    else:
+        os.environ["RAY_TPU_TRACE_SAMPLE"] = saved["env"]
+    tracing.set_trace_context(saved["ctx"])
+
+
+def host_us(fn, n: int = 20000) -> float:
+    """Host time of one call of ``fn``, µs (mean of ``n`` after a warm-up)."""
+    for _ in range(100):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def hook_call_us(eng: LLMEngine) -> dict:
+    """Each hook's host time per call in this process, µs: the toggled hooks
+    (a flight-recorder event with a step's fields, the step span with its
+    attributes, a phase charge) and the metrics on in both arms (a counter,
+    the inter-token histogram, ``_publish_gauges`` with its pool-lock
+    snapshot)."""
+    m = engine_mod._metrics()
+    led = phases.new_ledger(time.time())
+
+    def span():
+        with tracing.span("llm_engine_step", step=1, running=8, waiting=0, spec={"k": 4}):
+            pass
+
+    def publish():
+        with eng._lock:
+            eng._publish_gauges()
+
+    out = dict(
+        record=host_us(lambda: events.record("llm.decode", request_id="req-0", engine_req="req-0",
+                                             step=1, token=5)),
+        span=host_us(span),
+        charge=host_us(lambda: phases.charge(led, phases.DECODE, time.time())),
+        counter=host_us(lambda: m["tokens"].inc()),
+        histogram=host_us(lambda: m["itl"].observe(0.02)),
+        publish=host_us(publish, 2000),
+    )
+    events.clear()
+    tracing.clear()
+    return out
+
+
+def hooks_cost(eng: LLMEngine, spec_eng: LLMEngine, card: str) -> tuple[int, int]:
+    """Phase 22 (e): what the hooks cost a steady step. Phase 20's steady
+    decode steps (8 slots after 512-token prompts, half sampled) and verify
+    steps (the confident test-double drafter, W 5), with the arms in turns
+    of one step: pairs of steps, one on and one off, the order alternating
+    from pair to pair, each step's wall ending in its own host sync. A
+    step's host noise (the sampled slots' Gumbel draws, Python dispatch,
+    other threads) moves it by milliseconds from one step to the next, so
+    the estimate is the median of the pairs' differences; the hooks' own
+    host time per step is printed beside it: the events, spans and charges
+    an on step makes times each one's host time per call in this process
+    (``hook_call_us``)."""
+    k1 = k2 = 0
+    for label, engine in (("decode", eng), ("verify", spec_eng)):
+        pairs = HOOK_PAIRS[label]
+        if engine is spec_eng:
+            engine._drafter = ConfidentDrafter(engine.cfg.spec_k)
+        # 512 + 500 positions fit the table; a verify step emits at most 5
+        # tokens a slot, so no request can finish inside the timed steps
+        reqs = steady_batch(engine, 500)
+        reset_counts(engine)
+
+        def step(arm) -> float:
+            saved = hooks_off(reqs) if arm == "off" else None
+            try:
+                engine._spec_skip = 0  # every speculating step a verify step
+                t0 = time.perf_counter()
+                engine.step()
+                return (time.perf_counter() - t0) * 1e3
+            finally:
+                if saved is not None:
+                    hooks_on(reqs, saved)
+
+        # warm-up steps that also count what an on step records
+        events.clear()
+        tracing.clear()
+        for _ in range(HOOK_STEPS):
+            step("on")
+        evs = events.snapshot()
+        per_step = dict(
+            record=len(evs) / HOOK_STEPS,
+            span=len(tracing.get_spans()) / HOOK_STEPS,
+            # one charge per active request per step, beside its llm.decode/llm.verify
+            charge=sum(e["type"] in ("llm.decode", "llm.verify") for e in evs) / HOOK_STEPS,
+        )
+        # tokens emitted per step: one per llm.decode, accepted + 1 per llm.verify
+        tokens = sum(e.get("accepted", 0) + 1 for e in evs
+                     if e["type"] in ("llm.decode", "llm.verify")) / HOOK_STEPS
+        walls = {"on": [], "off": []}
+        diffs = []
+        for i in range(pairs):
+            got = {arm: step(arm) for arm in (("on", "off") if i % 2 == 0 else ("off", "on"))}
+            for arm, ms in got.items():
+                walls[arm].append(ms)
+            diffs.append(got["on"] - got["off"])
+        if not all(r.state == RUNNING for r in reqs):
+            raise AssertionError(f"hooks cost ({label}): a request finished inside the timed steps")
+        step_kind = "verify" if engine is spec_eng else "decode"
+        other = "decode" if step_kind == "verify" else "verify"
+        if engine.runner.launches[step_kind] != HOOK_STEPS + 2 * pairs or engine.runner.launches[other]:
+            raise AssertionError(f"hooks cost ({label}): {engine.runner.launches}")
+        a, b = check_counts(f"hooks cost ({label})", engine)
+        k1, k2 = k1 + a, k2 + b
+        us = hook_call_us(engine)
+        hooks_us = sum(per_step[k] * us[k] for k in per_step)
+        metrics_us = us["publish"] + (us["counter"] + us["histogram"]) * tokens
+        on, off = (float(np.median(walls[arm])) for arm in ("on", "off"))
+        diff = float(np.median(diffs))
+        q1, q3 = (float(np.percentile(diffs, q)) for q in (25, 75))
+        print(f"  hooks cost, {label} step [{card}]: {pairs} pairs of steps, on and off in turns: hooks on "
+              f"median {on:.3f} ms/step, off {off:.3f} ms/step; median paired difference on - off "
+              f"{diff * 1e3:.1f} us/step = {diff / on * 100:.2f}% of the step (quartiles {q1 * 1e3:.1f} / "
+              f"{q3 * 1e3:.1f} us; on slower in {sum(d > 0 for d in diffs)} of {pairs} pairs)")
+        print(f"  hooks cost, {label} step, host time of the hooks themselves [{card}]: per step "
+              f"{per_step['record']:.1f} events x {us['record']:.3f} us + {per_step['span']:.1f} span x "
+              f"{us['span']:.3f} us + {per_step['charge']:.1f} phase charges x {us['charge']:.3f} us = "
+              f"{hooks_us:.1f} us ({hooks_us / 1e3 / on * 100:.2f}% of the on step); the metrics, on in both "
+              f"arms: _publish_gauges {us['publish']:.3f} us + {tokens:.1f} tokens x (counter "
+              f"{us['counter']:.3f} + histogram {us['histogram']:.3f}) us = {metrics_us:.1f} us")
+        for r in reqs:
+            engine.cancel(r.id)
+        engine.step()
+    return k1, k2
+
+
+def production_engine(card: str, swap_bytes=None) -> dict:
+    """Phase 22: phase 19's GPT-124M engines (seed 0, bf16 over fp32
+    masters, plain and spec_k=4) with the production half on: (a) metrics,
+    events and phases under phase 19's traffic; (b) the HBM ledger against
+    the card; (c) the watchdog under a real device wedge; (d) deadline
+    shedding at the card's own service rate; (e) what the hooks cost a
+    steady step, in turns. Every metric family the engine, watchdog,
+    prefix cache and phase ledger name is in ``prometheus_text()``."""
+    cfg = GPT_124M
+    params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    eng = LLMEngine(cfg, params, GPT_PROD_ENGINE)
+    eng.warmup()
+    spec_eng = LLMEngine(cfg, params, dataclasses.replace(GPT_PROD_ENGINE, spec_k=4))
+    spec_eng.warmup()
+    launches = {}
+    print("(a) metrics, events and phases under phase 19's traffic")
+    launches["a"] = hooks_under_traffic(eng, spec_eng, params, card)
+    print("(b) the HBM ledger against the card")
+    ledger_against_card(eng, spec_eng, params, swap_bytes)
+    print("(c) the watchdog under a device wedge")
+    launches["c"] = watchdog_wedge(eng, params, card)
+    print("(d) deadline shedding at the card's service rate")
+    launches["d"] = shed_at_service_rate(eng, card)
+    eng._watchdog.stop()  # (e) times the hooks alone
+    text = metrics.prometheus_text()
+    names = (*engine_mod.METRIC_NAMES, *watchdog_mod.METRIC_NAMES, *prefix_mod.METRIC_NAMES,
+             *phases.METRIC_NAMES)
+    missing = [n for n in names if f"# TYPE ray_tpu_{n} " not in text]
+    if missing:
+        raise AssertionError(f"prometheus_text lacks {missing}")
+    print(f"  prometheus_text: all {len(names)} families of the engine, watchdog, prefix cache and phase "
+          f"ledger ({len(text.splitlines())} lines)")
+    print("(e) what the hooks cost, in turns")
+    launches["e"] = hooks_cost(eng, spec_eng, card)
+    return dict(k1=sum(v[0] for v in launches.values()), k2=sum(v[1] for v in launches.values()))
 
 
 def flash_bound(nbytes: int, ops: float) -> tuple[float, str]:
@@ -1773,6 +2389,7 @@ def main() -> int:
 
     phase("9 K2 timing")
     timing2 = time_k2(timing["ms"])
+    timing2_64 = time_k2(timing64["ms"], GPT_124M.head_dim)
 
     phase("10 fp32 spec identity")
     fp32_spec_identity()
@@ -1818,7 +2435,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("21 GPT-124M hot swap")
-    swapped = hot_swap_gpt(gpt_served.pop("engine"), card)
+    swap_engine = gpt_served.pop("engine")
+    params_bytes = swap_engine.hbm_ledger()["params_bytes"]
+    swapped = hot_swap_gpt(swap_engine, card)
+    swap_bytes = (params_bytes, swap_engine.hbm_ledger()["params_bytes"])
+    del swap_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("22 GPT-124M production engine")
+    production = production_engine(card, swap_bytes)
 
     kernels = [
         dict(
@@ -1826,7 +2452,7 @@ def main() -> int:
             route="cuda",
             source="ray_tpu_torch/ops/csrc/paged_attention.cu",
             replaces="ray_tpu/ops/paged_attention.py:203",
-            launches=served["launches"] + gpt_served["k1"] + swapped["launches"],
+            launches=served["launches"] + gpt_served["k1"] + swapped["launches"] + production["k1"],
             max_abs_err=err,
             ms=timing["ms"],
             plain_ms=timing["plain_ms"],
@@ -1835,7 +2461,8 @@ def main() -> int:
             library_ms=timing["library_ms"],
             head_dims=list(DECODE_HEAD_DIMS),
             launches_by_path={"gptj_6b_serve": served["launches"], "gpt_124m_serve": gpt_served["k1"],
-                              "gpt_124m_hot_swap": swapped["launches"]},
+                              "gpt_124m_hot_swap": swapped["launches"],
+                              "gpt_124m_production": production["k1"]},
             at_head_dim_64=dict(timing64, bound_by="bytes"),
         ),
         dict(
@@ -1843,14 +2470,16 @@ def main() -> int:
             route="cuda",
             source="ray_tpu_torch/ops/csrc/paged_verify_attention.cu",
             replaces="ray_tpu/ops/paged_attention.py:304",
-            launches=spec["launches"] + gpt_served["k2"],
-            launches_by_path={"gptj_6b_spec_serve": spec["launches"], "gpt_124m_spec_serve": gpt_served["k2"]},
+            launches=spec["launches"] + gpt_served["k2"] + production["k2"],
+            launches_by_path={"gptj_6b_spec_serve": spec["launches"], "gpt_124m_spec_serve": gpt_served["k2"],
+                              "gpt_124m_production": production["k2"]},
             max_abs_err=err2,
             ms=timing2["ms"],
             plain_ms=timing2["plain_ms"],
             bound_ms=timing2["bound_ms"],
             bound_by="bytes",
             library_ms=timing2["library_ms"],
+            at_head_dim_64=dict(timing2_64, bound_by="bytes"),
         ),
     ]
     for kernel_name, kernel, line in (("flash_fwd", "K3", 57), ("flash_bwd_dq", "K4", 137),

@@ -9,8 +9,10 @@ Ported so far: the paged-KV LLM serving path for GPT and GPT-J — the models
 (``models.gpt``, ``models.gptj``) with their dense decoders, sampling
 (``models.sampling``), paged decode/verify/prefill attention with
 hand-written Hopper kernels for decode and speculative verification
-(``ops.paged_attention``), and the engine with its drafters and weight
-hot-swap (``llm``); and GPT training on one device — the model (``models.gpt``),
+(``ops.paged_attention``), and the engine with its drafters, weight
+hot-swap, watchdog, deadline-aware shedding and HBM ledger (``llm``) and
+its process-local observability (``util.metrics``, ``util.tracing``,
+``util.phases``, ``_private.events``); and GPT training on one device — the model (``models.gpt``),
 causal attention with hand-written flash forward and backward kernels
 (``ops.attention``, ``ops.flash_attention``), the fused cross-entropy
 (``ops.fused_ce``) and the AdamW train step (``parallel``). ROADMAP.md lists
@@ -20,9 +22,13 @@ Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; a missing GPU raises instead of falling back.
 """
 
+from ray_tpu_torch.exceptions import OverloadedError  # noqa: F401
 from ray_tpu_torch.llm import (  # noqa: F401
+    LOCK_ORDER,
     CacheConfig,
     EngineConfig,
+    EngineStalledError,
+    EngineWatchdog,
     KVBlockPool,
     LLMEngine,
     NGramDrafter,

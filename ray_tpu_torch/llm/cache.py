@@ -94,6 +94,19 @@ class KVBlockPool:
         return -(-max(n_tokens, 1) // self.cfg.block_size)
 
     @property
+    def block_bytes(self) -> int:
+        """Device bytes ONE physical block occupies across both pool tensors
+        and every layer (k + v) — the unit the HBM ledger multiplies block
+        counts by."""
+        return (self.k.nbytes + self.v.nbytes) // self.cfg.num_blocks
+
+    @property
+    def device_bytes(self) -> int:
+        """Total device footprint of the pool tensors (k + v), trash block
+        included — allocated once at engine start, never resized."""
+        return self.k.nbytes + self.v.nbytes
+
+    @property
     def num_free_blocks(self) -> int:
         with self._lock:
             return len(self._free)
@@ -104,6 +117,33 @@ class KVBlockPool:
         block counts once; cache-only residents count zero)."""
         with self._lock:
             return len({b for bs in self._owned.values() for b in bs})
+
+    @property
+    def num_cached_blocks(self) -> int:
+        with self._lock:
+            return len(self._cache_held)
+
+    @property
+    def num_evictable_blocks(self) -> int:
+        """Blocks whose ONLY reference is the prefix cache's — capacity the
+        scheduler can reclaim without preempting anyone."""
+        with self._lock:
+            return sum(1 for b in self._cache_held if self._ref.get(b) == 1)
+
+    def ledger_counts(self) -> dict:
+        """One consistent snapshot of the block partition for the HBM ledger
+        (a single lock acquisition — separate property reads could
+        interleave with an allocation): ``free`` + ``seq_owned`` (distinct
+        blocks owned by >= 1 sequence, shared or not) + ``cache_only``
+        (resident purely for the prefix tree) partition the usable blocks,
+        the invariant ``audit()`` checks."""
+        with self._lock:
+            owned = {b for bs in self._owned.values() for b in bs}
+            return {
+                "free": len(self._free),
+                "seq_owned": len(owned),
+                "cache_only": len(self._cache_held - owned),
+            }
 
     def utilization(self) -> float:
         """Fraction of usable (non-reserved) blocks owned by live
@@ -220,6 +260,10 @@ class KVBlockPool:
                 return 0
             return sum(1 for b in reversed(blocks) if self._deref_locked(b))
 
+    def owner_count(self) -> int:
+        with self._lock:
+            return len(self._owned)
+
     def blocks_of(self, seq_id: str) -> list[int]:
         """Copy of the sequence's block list (table order)."""
         with self._lock:
@@ -248,6 +292,14 @@ class KVBlockPool:
                 return False
             self._cache_held.discard(block)
             return self._deref_locked(block)
+
+    def ref(self, block: int) -> int:
+        with self._lock:
+            return self._ref.get(block, 0)
+
+    def is_cache_held(self, block: int) -> bool:
+        with self._lock:
+            return block in self._cache_held
 
     def is_evictable(self, block: int) -> bool:
         """Only the cache references it: reclaimable without preemption."""

@@ -1,5 +1,5 @@
 """Cross-request prefix cache: a radix tree of shared KV blocks (copy of
-``ray_tpu/llm/prefix_cache.py`` without its metrics and events hooks).
+``ray_tpu/llm/prefix_cache.py``).
 
 Prefill work becomes proportional to the *uncached suffix*: a tree keyed
 by block contents maps token blocks to resident physical KV blocks, and
@@ -30,8 +30,12 @@ off.
   prefill straddled the swap.
 
 All tree mutations happen under the engine lock; the internal lock makes
-reads (stats, audit) safe from other threads. Lock order is always
-engine → cache → pool; the pool never calls back up.
+reads (stats, audit) safe from other threads, the watchdog's included.
+Lock order is always engine → cache → pool; the pool never calls back up.
+
+Observability: ``llm.prefix.*`` flight-recorder events (``hit`` /
+``insert`` / ``evict`` / ``flush``) and the ``llm_prefix_cache_*`` metric
+family; ``audit()`` is part of the watchdog's leak audit.
 """
 
 from __future__ import annotations
@@ -41,7 +45,53 @@ import itertools
 import threading
 from typing import Optional, Sequence
 
+from ray_tpu_torch._private import events as _events
 from ray_tpu_torch.llm.cache import KVBlockPool
+
+#: the metric family this module exports (the reference's names)
+METRIC_NAMES = (
+    "llm_prefix_cache_hit_tokens",
+    "llm_prefix_cache_miss_tokens",
+    "llm_prefix_cache_evicted_blocks",
+    "llm_prefix_cache_hit_rate",
+    "llm_prefix_cache_blocks",
+)
+
+_METRICS = None
+_METRICS_LOCK = threading.Lock()
+
+
+def _metrics() -> dict:
+    global _METRICS
+    if _METRICS is not None:
+        return _METRICS
+    with _METRICS_LOCK:
+        if _METRICS is not None:
+            return _METRICS
+        from ray_tpu_torch.util.metrics import Counter, Gauge
+
+        _METRICS = {
+            "hit_tokens": Counter(
+                "llm_prefix_cache_hit_tokens",
+                "prompt tokens served from cached KV blocks (prefill skipped)",
+            ),
+            "miss_tokens": Counter(
+                "llm_prefix_cache_miss_tokens",
+                "prompt tokens that had to be prefilled (cache miss)",
+            ),
+            "evicted": Counter(
+                "llm_prefix_cache_evicted_blocks",
+                "cached KV blocks evicted under pool pressure",
+            ),
+            "hit_rate": Gauge(
+                "llm_prefix_cache_hit_rate",
+                "lifetime hit_tokens / (hit_tokens + miss_tokens)",
+            ),
+            "blocks": Gauge(
+                "llm_prefix_cache_blocks", "KV blocks resident in the prefix tree"
+            ),
+        }
+    return _METRICS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,13 +187,30 @@ class PrefixCache:
                 blocks=tuple(blocks), matched=i + cow_tokens, cow_src=cow_src, cow_tokens=cow_tokens
             )
 
-    def record(self, match: PrefixMatch, total_tokens: int) -> None:
-        """Account a COMMITTED match (the request was admitted with it)."""
+    def record(self, req, match: PrefixMatch, total_tokens: int) -> None:
+        """Account a COMMITTED match (the request was admitted with it):
+        hit/miss counters, hit-rate gauge, and the ``llm.prefix.hit`` event
+        when anything was actually reused."""
+        m = _metrics()
+        matched = match.matched
+        missed = max(total_tokens - matched, 0)
         with self._lock:
-            self.hit_tokens += match.matched
-            self.miss_tokens += max(total_tokens - match.matched, 0)
+            self.hit_tokens += matched
+            self.miss_tokens += missed
             if match.cow_src is not None:
                 self.cow_forks += 1
+            hits, misses = self.hit_tokens, self.miss_tokens
+        if matched:
+            m["hit_tokens"].inc(matched)
+        if missed:
+            m["miss_tokens"].inc(missed)
+        m["hit_rate"].set(hits / max(hits + misses, 1))
+        if matched:
+            _events.record(
+                "llm.prefix.hit", request_id=req.trace_id, engine_req=req.id,
+                matched_tokens=matched, blocks=len(match.blocks),
+                cow_tokens=match.cow_tokens, miss_tokens=missed,
+            )
 
     # -- insertion ---------------------------------------------------------
 
@@ -188,6 +255,10 @@ class PrefixCache:
                     created += 1
                 child.last_used = next(self._clock)
                 node = child
+            n_nodes = len(self._by_block)
+        if created:
+            _metrics()["blocks"].set(n_nodes)
+            _events.record("llm.prefix.insert", blocks=created, total=n_nodes)
         return created
 
     # -- eviction ----------------------------------------------------------
@@ -215,6 +286,15 @@ class PrefixCache:
                 self.pool.cache_release(best.block)
                 freed += 1
             self.evicted_blocks += freed
+            n_nodes = len(self._by_block)
+        if freed:
+            m = _metrics()
+            m["evicted"].inc(freed)
+            m["blocks"].set(n_nodes)
+            _events.record(
+                "llm.prefix.evict", blocks=freed, remaining=n_nodes,
+                reason="pressure",
+            )
         return freed
 
     def flush(self, reason: str = "flush") -> int:
@@ -222,9 +302,8 @@ class PrefixCache:
         under the old parameters) and bump ``epoch``. Blocks still
         referenced by in-flight sequences keep THEIR references — only the
         cache's are released; such blocks return to the free list when
-        their sequences finish. Returns the number of blocks dropped.
-        ``reason`` names the cause where the reference records it in its
-        events (not ported: ROADMAP.md, queue A)."""
+        their sequences finish. Returns the number of blocks dropped;
+        ``reason`` rides the ``llm.prefix.flush`` event."""
         with self._lock:
             n = len(self._by_block)
             for blk in list(self._by_block):
@@ -232,6 +311,9 @@ class PrefixCache:
             self._by_block.clear()
             self._root = _Node((), -1, None)
             self.epoch += 1  # in-flight prefills may no longer insert
+        if n:
+            _metrics()["blocks"].set(0)
+            _events.record("llm.prefix.flush", blocks=n, reason=reason)
         return n
 
     # -- drafting corpus ---------------------------------------------------
@@ -265,6 +347,7 @@ class PrefixCache:
             hits, misses = self.hit_tokens, self.miss_tokens
             return {
                 "cached_blocks": len(self._by_block),
+                "nodes": len(self._by_block),
                 "hit_tokens": hits,
                 "miss_tokens": misses,
                 "hit_rate": hits / max(hits + misses, 1),

@@ -1,6 +1,5 @@
 """Continuous-batching scheduler: request lifecycle + slot/block policy
-(copy of ``ray_tpu/llm/scheduler.py`` without its events, phase-ledger
-and tracing hooks).
+(copy of ``ray_tpu/llm/scheduler.py``).
 
 The engine has a FIXED number of decode slots; the scheduler keeps them
 full:
@@ -22,6 +21,11 @@ full:
   requeued at the FRONT of the waiting queue, its generated tokens
   replayed by re-prefill on re-admission (recompute-style).
 
+Observability, as in the reference: every request carries its trace id
+and a phase ledger (``util.phases``) that admission, preemption and finish
+charge; ``llm.admit``, ``llm.preempt`` and ``llm.finish`` go to the flight
+recorder (``_private.events``).
+
 All state transitions happen under the engine's lock; this module holds
 no thread of its own.
 """
@@ -36,8 +40,11 @@ import time
 from collections import deque
 from typing import Optional
 
+from ray_tpu_torch._private import events as _events
 from ray_tpu_torch.llm.cache import KVBlockPool
 from ray_tpu_torch.llm.prefix_cache import PrefixCache
+from ray_tpu_torch.util import phases as _phases
+from ray_tpu_torch.util import tracing as _tracing
 
 _req_counter = itertools.count()
 
@@ -91,6 +98,10 @@ class Request:
         if not prompt:
             raise ValueError("prompt must contain at least one token")
         self.id = f"req-{next(_req_counter)}"
+        # end-to-end correlation id: the submitting thread's trace context
+        # (set via tracing.trace_context); falls back to the engine-local id
+        # so every request is traceable either way
+        self.trace_id = _tracing.current_request_id() or self.id
         self.prompt = list(prompt)
         self.params = params
         self.deadline = deadline
@@ -111,6 +122,21 @@ class Request:
         # blocks then must not enter the tree (prefix_cache.insert)
         self.cache_epoch = 0
         self.first_token_t: Optional[float] = None
+        self.last_token_t: Optional[float] = None
+        # phase-attribution ledger (util.phases): cursor + per-phase
+        # accumulators, anchored at submit. A resumed request gets a FRESH
+        # ledger — only THIS attempt's time is attributed. None when
+        # RAY_TPU_PHASES=0.
+        self.phase_led: Optional[list] = (
+            _phases.new_ledger(self.arrival_t) if _phases.enabled() else None
+        )
+        # True from preemption until the recompute's prefill completes:
+        # queue/admit/prefill charges reroute to the `preempt` phase so
+        # recompute cost is attributed, not lumped into first-time phases
+        self.phase_recompute = False
+        # cross-process dispatch leg (engine submit − dispatch anchor),
+        # stamped by phases.note_dispatch when the trace context carries it
+        self.phase_dispatch_s: Optional[float] = None
         self.cancelled = threading.Event()
         # stream events: ("token", id) ... ("done", reason)
         self.stream: queue.SimpleQueue = queue.SimpleQueue()
@@ -138,6 +164,7 @@ class Scheduler:
         self._admit_seq = itertools.count()
         self._admitted_at: dict[str, int] = {}  # request id -> admission tick
         self.preempt_count = 0
+        self.finish_count = 0  # lifetime finishes (engine rates this per step)
         # copy-on-write forks queued by cache-aware admission:
         # (src_block, dst_block, request_id) — the engine drains these
         # right after admit() (same lock, same step), device-copying
@@ -180,6 +207,16 @@ class Scheduler:
             if not free:
                 break
             req = self.waiting[0]
+            if req.phase_led is not None:
+                # close the queue leg HERE so the admission work that
+                # follows (prefix match, evict-to-fit, allocate, install)
+                # lands in `admit`; a failed attempt (break below) merges
+                # back into queue at the next inspection
+                _phases.charge(
+                    req.phase_led,
+                    _phases.PREEMPT if req.phase_recompute else _phases.QUEUE,
+                    time.time(),
+                )
             # prompt (+ recomputed tokens after preempt) + one generation
             # block of headroom, capped at the table width
             need_tokens = min(req.seq_len + self.pool.cfg.block_size, self.pool.cfg.max_seq_len)
@@ -210,7 +247,7 @@ class Scheduler:
                     # the forked block sits right after the shared prefix;
                     # its first cow_tokens positions become valid at copy time
                     self.pending_cow.append((match.cow_src, blocks[len(shared)], req.id))
-                self.prefix_cache.record(match, len(req.prompt) + len(req.out))
+                self.prefix_cache.record(req, match, len(req.prompt) + len(req.out))
                 self._admitted_at[req.id] = next(self._admit_seq)
             except BaseException:
                 # an admission that fails after taking blocks must not
@@ -224,7 +261,19 @@ class Scheduler:
                 req.prefill_pos = 0
                 self.waiting.appendleft(req)
                 raise
+            if req.phase_led is not None:
+                _phases.charge(
+                    req.phase_led,
+                    _phases.PREEMPT if req.phase_recompute else _phases.ADMIT,
+                    time.time(),
+                )
             admitted.append(req)
+            _events.record(
+                "llm.admit", request_id=req.trace_id, engine_req=req.id,
+                slot=slot, seq_len=req.seq_len,
+                cached_tokens=req.prefill_pos,
+                wait_s=round(time.time() - req.arrival_t, 6),
+            )
         return admitted
 
     def grow_for_decode(self, req: Request, extra: int = 0) -> bool:
@@ -260,11 +309,36 @@ class Scheduler:
         self._admitted_at.pop(req.id, None)
         self._drop_pending_cow(req.id)
         self.preempt_count += 1
+        if req.phase_led is not None:
+            # the evicted step's partial work is lost to the recompute —
+            # charge it to `preempt` and reroute everything until the
+            # re-prefill completes (the engine clears the flag at RUNNING)
+            _phases.charge(req.phase_led, _phases.PREEMPT, time.time())
+            req.phase_recompute = True
         req.prefill_pos = 0
         req.state = WAITING
         self.waiting.appendleft(req)
+        _events.record(
+            "llm.preempt", request_id=req.trace_id, engine_req=req.id,
+            tokens_out=len(req.out), recompute_len=req.seq_len,
+        )
 
     def finish(self, req: Request, reason: str) -> None:
+        if req.phase_led is not None:
+            # tail charge: attribute the interval since the last stamp by
+            # what the request was doing, then fold — Σ phases now equals
+            # finish − submit exactly
+            now = time.time()
+            if req.phase_recompute:
+                idx = _phases.PREEMPT
+            elif req.state == RUNNING:
+                idx = _phases.DECODE
+            elif req.state == PREFILL:
+                idx = _phases.PREFILL
+            else:
+                idx = _phases.QUEUE
+            _phases.charge(req.phase_led, idx, now)
+            _phases.fold_engine(req, now, reason)
         slot = self._slot_of(req)
         if slot is not None:
             self.slots[slot] = None
@@ -277,6 +351,12 @@ class Scheduler:
         self._drop_pending_cow(req.id)
         req.state = FINISHED
         req.finish_reason = reason
+        self.finish_count += 1
+        _events.record(
+            "llm.finish", request_id=req.trace_id, engine_req=req.id,
+            reason=reason, tokens_out=len(req.out),
+            dur_s=round(time.time() - req.arrival_t, 6),
+        )
         req.stream.put(("done", reason))
 
     def _drop_pending_cow(self, req_id: str) -> None:

@@ -46,6 +46,8 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, ray_tpu_torch, ray_tpu_torch.llm.engine, ray_tpu_torch.ops._kernels\n"
         "import ray_tpu_torch.models.gpt, ray_tpu_torch.parallel\n"
+        "import ray_tpu_torch.llm.watchdog, ray_tpu_torch.util.metrics, ray_tpu_torch.util.phases\n"
+        "import ray_tpu_torch.util.tracing, ray_tpu_torch._private.events, ray_tpu_torch.exceptions\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
