@@ -10,8 +10,9 @@ serving engine at the full GPT-J-6B width (28 layers, bf16, random weights
 from a seed), plain and speculating; GPT training at bench.py's 406M shape
 (24 layers, bf16, random weights from a seed); and the serving engine at
 GPT-124M (the reference's default GPTConfig, 12 layers, bf16 over fp32
-master weights), plain, speculating and across a weight hot-swap. Phases,
-each of which raises on failure:
+master weights), plain, speculating and across a weight hot-swap, in
+process and then from a GPU actor of the port's runtime. Phases, each of
+which raises on failure:
 
 1. device: name, compute capability, power limit;
 2. build: the three kernel sources, in parallel, and their ``-Xptxas -v`` register /
@@ -94,7 +95,26 @@ each of which raises on failure:
     ``EngineStalledError`` raised while the device still spins, then a
     clean recovery; (d) deadline shedding at the card's measured service
     rate; (e) the hooks' cost per decode and verify step, on and off in
-    turns; K1 and K2 at 12 launches a step throughout.
+    turns; K1 and K2 at 12 launches a step throughout;
+23. the runtime on the card, through ``ray_tpu_torch.init/remote/get/put``:
+    (a) ``init()`` with no arguments offers ``GPU: 1`` (= the device count =
+    ``nvidia-smi -L``) and the card's accelerator-type resource, the native
+    arena is loaded, /dev/shm can hold (e)'s push; (b) K1 at GPT-124M's
+    decode shape against its plain version in a ``num_gpus=1`` task, in a
+    worker forked from a template that never mapped CUDA or torch; two such
+    tasks do not overlap; (c) a 256 MB fp32 and a 256 MB bf16 CPU tensor
+    from the driver to a GPU task and back, and a CUDA tensor returned by a
+    GPU task, bit for bit, same-node gets as views of the store, put/get
+    GB/s; (d) the GPT-124M engine in a ``num_gpus=1`` actor (built in
+    ``__init__``, ``run_loop`` in a thread, as the reference's RLHF rollout
+    worker) serving phase 19's traffic plain and at spec_k=4: greedy tokens
+    against the dense forward, audits and K1/K2 at 12 launches a step read
+    from the actor, tokens/s and TTFT beside phase 19's, the runtime's added
+    ms per request; (e) a push of seed 1's 652 MB of fp32 weights through
+    the object plane (zero-copy get in the actor, host-to-device copy,
+    ``update_weights``), timed, and greedy tokens after it against the
+    dense forward under seed 1; (f) ``shutdown()`` leaves no runtime process,
+    no /dev/shm segment of the store and no extra compute app on the card.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it has
 the card's name and power limit, the one before that the kernels' record.
@@ -113,6 +133,7 @@ import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -120,7 +141,10 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ray_tpu_torch._private import events
+import ray_tpu_torch
+from ray_tpu_torch import _native
+from ray_tpu_torch._private import events, shm_store
+from ray_tpu_torch._private.shm_store import shm_mapping_of
 from ray_tpu_torch.exceptions import OverloadedError
 from ray_tpu_torch.llm import EngineConfig, EngineStalledError, LLMEngine, SamplingParams
 from ray_tpu_torch.llm import engine as engine_mod
@@ -725,16 +749,10 @@ def ttft_ms(results: dict) -> str:
     return f"{ttft[0] * 1e3:.1f}/{ttft[len(ttft) // 2] * 1e3:.1f}/{ttft[-1] * 1e3:.1f} ms"
 
 
-def serve_mix(eng: LLMEngine, params, label: str, card: str, forward, longest: int = 1024) -> dict:
-    """Phase 6's traffic on a warmed-up engine: 9 requests from client
-    threads (``serve_threads``), prompts 64 to ``longest`` tokens, shared
-    256-token heads (prefix hits), one diverging inside a cached block (a
-    CoW fork), greedy and seeded-sampled, 32 new tokens each. Checks every
-    request, both audits, K1's launches per decode step and every greedy
-    token against the dense ``forward``. Returns the K1 launches, the
-    engine, and the requests."""
-    cfg = eng.model_cfg
-    V = cfg.vocab_size
+def mix_traffic(V: int, longest: int = 1024):
+    """Phase 6's requests: (the first, the rest). Prompts 64 to ``longest``
+    tokens over a vocabulary of ``V``, shared 256-token heads, one diverging
+    inside a cached block, greedy and seeded-sampled, 32 new tokens each."""
     rng = np.random.RandomState(2)
 
     def toks(n):
@@ -753,6 +771,19 @@ def serve_mix(eng: LLMEngine, params, label: str, card: str, forward, longest: i
         (head + toks(32), greedy),
         (toks(700), SamplingParams(max_tokens=32, temperature=0.7, top_p=0.9, seed=5)),
     ]
+    return first, rest
+
+
+def serve_mix(eng: LLMEngine, params, label: str, card: str, forward, longest: int = 1024) -> dict:
+    """Phase 6's traffic on a warmed-up engine: 9 requests from client
+    threads (``serve_threads``), prompts 64 to ``longest`` tokens, shared
+    256-token heads (prefix hits), one diverging inside a cached block (a
+    CoW fork), greedy and seeded-sampled, 32 new tokens each. Checks every
+    request, both audits, K1's launches per decode step and every greedy
+    token against the dense ``forward``. Returns the K1 launches, the
+    engine, and the requests."""
+    cfg = eng.model_cfg
+    first, rest = mix_traffic(cfg.vocab_size, longest)
     base = eng.stats()
     results, wall = serve_threads(eng, first, lambda _: rest)
     st = eng.stats()
@@ -781,7 +812,8 @@ def serve_mix(eng: LLMEngine, params, label: str, card: str, forward, longest: i
         f"{cfg.n_layers} x {decode_steps}; prefix hit tokens {pc['hit_tokens']}, cow forks "
         f"{pc['cow_forks']}, preemptions {st['preemptions']}; peak memory {peak_gb:.2f} GB"
     )
-    return dict(launches=k1_launches, engine=eng, results=results)
+    return dict(launches=k1_launches, engine=eng, results=results, tokens_per_s=n_tok / wall,
+                ttft_ms=ttft_ms(results))
 
 
 def serve_6b(card: str) -> dict:
@@ -1023,21 +1055,19 @@ def spec_serve_6b(params, card: str) -> dict:
     return spec_serve(eng, params, "GPT-J-6B spec serve", card, gptj_forward)
 
 
-def spec_serve(eng: LLMEngine, params, label: str, card: str, forward) -> dict:
-    """Phase 11's traffic on a warmed-up speculating engine: a first request
-    to its end, then 9 from client threads — a regeneration, periodic
-    tails, shared heads, greedy and seeded-sampled, 48 new tokens each.
-    Checks every request, both audits, K2's launches per verify step, K1's
-    per plain decode step and every greedy token against the dense
-    ``forward``. Returns the K2 and K1 launches and the engine."""
-    cfg = eng.model_cfg
-    V = cfg.vocab_size
+SPEC_NEW = 48  # new tokens of each request of phase 11's traffic
+
+
+def spec_traffic(V: int):
+    """Phase 11's requests: (the first, make_rest(the first's output)).
+    A regeneration, periodic tails, shared heads, greedy and seeded-sampled,
+    ``SPEC_NEW`` new tokens each, over a vocabulary of ``V``."""
     rng = np.random.RandomState(6)
 
     def toks(n):
         return [int(t) for t in rng.randint(0, V, n)]
 
-    n_new = 48
+    n_new = SPEC_NEW
     greedy = SamplingParams(max_tokens=n_new)
     head = toks(256)  # shared head: 16 full blocks
     pat = [toks(12), toks(9), toks(5)]
@@ -1064,6 +1094,20 @@ def spec_serve(eng: LLMEngine, params, label: str, card: str, forward) -> dict:
             (head + toks(32), SamplingParams(max_tokens=n_new, temperature=0.7, top_p=0.9, seed=5)),
         ]
 
+    return first, make_rest
+
+
+def spec_serve(eng: LLMEngine, params, label: str, card: str, forward) -> dict:
+    """Phase 11's traffic on a warmed-up speculating engine: a first request
+    to its end, then 9 from client threads — a regeneration, periodic
+    tails, shared heads, greedy and seeded-sampled, 48 new tokens each.
+    Checks every request, both audits, K2's launches per verify step, K1's
+    per plain decode step and every greedy token against the dense
+    ``forward``. Returns the K2 and K1 launches and the engine."""
+    cfg = eng.model_cfg
+    V = cfg.vocab_size
+    n_new = SPEC_NEW
+    first, make_rest = spec_traffic(V)
     base = eng.stats()
     results, wall = serve_threads(eng, first, make_rest, first_to_end=True)
     st = eng.stats()
@@ -1120,7 +1164,8 @@ def spec_serve(eng: LLMEngine, params, label: str, card: str, forward) -> dict:
         f"{st['prefix_cache']['hit_tokens']}, preemptions {st['preemptions']}; peak memory "
         f"{peak_gb:.2f} GB"
     )
-    return dict(launches=k2_launches, k1_launches=k1_launches, engine=eng, results=results)
+    return dict(launches=k2_launches, k1_launches=k1_launches, engine=eng, results=results,
+                tokens_per_s=n_tok / wall, ttft_ms=ttft_ms(results))
 
 
 class ConfidentDrafter:
@@ -1215,7 +1260,9 @@ def serve_gpt(card: str) -> dict:
     spec_eng = LLMEngine(cfg, params, dataclasses.replace(GPT_ENGINE, spec_k=4))
     spec_eng.warmup()
     spec = spec_serve(spec_eng, params, "GPT-124M spec serve", card, gpt_forward_plain)
-    return dict(k1=served["launches"], k2=spec["launches"], engine=eng, spec_engine=spec_eng)
+    return dict(k1=served["launches"], k2=spec["launches"], engine=eng, spec_engine=spec_eng,
+                in_process={"plain": (served["tokens_per_s"], served["ttft_ms"]),
+                            "spec": (spec["tokens_per_s"], spec["ttft_ms"])})
 
 
 def start_loop(eng: LLMEngine):
@@ -1925,6 +1972,530 @@ def production_engine(card: str, swap_bytes=None) -> dict:
     return dict(k1=sum(v[0] for v in launches.values()), k2=sum(v[1] for v in launches.values()))
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the runtime on the card — the port's own init/remote/get/put,
+# a forked GPU worker running K1, tensors through the object plane, the
+# GPT-124M engine in a num_gpus=1 actor, a weight push, a clean shutdown
+# ---------------------------------------------------------------------------
+
+# GPT-124M's fp32 weights (163.1M values), the push of (e)
+PUSH_VALUES = 163_109_376
+RUNTIME_TENSOR_BYTES = 256 << 20  # (c): each tensor through the object plane
+
+
+def shm_entries() -> set:
+    return {n for n in os.listdir("/dev/shm") if n.startswith(("rta-", "psm_"))}
+
+
+def compute_apps() -> list[str]:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return [ln.strip() for ln in out.stdout.splitlines() if ln.strip()]
+
+
+def process_alive(pid: int) -> bool:
+    """A process that exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def runtime_resources(card: str) -> dict:
+    """Phase 23 (a): ``ray_tpu_torch.init()`` with no arguments sees the
+    card as ``GPU: 1`` (= ``torch.cuda.device_count()`` = ``nvidia-smi -L``)
+    with its accelerator-type resource; the native arena is loaded; /dev/shm
+    can hold (e)'s push."""
+    torch.zeros(1, device="cuda")  # the driver's own CUDA context, counted in ``before``
+    torch.cuda.synchronize()
+    before = dict(shm=shm_entries(), apps=compute_apps())
+    st = os.statvfs("/dev/shm")
+    shm_total, shm_free = st.f_blocks * st.f_frsize, st.f_bavail * st.f_frsize
+    push_bytes = PUSH_VALUES * 4
+    print(f"/dev/shm: {shm_total / 1e9:.1f} GB, {shm_free / 1e9:.1f} GB free; (e)'s push needs "
+          f"{push_bytes / 1e9:.3f} GB there")
+    if shm_free < 2 * push_bytes:
+        raise AssertionError(f"/dev/shm has {shm_free / 1e9:.3f} GB free: it cannot hold the "
+                             f"{push_bytes / 1e9:.3f} GB weight push (twice that is required)")
+    t0 = time.perf_counter()
+    ray_tpu_torch.init()
+    init_s = time.perf_counter() - t0
+    res = ray_tpu_torch.cluster_resources()
+    smi = subprocess.run(["nvidia-smi", "-L"], capture_output=True, text=True, timeout=60, check=True)
+    smi_cards = [ln for ln in smi.stdout.splitlines() if ln.startswith("GPU ")]
+    acc = {k: v for k, v in res.items() if k.startswith("GPU-")}
+    print(f"ray_tpu_torch.init() in {init_s:.3f} s: {res}")
+    if not (res.get("GPU") == 1.0 == torch.cuda.device_count() == len(smi_cards)):
+        raise AssertionError(f"GPU resource {res.get('GPU')}, torch sees {torch.cuda.device_count()}, "
+                             f"nvidia-smi -L lists {len(smi_cards)}")
+    want_acc = "GPU-" + torch.cuda.get_device_name(0).replace(" ", "-")
+    if acc != {want_acc: 1.0}:
+        raise AssertionError(f"accelerator-type resource {acc}, expected {{{want_acc!r}: 1.0}}")
+    if _native.load() is None or not shm_store._write_arena_name:
+        raise AssertionError("the native arena did not load: the runtime fell back to the pure-Python store")
+    arena = shm_store.attach_arena(shm_store._write_arena_name)
+    print(f"native arena {shm_store._write_arena_name}: capacity {arena.capacity / 1e9:.2f} GB; "
+          f"accelerator type {want_acc}")
+    return before
+
+
+def k1_in_a_gpu_task(seed: int, cfg: dict) -> dict:
+    """Phase 23 (b), in a forked worker: K1 at GPT-124M's decode shape
+    against the plain version. Records, before touching the card, whether
+    torch was loaded and CUDA initialised in this process."""
+    import os
+    import sys
+    import time
+
+    t0 = time.time()
+    torch_loaded = "torch" in sys.modules
+    import torch
+
+    cuda_before = torch.cuda.is_initialized()
+    from ray_tpu_torch.ops.paged_attention import paged_attention, paged_attention_cuda
+
+    s, h, d, bs, t, nb = cfg["slots"], cfg["heads"], cfg["head_dim"], cfg["block"], cfg["table"], cfg["blocks"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lengths = torch.randint(1, t * bs + 1, (s,), device="cuda", generator=g)
+    lengths[0] = t * bs
+    q = torch.randn(s, h, d, device="cuda", generator=g).bfloat16()
+    kp = torch.randn(nb, h, bs, d, device="cuda", generator=g).bfloat16()
+    vp = torch.randn(nb, h, bs, d, device="cuda", generator=g).bfloat16()
+    tables = (torch.randperm(nb - 1, device="cuda", generator=g)[: s * t] + 1).view(s, t)
+    live = torch.arange(t, device="cuda")[None, :] < ((lengths + bs - 1) // bs)[:, None]
+    tables = torch.where(live, tables, 0).int().contiguous()
+    lengths = lengths.int()
+    paged_attention_cuda.launches = 0
+    out = paged_attention(q, kp, vp, tables, lengths, impl="cuda")
+    ref = paged_attention(q, kp, vp, tables, lengths, impl="torch")
+    torch.cuda.synchronize()
+    return dict(
+        err=float((out.float() - ref.float()).abs().max()), finite=bool(torch.isfinite(out).all()),
+        launches=paged_attention_cuda.launches, pid=os.getpid(), ppid=os.getppid(),
+        torch_loaded=torch_loaded, cuda_before=cuda_before, device=torch.cuda.get_device_name(0),
+        t0=t0, t1=time.time(),
+    )
+
+
+def kernel_in_gpu_tasks(card: str) -> dict:
+    """Phase 23 (b): K1 in a ``num_gpus=1`` task, inside a worker forked
+    from the template (whose mappings hold no CUDA or torch library), and
+    two such tasks submitted together do not overlap."""
+    cfg = dict(slots=8, heads=GPT_124M.n_heads, head_dim=GPT_124M.head_dim, block=GPT_ENGINE.block_size,
+               table=GPT_ENGINE.max_blocks_per_seq, blocks=GPT_ENGINE.num_blocks)
+    task = ray_tpu_torch.remote(num_gpus=1)(k1_in_a_gpu_task)
+    t0 = time.perf_counter()
+    first, second = ray_tpu_torch.get([task.remote(1, cfg), task.remote(2, cfg)], timeout=600)
+    wall = time.perf_counter() - t0
+    for r in (first, second):
+        if not (r["finite"] and r["err"] <= TOL[torch.bfloat16] and r["launches"] == 1):
+            raise AssertionError(f"K1 in a GPU task: {r}")
+    # the earlier task ran in a worker forked for it from the template: CUDA
+    # was not initialised there before the task touched the card
+    earlier = min((first, second), key=lambda r: r["t0"])
+    if earlier["cuda_before"]:
+        raise AssertionError(f"K1 in a GPU task: CUDA was initialised in a fresh forked worker: {earlier}")
+    template = first["ppid"]
+    with open(f"/proc/{template}/cmdline", "rb") as f:
+        argv = f.read().replace(b"\0", b" ").decode()
+    with open(f"/proc/{template}/maps") as f:
+        maps = f.read()
+    if "ray_tpu_torch._private.worker_template" not in argv:
+        raise AssertionError(f"the GPU task's parent is not the forkserver template: {argv}")
+    if any(lib in maps for lib in ("libcuda", "libtorch", "libc10")):
+        raise AssertionError("the forkserver template mapped a CUDA or torch library")
+    spans = sorted((r["t0"], r["t1"]) for r in (first, second))
+    if spans[1][0] < spans[0][1]:
+        raise AssertionError(f"two num_gpus=1 tasks overlapped on one GPU: {spans}")
+    print(
+        f"K1 in forked GPU workers [{card}]: pids {first['pid']}, {second['pid']} (template {template}: "
+        f"no CUDA or torch library mapped; torch loaded at task start {first['torch_loaded']}/"
+        f"{second['torch_loaded']}, CUDA initialised {first['cuda_before']}/{second['cuda_before']}); "
+        f"max abs err vs plain {max(first['err'], second['err']):.3g} (tol {TOL[torch.bfloat16]}); the two tasks "
+        f"ran one after the other ({spans[0][1] - spans[0][0]:.3f} s, then {spans[1][1] - spans[1][0]:.3f} s, "
+        f"gap {spans[1][0] - spans[0][1]:.3f} s); {wall:.3f} s for both"
+    )
+    return dict(pids={first["pid"], second["pid"]}, template=template)
+
+
+def echo_on_the_card(to_card: bool, *xs):
+    """Phase 23 (c), in a GPU worker: where each tensor landed (a view of
+    the store?), and the tensors back — as they came, or moved to the card."""
+    import torch
+
+    from ray_tpu_torch._private.shm_store import shm_mapping_of
+
+    mapped = [shm_mapping_of(x.data_ptr()) for x in xs]
+    out = [x.cuda() for x in xs] if to_card else xs
+    if to_card:
+        torch.cuda.synchronize()
+    return mapped, out, torch.cuda.get_device_name(0)
+
+
+def tensors_through_the_plane(card: str) -> dict:
+    """Phase 23 (c): a 256 MB fp32 and a 256 MB bf16 CPU tensor from the
+    driver to a GPU task and back, and a CUDA tensor returned by a GPU task,
+    each bit for bit; same-node gets are views of the store; put/get GB/s."""
+    g = torch.Generator().manual_seed(23)
+    xs = [torch.randn(RUNTIME_TENSOR_BYTES // 4, generator=g),
+          torch.randn(RUNTIME_TENSOR_BYTES // 2, generator=g).to(torch.bfloat16)]
+    rates, refs = [], []
+    for x in xs:
+        nbytes = x.numel() * x.element_size()
+        t0 = time.perf_counter()
+        ref = ray_tpu_torch.put(x)
+        t1 = time.perf_counter()
+        back = ray_tpu_torch.get(ref)
+        t2 = time.perf_counter()
+        seg = shm_mapping_of(back.data_ptr())
+        if not (torch.equal(back.view(torch.uint8), x.view(torch.uint8)) and seg):
+            raise AssertionError(f"{x.dtype} put/get: equal {torch.equal(back, x)}, mapping {seg}")
+        rates.append((x.dtype, nbytes / (t1 - t0) / 1e9, nbytes / (t2 - t1) / 1e9, seg))
+        refs.append(ref)
+        del back
+    echo = ray_tpu_torch.remote(num_gpus=1)(echo_on_the_card)
+    t0 = time.perf_counter()
+    mapped, back, _ = ray_tpu_torch.get(echo.remote(False, *refs), timeout=600)
+    round_trip = time.perf_counter() - t0
+    for x, y in zip(xs, back):
+        if not (y.device.type == "cpu" and y.dtype == x.dtype
+                and torch.equal(y.view(torch.uint8), x.view(torch.uint8)) and shm_mapping_of(y.data_ptr())):
+            raise AssertionError(f"{x.dtype} driver -> GPU task -> driver: not bit for bit or not a store view")
+    if not all(mapped):
+        raise AssertionError(f"the GPU task's arguments were not views of the store: {mapped}")
+    del back
+    t0 = time.perf_counter()
+    _, on_card, _ = ray_tpu_torch.get(echo.remote(True, refs[1]), timeout=600)
+    card_trip = time.perf_counter() - t0
+    y = on_card[0]
+    if not (y.device.type == "cuda" and y.dtype == torch.bfloat16
+            and torch.equal(y.view(torch.int16).cpu(), xs[1].view(torch.int16))):
+        raise AssertionError(f"a CUDA tensor from a GPU task arrived on {y.device}, or changed")
+    for dtype, put_gbs, get_gbs, seg in rates:
+        print(f"{str(dtype)[6:]} {RUNTIME_TENSOR_BYTES >> 20} MB [{card}]: put {put_gbs:.3f} GB/s, same-node get "
+              f"{get_gbs:.3f} GB/s (zero copy: a view of {seg})")
+    del refs, on_card
+    print(f"driver -> GPU task -> driver, both tensors ({2 * RUNTIME_TENSOR_BYTES >> 20} MB): {round_trip:.3f} s, "
+          f"bit for bit, views of the store on both sides; a bf16 CUDA tensor from a GPU task arrived on "
+          f"{y.device} in {card_trip:.3f} s, bit for bit")
+    return dict(rates=rates, round_trip_s=round_trip)
+
+
+class GPTEngineHost:
+    """Phase 23 (d)-(e): the GPT-124M paged engine in a ``num_gpus=1`` actor,
+    after the reference's RLHF ``RolloutWorker`` (``rlhf/rollout.py:41-75``):
+    the engines are built in ``__init__`` from a seed (plain, and at spec_k=4
+    over the same weights, as phase 19), each ``run_loop`` runs in a thread,
+    and work is submitted and gathered through ``.remote()`` calls."""
+
+    def __init__(self, seed: int):
+        import os
+        import sys
+        import threading
+
+        self.torch_at_start = "torch" in sys.modules
+        import torch
+
+        from ray_tpu_torch.llm import LLMEngine
+
+        self.cuda_at_start = torch.cuda.is_initialized()
+        self.pid = os.getpid()
+        params = gpt_init(GPT_124M, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+        self.engines = {0: LLMEngine(GPT_124M, params, GPT_ENGINE),
+                        4: LLMEngine(GPT_124M, params, dataclasses.replace(GPT_ENGINE, spec_k=4))}
+        self.loops, self.pending = {}, {}
+        for k, eng in self.engines.items():
+            eng.warmup()
+            stop = threading.Event()
+            loop = threading.Thread(target=eng.run_loop, args=(stop,), daemon=True)
+            loop.start()
+            self.loops[k] = (stop, loop)
+
+    def info(self) -> dict:
+        return dict(pid=self.pid, torch_at_start=self.torch_at_start, cuda_at_start=self.cuda_at_start,
+                    device=torch.cuda.get_device_name(0))
+
+    def submit(self, k: int, prompt: list, sp) -> int:
+        """Queue one request on engine ``k``; returns its id. The actor's
+        clock starts before the engine's submit, whose wait for the engine
+        lock is the engine's time, not the runtime's."""
+        t0 = time.perf_counter()
+        req = self.engines[k].submit(prompt, sp)
+        self.pending[req.id] = (k, req, t0)
+        return req.id
+
+    def first_token(self, rid: int) -> None:
+        """Wait until the request has its first token (consumes nothing)."""
+        req = self.pending[rid][1]
+        deadline = time.monotonic() + 600
+        while req.first_token_t is None and not req.finished:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"request {rid} has no first token")
+            time.sleep(0.001)
+
+    def gather(self, rid: int) -> dict:
+        """Stream the request to its end; its tokens and the engine's own
+        timestamps, and the actor's time from its submit to its end."""
+        k, req, t0 = self.pending.pop(rid)
+        streamed = list(self.engines[k].stream_tokens(req, timeout=600))
+        return dict(out=list(req.out), streamed=streamed, finish_reason=req.finish_reason,
+                    finite=bool(np.isfinite(req.out_logprobs).all()), ttft_s=req.first_token_t - req.arrival_t,
+                    actor_s=time.perf_counter() - t0, weights_version=req.weights_version)
+
+    def reset_counts(self) -> None:
+        paged_attention_cuda.launches = 0
+        paged_verify_attention_cuda.launches = 0
+        for eng in self.engines.values():
+            eng.runner.launches = dict.fromkeys(eng.runner.launches, 0)
+
+    def counts(self, k: int) -> dict:
+        eng = self.engines[k]
+        return dict(k1=paged_attention_cuda.launches, k2=paged_verify_attention_cuda.launches,
+                    decode=eng.runner.launches["decode"], verify=eng.runner.launches.get("verify", 0),
+                    stats=eng.stats(), audits=(eng.pool.audit()["ok"], eng.prefix_cache.audit()["ok"]))
+
+    def drop(self, k: int) -> None:
+        stop, loop = self.loops.pop(k)
+        stop.set()
+        loop.join(timeout=60)
+        del self.engines[k]
+        torch.cuda.empty_cache()
+
+    def push(self, refs: list) -> dict:
+        """(e): the new weights from the object plane (zero copy), to the
+        card, then ``update_weights`` between two steps."""
+        t0 = time.perf_counter()
+        host = ray_tpu_torch.get(refs[0])
+        t1 = time.perf_counter()
+        # values under pickle's out-of-band cut (4 KB: the layernorm vectors)
+        # ride in the pickle stream; every larger one must be a store view
+        big = [p for p in host.parameters() if p.numel() * p.element_size() >= 4096]
+        mapped = [shm_mapping_of(p.data_ptr()) for p in big]
+        mapped_bytes = sum(p.numel() * p.element_size() for p, m in zip(big, mapped) if m)
+        new = host.to("cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        version = self.engines[0].update_weights(new)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        del host
+        return dict(get_s=t1 - t0, h2d_s=t2 - t1, update_s=t3 - t2, version=version,
+                    zero_copy=all(mapped), mapped_bytes=mapped_bytes, segments=sorted({m for m in mapped if m}),
+                    values=sum(p.numel() for p in new.parameters()))
+
+
+def through_actor(actor, k: int, first, rest, first_to_end: bool = False) -> tuple[dict, float, list]:
+    """``serve_threads`` through the actor: ``first`` is submitted alone and
+    its first token (with ``first_to_end``, all of it) awaited, then every
+    request of ``rest`` (a list, or a function of the first's tokens) is
+    submitted and gathered from its own client thread. Returns ({index:
+    (prompt, sp, request view, streamed)}, wall seconds, per-request runtime
+    ms: the driver's time from submit to gathered minus the actor's own)."""
+    results, added, errors = {}, [], []
+
+    def gather(idx, prompt, sp, rid, t0):
+        try:
+            r = ray_tpu_torch.get(actor.gather.remote(rid), timeout=900)
+            added.append((time.perf_counter() - t0 - r["actor_s"]) * 1e3)
+            view = SimpleNamespace(out=r["out"], finish_reason=r["finish_reason"], first_token_t=r["ttft_s"],
+                                   arrival_t=0.0, finite=r["finite"], weights_version=r["weights_version"])
+            results[idx] = (prompt, sp, view, r["streamed"])
+        except BaseException as e:  # surfaced below
+            errors.append(e)
+
+    def client(idx, prompt, sp):
+        try:
+            t0 = time.perf_counter()
+            rid = ray_tpu_torch.get(actor.submit.remote(k, prompt, sp), timeout=300)
+        except BaseException as e:
+            errors.append(e)
+            return
+        gather(idx, prompt, sp, rid, t0)
+
+    t_start = time.perf_counter()
+    rid0 = ray_tpu_torch.get(actor.submit.remote(k, *first), timeout=300)
+    threads = []
+    if first_to_end:
+        gather(0, *first, rid0, t_start)
+        if errors:
+            raise errors[0]
+        items = rest(results[0][2].out)
+    else:
+        ray_tpu_torch.get(actor.first_token.remote(rid0), timeout=900)
+        items = rest
+        threads.append(threading.Thread(target=gather, args=(0, *first, rid0, t_start)))
+    threads += [threading.Thread(target=client, args=(idx, *item)) for idx, item in enumerate(items, start=1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t_start
+    if errors:
+        raise errors[0]
+    if len(results) != 1 + len(items):
+        raise AssertionError(f"through the actor: {len(results)} of {1 + len(items)} requests returned")
+    return results, wall, added
+
+
+def check_actor_served(results: dict, counts: dict, cfg, label: str) -> None:
+    V = cfg.vocab_size
+    for idx, (prompt, sp, req, streamed) in sorted(results.items()):
+        if req.finish_reason != "length" or len(req.out) != sp.max_tokens or streamed != req.out:
+            raise AssertionError(f"{label}: request {idx} ended {req.finish_reason} with {len(req.out)} tokens")
+        if not all(0 <= t < V for t in req.out) or not req.finite:
+            raise AssertionError(f"{label}: request {idx} has out-of-range tokens or non-finite logprobs")
+    if not all(counts["audits"]):
+        raise AssertionError(f"{label}: audit failed in the actor {counts['audits']}")
+    if counts["decode"] < 1 or counts["k1"] != cfg.n_layers * counts["decode"]:
+        raise AssertionError(f"{label}: K1 launched {counts['k1']} times over {counts['decode']} decode steps")
+    if counts["k2"] != cfg.n_layers * counts["verify"]:
+        raise AssertionError(f"{label}: K2 launched {counts['k2']} times over {counts['verify']} verify steps")
+
+
+def engine_in_an_actor(card: str, in_process: dict) -> dict:
+    """Phase 23 (d) and (e)."""
+    cfg = GPT_124M
+    apps_before = compute_apps()
+    host_cls = ray_tpu_torch.remote(num_gpus=1, max_concurrency=16)(GPTEngineHost)
+    t0 = time.perf_counter()
+    actor = host_cls.remote(0)
+    info = ray_tpu_torch.get(actor.info.remote(), timeout=900)
+    print(f"(d) GPT-124M engines (plain and spec_k=4, seed 0) up in actor pid {info['pid']} on {info['device']} "
+          f"in {time.perf_counter() - t0:.1f} s (torch loaded at start {info['torch_at_start']}, CUDA "
+          f"initialised {info['cuda_at_start']}: an idle worker of (b) is adopted when there is one)")
+    apps_alive = compute_apps()
+    params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    launches = dict(k1=0, k2=0)
+    out = {}
+    # phase 19's traffic, started as serve_threads starts it there
+    for k, label, (first, rest), first_to_end in (
+        (0, "GPT-124M serve through the actor", mix_traffic(cfg.vocab_size, 960), False),
+        (4, "GPT-124M spec serve through the actor", spec_traffic(cfg.vocab_size), True),
+    ):
+        ray_tpu_torch.get(actor.reset_counts.remote(), timeout=60)
+        base = ray_tpu_torch.get(actor.counts.remote(k), timeout=60)["stats"]
+        results, wall, added = through_actor(actor, k, first, rest, first_to_end)
+        counts = ray_tpu_torch.get(actor.counts.remote(k), timeout=60)
+        check_actor_served(results, counts, cfg, label)
+        if k and counts["verify"] < 1:
+            raise AssertionError(f"{label}: no verify step")
+        check_greedy(cfg, params, results, label, gpt_forward_plain)
+        n_tok = counts["stats"]["tokens_generated"] - base["tokens_generated"]
+        added.sort()
+        tps, ttft = in_process["spec" if k else "plain"]
+        print(
+            f"{label} [{card}]: {len(results)} requests, {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.2f} "
+            f"tokens/s (in process, phase 19: {tps:.2f}); TTFT min/median/max {ttft_ms(results)} (phase 19: "
+            f"{ttft}); the runtime's added time per request min/median/max {added[0]:.2f}/"
+            f"{added[len(added) // 2]:.2f}/{added[-1]:.2f} ms; K1 launches {counts['k1']} = {cfg.n_layers} x "
+            f"{counts['decode']}, K2 launches {counts['k2']} = {cfg.n_layers} x {counts['verify']} (read from "
+            f"the actor)"
+        )
+        launches["k1"] += counts["k1"]
+        launches["k2"] += counts["k2"]
+        out[k] = dict(tokens_per_s=n_tok / wall, added_ms=added[len(added) // 2])
+    # a no-op actor call and a no-op task: the runtime's floor per call
+    noop = ray_tpu_torch.remote(num_cpus=0)(lambda: None)
+    ray_tpu_torch.get(noop.remote(), timeout=60)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        ray_tpu_torch.get(actor.reset_counts.remote(), timeout=60)
+    call_ms = (time.perf_counter() - t0) / 200 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(200):
+        ray_tpu_torch.get(noop.remote(), timeout=60)
+    task_ms = (time.perf_counter() - t0) / 200 * 1e3
+    print(f"round trips [{card}]: actor call {call_ms:.3f} ms, task {task_ms:.3f} ms (200 each, host clock)")
+
+    # (e) the weight push
+    ray_tpu_torch.get(actor.drop.remote(4), timeout=120)
+    new = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    host = copy.deepcopy(new).cpu()
+    push_bytes = sum(p.numel() * p.element_size() for p in host.parameters())
+    t0 = time.perf_counter()
+    ref = ray_tpu_torch.put(host)
+    t1 = time.perf_counter()
+    pushed = ray_tpu_torch.get(actor.push.remote([ref]), timeout=900)
+    t2 = time.perf_counter()
+    if not (pushed["zero_copy"] and pushed["version"] == 1 and pushed["values"] == PUSH_VALUES):
+        raise AssertionError(f"(e) weight push: {pushed}")
+    ray_tpu_torch.get(actor.reset_counts.remote(), timeout=60)
+    rng = np.random.RandomState(9)
+    late = [([int(t) for t in rng.randint(0, cfg.vocab_size, n)], SamplingParams(max_tokens=48))
+            for n in (300, 32, 100, 60)]
+    results, _, _ = through_actor(actor, 0, late[0], late[1:])
+    counts = ray_tpu_torch.get(actor.counts.remote(0), timeout=60)
+    check_actor_served(results, counts, cfg, "after the push")
+    if {r[2].weights_version for r in results.values()} != {1}:
+        raise AssertionError("after the push: a request ran under another weights version")
+    check_greedy(cfg, new, results, "GPT-124M through the actor after the push (seed 1's weights)",
+                 gpt_forward_plain)
+    launches["k1"] += counts["k1"]
+    print(
+        f"(e) weight push [{card}]: {pushed['values'] / 1e6:.1f}M fp32 values, {push_bytes / 1e6:.1f} MB; put "
+        f"{(t1 - t0) * 1e3:.1f} ms ({push_bytes / (t1 - t0) / 1e9:.3f} GB/s); the actor's get "
+        f"{pushed['get_s'] * 1e3:.1f} ms (zero copy: {pushed['mapped_bytes']} of {push_bytes} bytes are views "
+        f"of {pushed['segments']}, the rest vectors under 4 KB in the pickle stream) + "
+        f"host-to-device {pushed['h2d_s'] * 1e3:.1f} ms ({push_bytes / pushed['h2d_s'] / 1e9:.3f} GB/s); "
+        f"update_weights {pushed['update_s'] * 1e3:.3f} ms; the whole push {(t2 - t0) * 1e3:.1f} ms; version "
+        f"{pushed['version']}; K1 launches after it {counts['k1']} = {cfg.n_layers} x {counts['decode']}"
+    )
+    del ref, host, new, params
+    return dict(launches=launches, actor_pid=info["pid"], apps=(apps_before, apps_alive), serve=out,
+                push_s=t2 - t0)
+
+
+def clean_shutdown(before: dict, pids: set, actor_pid: int, apps: tuple) -> None:
+    """Phase 23 (f): after ``shutdown()`` no worker (the actor's included)
+    nor the template survives, no /dev/shm segment of the store remains,
+    and the card's compute apps are back to the driver's."""
+    apps_before, apps_alive = apps
+    t0 = time.perf_counter()
+    ray_tpu_torch.shutdown()
+    shutdown_s = time.perf_counter() - t0
+    deadline = time.monotonic() + 30
+    while any(process_alive(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    alive = sorted(p for p in pids if process_alive(p))
+    if alive:
+        raise AssertionError(f"after shutdown these runtime processes live on: {alive}")
+    left = shm_entries() - before["shm"]
+    if left:
+        raise AssertionError(f"after shutdown /dev/shm still holds {sorted(left)}")
+    while len(compute_apps()) > len(before["apps"]) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    apps_after = compute_apps()
+    listed = [ln for ln in apps_after if ln.split(",")[0].strip() == str(actor_pid)]
+    if listed or len(apps_after) > len(before["apps"]):
+        raise AssertionError(f"after shutdown nvidia-smi still lists the card's compute apps {apps_after} "
+                             f"(before the runtime: {before['apps']})")
+    seen = any(ln.split(",")[0].strip() == str(actor_pid) for ln in apps_alive)
+    print(f"(f) shutdown in {shutdown_s:.3f} s: {len(pids)} runtime processes gone (the actor {actor_pid}, the "
+          f"GPU task workers and the template), no rta-/psm_ segment left in /dev/shm, nvidia-smi compute apps "
+          f"{len(apps_before)} -> {len(apps_alive)} with the actor -> {len(apps_after)} (the actor's pid "
+          f"{'listed while it lived' if seen else 'not visible to nvidia-smi in this container'})")
+
+
+def runtime_on_card(card: str, in_process: dict) -> dict:
+    """Phase 23: the runtime on the card, (a)-(f)."""
+    print("(a) resources")
+    before = runtime_resources(card)
+    try:
+        print("(b) K1 in a GPU task")
+        tasks = kernel_in_gpu_tasks(card)
+        print("(c) tensors through the object plane")
+        tensors_through_the_plane(card)
+        served = engine_in_an_actor(card, in_process)
+    except BaseException:
+        ray_tpu_torch.shutdown()
+        raise
+    print("(f) shutdown")
+    clean_shutdown(before, tasks["pids"] | {tasks["template"], served["actor_pid"]}, served["actor_pid"],
+                   served["apps"])
+    return served["launches"]
+
+
 def flash_bound(nbytes: int, ops: float) -> tuple[float, str]:
     """(least ms, "bytes" or "operations") for bf16 work on the card."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2445,6 +3016,11 @@ def main() -> int:
 
     phase("22 GPT-124M production engine")
     production = production_engine(card, swap_bytes)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("23 the runtime on the card")
+    runtime = runtime_on_card(card, gpt_served["in_process"])
 
     kernels = [
         dict(
@@ -2452,7 +3028,8 @@ def main() -> int:
             route="cuda",
             source="ray_tpu_torch/ops/csrc/paged_attention.cu",
             replaces="ray_tpu/ops/paged_attention.py:203",
-            launches=served["launches"] + gpt_served["k1"] + swapped["launches"] + production["k1"],
+            launches=(served["launches"] + gpt_served["k1"] + swapped["launches"] + production["k1"]
+                      + runtime["k1"]),
             max_abs_err=err,
             ms=timing["ms"],
             plain_ms=timing["plain_ms"],
@@ -2462,7 +3039,7 @@ def main() -> int:
             head_dims=list(DECODE_HEAD_DIMS),
             launches_by_path={"gptj_6b_serve": served["launches"], "gpt_124m_serve": gpt_served["k1"],
                               "gpt_124m_hot_swap": swapped["launches"],
-                              "gpt_124m_production": production["k1"]},
+                              "gpt_124m_production": production["k1"], "gpt_124m_actor": runtime["k1"]},
             at_head_dim_64=dict(timing64, bound_by="bytes"),
         ),
         dict(
@@ -2470,9 +3047,9 @@ def main() -> int:
             route="cuda",
             source="ray_tpu_torch/ops/csrc/paged_verify_attention.cu",
             replaces="ray_tpu/ops/paged_attention.py:304",
-            launches=spec["launches"] + gpt_served["k2"] + production["k2"],
+            launches=spec["launches"] + gpt_served["k2"] + production["k2"] + runtime["k2"],
             launches_by_path={"gptj_6b_spec_serve": spec["launches"], "gpt_124m_spec_serve": gpt_served["k2"],
-                              "gpt_124m_production": production["k2"]},
+                              "gpt_124m_production": production["k2"], "gpt_124m_actor": runtime["k2"]},
             max_abs_err=err2,
             ms=timing2["ms"],
             plain_ms=timing2["plain_ms"],

@@ -5,45 +5,102 @@ nothing from it and nothing of JAX. Module paths mirror the reference so
 each port sits next to its counterpart by name
 (``ray_tpu_torch/llm/engine.py`` ↔ ``ray_tpu/llm/engine.py``).
 
-Ported so far: the paged-KV LLM serving path for GPT and GPT-J — the models
-(``models.gpt``, ``models.gptj``) with their dense decoders, sampling
-(``models.sampling``), paged decode/verify/prefill attention with
-hand-written Hopper kernels for decode and speculative verification
-(``ops.paged_attention``), and the engine with its drafters, weight
-hot-swap, watchdog, deadline-aware shedding and HBM ledger (``llm``) and
-its process-local observability (``util.metrics``, ``util.tracing``,
-``util.phases``, ``_private.events``); and GPT training on one device — the model (``models.gpt``),
-causal attention with hand-written flash forward and backward kernels
-(``ops.attention``, ``ops.flash_attention``), the fused cross-entropy
-(``ops.fused_ce``) and the AdamW train step (``parallel``). ROADMAP.md lists
-what is still to port.
+Ported so far:
 
-Entry points run on the CUDA device unless the caller passes
+- the runtime core — ``init, remote, get, put, wait, kill, cancel,
+  get_actor, method, nodes, cluster_resources, available_resources,
+  shutdown`` over the head, forked workers, the shared-memory object plane
+  with its native arena (``_private``, ``_native``), actors, remote
+  functions, placement groups and scheduling strategies, ``cluster_utils``,
+  ``dag`` and ``experimental.channel``; ``torch.Tensor`` values travel
+  out-of-band through the object plane (``_private.serialization``) and
+  the card is a ``GPU`` resource (``accelerators.gpu``);
+- the paged-KV LLM serving path for GPT and GPT-J — the models
+  (``models.gpt``, ``models.gptj``) with their dense decoders, sampling
+  (``models.sampling``), paged decode/verify/prefill attention with
+  hand-written Hopper kernels for decode and speculative verification
+  (``ops.paged_attention``), and the engine with its drafters, weight
+  hot-swap, watchdog, deadline-aware shedding and HBM ledger (``llm``);
+- observability: ``util.metrics``, ``util.tracing``, ``util.phases``,
+  ``util.waterfall``, ``util.slo``, ``util.state`` and ``_private.events``,
+  their cluster halves included;
+- GPT training on one device — the model (``models.gpt``), causal attention
+  with hand-written flash forward and backward kernels (``ops.attention``,
+  ``ops.flash_attention``), the fused cross-entropy (``ops.fused_ce``) and
+  the AdamW train step (``parallel``).
+
+ROADMAP.md lists what is still to port.
+
+The runtime API loads eagerly and imports no torch, so a bare runtime
+worker (and the forkserver template every worker is forked from) never
+imports torch or initialises CUDA; the heavy subpackages (``llm``,
+``models``, ``ops``, ``parallel``) and the names they export here load on
+first use. Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; a missing GPU raises instead of falling back.
 """
 
+from ray_tpu_torch._private.api import (  # noqa: F401
+    available_resources,
+    cancel,
+    cluster_resources,
+    get,
+    get_runtime_context,
+    init,
+    is_initialized,
+    kill,
+    nodes,
+    put,
+    remote,
+    shutdown,
+    timeline,
+    wait,
+)
+from ray_tpu_torch._private.runtime import ObjectRef, ObjectRefGenerator  # noqa: F401
+from ray_tpu_torch.actor import get_actor, method  # noqa: F401
+from ray_tpu_torch import exceptions  # noqa: F401
 from ray_tpu_torch.exceptions import OverloadedError  # noqa: F401
-from ray_tpu_torch.llm import (  # noqa: F401
-    LOCK_ORDER,
-    CacheConfig,
-    EngineConfig,
-    EngineStalledError,
-    EngineWatchdog,
-    KVBlockPool,
-    LLMEngine,
-    NGramDrafter,
-    SamplingParams,
-    SmallModelDrafter,
-    make_drafter,
-)
-from ray_tpu_torch.models.gptj import (  # noqa: F401
-    GPTJ_6B,
-    GPTJConfig,
-    gptj_decode,
-    gptj_forward,
-    gptj_init,
-    params_from_jax,
-)
-from ray_tpu_torch.models.gpt import GPTConfig, gpt_decode, gpt_init, gpt_loss  # noqa: F401
-from ray_tpu_torch.models.sampling import sample_tokens  # noqa: F401
-from ray_tpu_torch.parallel import adamw, build_train_step  # noqa: F401
+
+__version__ = "0.1.0"
+
+_LAZY_SUBMODULES = {
+    "llm", "models", "ops", "parallel", "util", "accelerators",
+    "cluster_utils", "dag", "experimental",
+}
+
+#: names exported from the heavy subpackages, loaded on first access
+_LAZY_NAMES = {
+    **dict.fromkeys(
+        ("LOCK_ORDER", "CacheConfig", "EngineConfig", "EngineStalledError",
+         "EngineWatchdog", "KVBlockPool", "LLMEngine", "NGramDrafter",
+         "SamplingParams", "SmallModelDrafter", "make_drafter"),
+        "ray_tpu_torch.llm",
+    ),
+    **dict.fromkeys(
+        ("GPTJ_6B", "GPTJConfig", "gptj_decode", "gptj_forward", "gptj_init",
+         "params_from_jax"),
+        "ray_tpu_torch.models.gptj",
+    ),
+    **dict.fromkeys(
+        ("GPTConfig", "gpt_decode", "gpt_init", "gpt_loss"), "ray_tpu_torch.models.gpt"
+    ),
+    "sample_tokens": "ray_tpu_torch.models.sampling",
+    **dict.fromkeys(("adamw", "build_train_step"), "ray_tpu_torch.parallel"),
+}
+
+
+def __getattr__(name):
+    import importlib
+
+    if name in _LAZY_SUBMODULES:
+        mod = importlib.import_module(f"ray_tpu_torch.{name}")
+        globals()[name] = mod
+        return mod
+    if name in _LAZY_NAMES:
+        value = getattr(importlib.import_module(_LAZY_NAMES[name]), name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | _LAZY_SUBMODULES | set(_LAZY_NAMES))

@@ -1,41 +1,51 @@
 """Flight recorder: an always-on, bounded ring of structured events (copy
-of ``ray_tpu/_private/events.py``, the process-local part).
+of ``ray_tpu/_private/events.py``).
 
-Hot-path architecture:
+Reference shape: the GCS task-event stream + Ray's debug-state dumps — but
+process-local and always armed, so a postmortem of a killed replica or a
+preemption storm needs no re-run.
 
-* **Per-thread SPSC rings.** Every emitting thread owns a private bounded
-  ring (``_Ring``: one ``deque`` + counters). ``record()`` is a
+Hot-path architecture (OBSERVABILITY.md "hot-path
+architecture & overhead budget"):
+
+* **Per-thread SPSC rings.** Every emitting thread owns a private
+  bounded ring (``_Ring``: one ``deque`` + counters). ``record()`` is
   thread-local append only — no shared lock, no cross-thread mutation,
-  ever. The ring's ``dropped`` counter has exactly ONE writer (the owning
-  thread), so overflow accounting is exact, not advisory.
-* **Background collector.** A daemon thread (``events-collector``) folds
-  rings whose owner thread has exited into a bounded ``_retired`` deque
-  (memory stays bounded by live threads + one capacity's worth of history
-  from dead ones) and publishes the aggregate drop count as the
+  ever. The ring's ``dropped`` counter has exactly ONE writer (the
+  owning thread), so overflow accounting is exact, not advisory.
+* **Background collector.** A daemon thread (``events-collector``)
+  folds rings whose owner thread has exited into a bounded ``_retired``
+  deque (memory stays bounded by live threads + one capacity's worth of
+  history from dead ones) and publishes the aggregate drop count as the
   ``events_dropped`` metric — created lazily, off the emit path.
-* **Merge order.** Every event carries a process-global monotonic ``seq``
-  (``itertools.count`` — a single atomic C call, not a lock), so
+* **Merge order.** Every event carries a process-global monotonic
+  ``seq`` (``itertools.count`` — a single atomic C call, not a lock), so
   ``snapshot()`` merges the per-thread rings back into the exact global
-  emission order.
-* **Signal safety.** ``snapshot()``/``flush()`` take no locks at all: the
-  SIGTERM crash handler runs them from a signal frame that may have
+  emission order and ``rpc_collect_events`` / crash-flush consumers see
+  the same stream the one-ring design produced.
+* **Signal safety.** ``snapshot()``/``flush()`` take no locks at all:
+  the SIGTERM crash handler runs them from a signal frame that may have
   interrupted ``record()`` mid-append on the same thread, where any
-  non-reentrant lock would deadlock the dying process. Ring creation is a
-  plain dict store (atomic under the GIL) for the same reason.
+  non-reentrant lock would deadlock the dying process. Ring creation is
+  a plain dict store (atomic under the GIL) for the same reason.
 
-Consumers: ``snapshot()`` (this process's events, e.g. one request's life
-through the serving engine), the crash flush — ``install_crash_handlers``
-arms ``sys.excepthook`` / ``threading.excepthook`` / ``SIGTERM`` to dump
-the rings as JSONL into ``RAY_TPU_EVENTS_DIR`` before the process dies —
-and ``util.tracing.request_lanes``, which renders events carrying a
-``request_id`` as one lane per request. The cluster-wide drain
-(``collect_cluster_events``) waits for the runtime's port (ROADMAP.md,
-queue A).
+Three consumers:
 
-Knobs (environment, read at import; the reference's names, so a setting
-means the same in both packages):
+* **Live drain** — :func:`collect_cluster_events` gathers every live
+  worker's rings through the head (same broadcast/mailbox machinery as
+  the worker stack dumps), so ``python -m ray_tpu_torch.obs events`` / ``obs
+  req <id>`` can reconstruct a request's life across processes.
+* **Crash flush** — :func:`install_crash_handlers` arms ``sys.excepthook``
+  / ``threading.excepthook`` / ``SIGTERM`` to dump the rings as JSONL into
+  ``RAY_TPU_EVENTS_DIR`` before the process dies.  Workers are killed by
+  SIGTERM (proc_handles), so a replica shot mid-stream still leaves its
+  last ``capacity`` events per thread on disk.
+* **Chrome trace** — ``util.tracing.export_chrome_trace`` renders events
+  carrying a ``request_id`` as one per-request lane.
 
-* ``RAY_TPU_EVENTS`` — ``0`` disables recording entirely.
+Knobs (environment, read at import):
+
+* ``RAY_TPU_EVENTS`` — ``0`` disables recording entirely (bench A/B).
 * ``RAY_TPU_EVENTS_CAPACITY`` — ring size per thread (default 8192).
 * ``RAY_TPU_EVENTS_DIR`` — crash-flush directory (default
   ``<tempdir>/ray_tpu_events``).
@@ -53,14 +63,25 @@ import time
 from collections import deque
 from typing import Any, Optional
 
-# the one metric this module exports: total events evicted by ring
-# overflow, across all per-thread rings
+# the one metric this module exports (raylint RL012 registry): total
+# events evicted by ring overflow, across all per-thread rings
 METRIC_NAMES = ("events_dropped",)
 
-# The zero-lock hot path: ``_rings`` (id(ring) -> ring) is registered by a
-# plain dict store from the owning thread (atomic under the GIL) and popped
-# by the collector; ``_retired`` is rebuilt by the collector as ONE deque
-# swap (publish before unregistering). No shared lock on first emit.
+#: raylint RL017 registry — the zero-lock hot path, DECLARED so the
+#: cross-thread-race analysis verifies the design instead of flagging it
+#: (':atomic' = every write is one GIL-atomic operation):
+#:
+#: - _rings: id(ring) -> ring; registration is a plain dict store from the
+#:   owning thread (atomic under the GIL — the module doc's signal-safety
+#:   argument), the collector pops dead entries; snapshot() reads an
+#:   atomic list() copy. The whole point of the rebuild is NO shared lock
+#:   on first emit.
+#: - _retired: rebuilt by the collector as ONE deque swap (publish-before-
+#:   unregister); clear() is a tests/tools reset.
+LOCKFREE = (
+    "_rings: atomic",
+    "_retired: atomic",
+)
 
 
 def _env_enabled() -> bool:
@@ -102,11 +123,28 @@ _retired: deque = deque(maxlen=_capacity)
 _retired_dropped = 0
 _seq = itertools.count()  # per-process monotonic id: stable merge order
 _installed = False
+_node: Optional[str] = None  # this process's node id (workers set it at boot)
 _collector_started = False
 _collector_gate = itertools.count()  # lock-free single-start gate
 _drop_metric = None  # lazy metrics.Counter, created by the collector only
 _drop_published = 0  # drops already forwarded to the metric (collector-owned)
 _COLLECT_INTERVAL_S = 1.0
+
+
+def set_node(node: Optional[str]) -> None:
+    """Tag this process's events with its node id at the SOURCE (workers
+    call this at boot). The live drain infers origin from the reply route,
+    but crash-flush files and OTLP resources need it carried in-band."""
+    global _node
+    _node = node
+
+
+def get_node() -> Optional[str]:
+    return _node
+
+
+def enabled() -> bool:
+    return _enabled
 
 
 def set_enabled(flag: bool) -> None:
@@ -154,7 +192,22 @@ def _new_ring() -> _Ring:
     return ring
 
 
-_current_request_id = None  # lazily bound tracing.current_request_id (emit)
+_current_request_id = None  # lazily bound tracing.current_request_id
+
+
+def active_request_id() -> Optional[str]:
+    """The tracing request id bound to this thread, or ``None``. The cheap
+    gate for per-read emits: ``core.object.map``/``unmap`` ride every
+    zero-copy get, so they fire only inside a traced request (mint-time
+    sampling alignment — the same deal spans get). An untraced bulk loop
+    pays one thread-local read here instead of a ring append per read."""
+    global _current_request_id
+    rid_fn = _current_request_id
+    if rid_fn is None:
+        from ray_tpu_torch.util.tracing import current_request_id as rid_fn
+
+        _current_request_id = rid_fn
+    return rid_fn()
 
 
 def emit(
@@ -166,17 +219,18 @@ def emit(
     **fields: Any,
 ) -> None:
     """Object-plane emit: :func:`record` plus the ``core.object.*`` field
-    conventions. ``obj_id``/``node`` accept binary ids and land
-    hex-encoded as ``oid``/``node`` in ``snapshot()``. When no
-    ``request_id`` is passed the active one is read from the tracing
-    thread-local, so a request's data-plane hops line up with its other
-    events.
+    conventions. ``obj_id``/``node`` accept the binary ids the
+    runtime carries and land hex-encoded as ``oid``/``node`` (an explicit
+    ``node`` field overrides this process's node in ``snapshot()`` — owner
+    provenance, not emitter provenance). When no ``request_id`` is passed
+    the active one is read from the tracing thread-local, so a request's
+    data-plane hops line up under ``obs req <id>`` next to its waterfall.
 
     Hot path: same zero-lock budget as ``record``, and cheaper — the
     raw (obj_id, size, node, extras) tuple goes into the ring as-is and
     the hex encodes + field-dict build are deferred to :func:`snapshot`,
-    so the emitting thread pays only the append (cost is paid when a
-    consumer drains, not on the path)."""
+    so the emitting thread pays only the append (the rule: cost is
+    paid when a consumer drains, not on the path)."""
     if not _enabled:
         return
     if request_id is None:
@@ -234,10 +288,13 @@ def snapshot(request_id: Optional[str] = None) -> list[dict]:
     dying worker instead of flushing it."""
     pid = os.getpid()
     out = []
+    node = _node
     for seq, ts, etype, rid, fields in _iter_raw():
         if request_id is not None and rid != request_id:
             continue
         ev = {"seq": seq, "ts": ts, "type": etype, "pid": pid}
+        if node is not None:
+            ev["node"] = node
         if rid is not None:
             ev["request_id"] = rid
         if type(fields) is tuple:
@@ -316,8 +373,9 @@ def clear() -> None:
 
 def _ensure_collector() -> None:
     # lock-free single-start: record() reaches here on a thread's FIRST
-    # emit, and the no-shared-lock hot-path contract forbids a lock even on
-    # this slow path — the count gate hands exactly one caller the start
+    # emit, and the no-shared-lock hot-path contract (tests/test_raylint
+    # hot-path check) forbids a lock even on this slow path — the count
+    # gate hands exactly one caller the start
     global _collector_started
     if _collector_started or next(_collector_gate) != 0:
         return
@@ -357,7 +415,7 @@ def _collect_once() -> None:
         # collector-owned counter (single writer); clear() is a tests/tools
         # reset documented to race only advisory state — the next pass
         # re-derives totals from the rings
-        _retired_dropped += len(items) - len(keep) + sum(
+        _retired_dropped += len(items) - len(keep) + sum(  # raylint: disable=RL017
             ring.dropped for _rid, ring in dead
         )
         _retired = deque(keep, maxlen=_capacity)
@@ -389,10 +447,15 @@ def _collector_loop() -> None:
         time.sleep(_COLLECT_INTERVAL_S)
         try:
             _collect_once()
-        except Exception:
+        except Exception:  # raylint: disable=RL007
             # the collector must never take the process down, and the
             # only shared state it touches is advisory
             pass
+
+
+def collector_pass_for_tests() -> None:
+    """Run one synchronous collector pass (deterministic tests)."""
+    _collect_once()
 
 
 # ---------------------------------------------------------------------------
@@ -454,6 +517,7 @@ def flush(path: Optional[str] = None, reason: str = "manual") -> Optional[str]:
             header = {
                 "_flight_recorder": 1,
                 "pid": os.getpid(),
+                "node": _node,
                 "reason": reason,
                 "time": time.time(),
                 **stats(),
@@ -521,3 +585,47 @@ def install_crash_handlers() -> None:
             signal.signal(signal.SIGTERM, _on_term)
         except (ValueError, OSError):
             pass  # non-main interpreter / restricted env: hooks still armed
+
+
+# ---------------------------------------------------------------------------
+# cluster drain (head broadcast — same mailbox as worker stack dumps)
+# ---------------------------------------------------------------------------
+
+
+def collect_cluster_events(
+    request_id: Optional[str] = None, timeout: float = 5.0
+) -> list[dict]:
+    """This process's rings + every live worker's, via the head broadcast
+    (``rpc_collect_events``). Events gain a ``node``/``pid`` origin; order
+    is (ts, seq) across processes. Best-effort: an unreachable cluster
+    returns local events only."""
+    out = list(snapshot(request_id))
+    try:
+        from ray_tpu_torch._private.runtime import get_ctx
+
+        ctx = get_ctx()
+        remote = ctx.call("collect_events", timeout=timeout)
+    except Exception:
+        remote = None
+    if remote:
+        # the caller's own rings come back through the drain too (as a
+        # worker reply, or as the head's "head" entry for an in-process
+        # driver) — de-dup by event identity, not by pid: a bare pid
+        # check would silently drop a REMOTE node's worker that happens
+        # to share the caller's pid
+        seen = {(e["pid"], e["seq"], e["ts"]) for e in out}
+        for node, per_pid in remote.items():
+            for pid, evs in per_pid.items():
+                if pid == "_errors" or not isinstance(evs, list):
+                    continue
+                for ev in evs:
+                    if request_id is not None and ev.get("request_id") != request_id:
+                        continue
+                    key = (ev.get("pid"), ev.get("seq"), ev.get("ts"))
+                    if key in seen:
+                        continue
+                    seen.add(key)
+                    ev.setdefault("node", node)
+                    out.append(ev)
+    out.sort(key=lambda e: (e.get("ts", 0.0), e.get("seq", 0)))
+    return out

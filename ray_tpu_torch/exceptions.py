@@ -74,6 +74,13 @@ class RayActorError(RayError):
         self.actor_id = actor_id
         super().__init__(msg)
 
+    def __reduce__(self):
+        # the default reduction replays ``args`` (the message) as the first
+        # parameter, actor_id, and the message fell back to the default: the
+        # cause of death (a missing GPU, a failed __init__) must survive the
+        # trip to the caller
+        return type(self), (self.actor_id, *self.args[:1]), self.__dict__
+
 
 class ActorDiedError(RayActorError):
     pass

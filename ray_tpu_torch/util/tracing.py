@@ -1,29 +1,31 @@
-"""Request tracing: request ids, trace context, sampling and spans (copy
-of ``ray_tpu/util/tracing.py``, the process-local part).
+"""Task/actor tracing (copy of ``ray_tpu/util/tracing.py``; reference: ``python/ray/util/tracing/tracing_helper.py``
+— OpenTelemetry spans around submit/execute when RAY_TRACING_ENABLED).
 
-Application code brackets its own regions and they land in this process's
-bounded span ring:
+OpenTelemetry isn't bundled, so spans are recorded into the head's task-event
+stream instead: every task already carries PENDING/RUNNING/FINISHED
+transitions with timestamps (``head.task_events``), which ``timeline()``
+exports as a Chrome trace. This module adds the *user-defined* span surface
+on top: application code brackets its own regions and they land in the same
+timeline, nested per process/actor.
 
     from ray_tpu_torch.util import tracing
 
     with tracing.span("preprocess", batch=i):
         ...
 
-The serving engine wraps every step in an ``llm_engine_step`` span.
+``tracing.export_chrome_trace(path)`` merges runtime task events, user
+spans, and flight-recorder request events into one chrome://tracing-loadable
+JSON file — with one lane per request for everything that carries a
+``request_id``.
 
-**Trace context.** A request id is minted by ``trace_context()`` in
-application code (or, in the reference, at its serve proxy) and carried
-as a per-thread context; every ``span`` and flight-recorder event
-recorded underneath is tagged with it, and an engine request submitted
-under it takes it as its ``trace_id``. ``request_lanes`` renders this
-process's spans and events as one Chrome-trace lane per request.
-
-**Sampling.** ``RAY_TPU_TRACE_SAMPLE`` (0..1, the reference's knob) makes
-the keep/drop decision once per request id, at mint: an unsampled context
-records no spans at all, for free. ``RAY_TPU_TRACE_MAX_SPANS`` caps the
-span ring. The cluster-wide collection (``collect_cluster_spans``,
-``export_chrome_trace``) waits for the runtime's port (ROADMAP.md, queue
-A).
+**Trace context.** A request_id is minted at the serve proxy (or by
+``trace_context()`` in application code, or implicitly at ``remote()``
+submission) and carried as a per-thread context: ``remote()`` /
+actor-method submissions stamp it into the task spec, the executing worker
+re-installs it around the task body, and every ``span``/flight-recorder
+event recorded underneath is tagged with it.  One request's life across
+proxy → router → replica → engine is thereby a single correlated trace
+(``python -m ray_tpu_torch.obs req <id>``).
 """
 
 from __future__ import annotations
@@ -80,6 +82,14 @@ _drop_counter = None  # lazy metrics.Counter — created on first drop only
 
 def _now_us() -> float:
     return time.time() * 1e6
+
+
+def configure(max_spans: Optional[int] = None) -> None:
+    """Resize the span ring (tests/tuning; keeps the newest spans)."""
+    global _spans
+    if max_spans is not None:
+        with _lock:
+            _spans = deque(_spans, maxlen=max(16, int(max_spans)))
 
 
 def span_stats() -> dict:
@@ -254,6 +264,32 @@ def context_sampled(ctx) -> bool:
     return ctx.sampled
 
 
+def context_for_spec(ctx):
+    """What ``remote()``/actor submission ships in ``spec["trace_ctx"]``
+    for an active context: the dict or unsampled token itself (shipped
+    by reference — no copy; the token keeps forensics correlated and
+    pins the mint-time sampling decision downstream), or a context
+    materialized from a lazy root — as a dict when its task-rooted id
+    sampled, as a token when it didn't, so nested hops under a rootless
+    root also inherit ONE coherent decision."""
+    if type(ctx) is dict or type(ctx) is UnsampledContext:
+        return ctx
+    if type(ctx) is LazyTaskContext:
+        if ctx.sampled:
+            return {"request_id": ctx.request_id}
+        return UnsampledContext(ctx.request_id)
+    return None
+
+
+def task_context(spec_ctx, task_id: bytes):
+    """The context a worker installs around a task body: the submitter's
+    shipped context when the spec carries one, else a lazy task-rooted
+    context that costs nothing until observed."""
+    if spec_ctx is not None:
+        return spec_ctx
+    return LazyTaskContext(task_id)
+
+
 def current_request_id() -> Optional[str]:
     ctx = getattr(_local, "trace_ctx", None)
     if ctx is None:
@@ -378,6 +414,29 @@ def clear() -> None:
         _spans.clear()
 
 
+def collect_cluster_spans() -> list[dict]:
+    """Gather user spans from every live worker (a task per node would be
+    overkill; workers ship spans through a collector task)."""
+    import ray_tpu_torch
+
+    @ray_tpu_torch.remote
+    def _drain():
+        from ray_tpu_torch.util import tracing as t
+
+        out = t.get_spans()
+        t.clear()
+        return out
+
+    # best effort: one collector task (workers sharing that process drain);
+    # driver-local spans are always included
+    out = list(get_spans())
+    try:
+        out += ray_tpu_torch.get(_drain.remote(), timeout=10)
+    except Exception:
+        pass
+    return out
+
+
 def request_lanes(
     spans: list[dict], recorder_events: list[dict]
 ) -> list[dict]:
@@ -429,3 +488,32 @@ def request_lanes(
             }
         )
     return lanes
+
+
+def export_chrome_trace(path: Optional[str] = None) -> list[dict]:
+    """Runtime task events + user spans + per-request lanes as one Chrome
+    trace (reference: ``ray timeline``, ``_private/state.py:924``). Every
+    span/flight-recorder event carrying a request_id additionally lands in
+    a ``requests``-group lane keyed by its id, so one request's whole life
+    reads as a single row in chrome://tracing / Perfetto. Sampled tasks'
+    folded waterfall records (util.waterfall) render as NESTED slices —
+    a total-duration slice with the seven hop legs inside it — on a
+    ``waterfall`` process group."""
+    from ray_tpu_torch._private import events as ev
+    from ray_tpu_torch.util import state as st
+
+    spans = st.timeline() + collect_cluster_spans()
+    recorder = ev.collect_cluster_events()
+    events = spans + request_lanes(spans, recorder)
+    try:
+        from ray_tpu_torch._private.runtime import get_ctx
+        from ray_tpu_torch.util import waterfall as _wf
+
+        recent = get_ctx().call("waterfall", recent=_wf._RECENT_CAP)
+        events += _wf.chrome_slices(recent.get("recent", []))
+    except Exception:
+        pass  # head without the waterfall rpc / no folded records
+    if path:
+        with open(path, "w") as f:
+            json.dump(events, f)
+    return events

@@ -1,9 +1,13 @@
 """The port stands alone: ray_tpu_torch and the chip scripts (chip_smoke.py,
 chip_mutants.py, chip_flash_probe.py) import nothing of JAX or of the JAX package, and the port's entry points never fall back to
-the CPU when the card is missing."""
+the CPU when the card is missing. No port file names a ``ray_tpu.`` module in
+a string (the runtime spawns its workers and template by module name, which
+an import scan cannot see), and a worker under ``ray_tpu_torch.init()`` loads
+neither JAX nor the JAX package and runs the port's worker code."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -48,6 +52,10 @@ def test_importing_the_port_loads_no_jax():
         "import ray_tpu_torch.models.gpt, ray_tpu_torch.parallel\n"
         "import ray_tpu_torch.llm.watchdog, ray_tpu_torch.util.metrics, ray_tpu_torch.util.phases\n"
         "import ray_tpu_torch.util.tracing, ray_tpu_torch._private.events, ray_tpu_torch.exceptions\n"
+        "import ray_tpu_torch._private.head, ray_tpu_torch._private.worker_main, ray_tpu_torch.actor\n"
+        "import ray_tpu_torch._private.worker_template, ray_tpu_torch._private.node_agent\n"
+        "import ray_tpu_torch.cluster_utils, ray_tpu_torch.dag.compiled, ray_tpu_torch.accelerators.gpu\n"
+        "import ray_tpu_torch.experimental.channel, ray_tpu_torch.util.state, ray_tpu_torch._native\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
@@ -189,3 +197,74 @@ def test_engine_refuses_the_training_gpt():
     assert LLMEngine(cfg, params, device="cpu").max_model_len == cfg.seq_len
     with pytest.raises(NotImplementedError, match="dense GPT only"):
         LLMEngine(dataclasses.replace(cfg, n_experts=4), params, device="cpu")
+
+
+def _docstring_nodes(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                yield body[0].value
+
+
+def test_no_port_string_names_a_jax_package_module():
+    """Seam of the runtime's copy: workers and the forkserver template are
+    started by module name (``python -m <package>._private.worker_main``), a
+    string the import scan above cannot see. A string naming a ``ray_tpu.``
+    module would run the JAX package's workers under the port's head."""
+    pattern = re.compile(r"\bray_tpu\.[A-Za-z_]")
+    bad = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        docs = {id(node) for node in _docstring_nodes(tree)}
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docs and pattern.search(node.value)):
+                bad.append(f"{path.relative_to(REPO)}:{node.lineno}: {node.value[:80]!r}")
+    assert bad == []
+    # the spawn names themselves point into the port
+    head = (REPO / "ray_tpu_torch/_private/head.py").read_text()
+    agent = (REPO / "ray_tpu_torch/_private/node_agent.py").read_text()
+    handles = (REPO / "ray_tpu_torch/_private/proc_handles.py").read_text()
+    assert '"ray_tpu_torch._private.worker_main"' in head
+    assert '"ray_tpu_torch._private.worker_main"' in agent
+    assert '"ray_tpu_torch._private.worker_template"' in handles
+
+
+_WORKER_PROBE = """
+import os, sys
+
+import ray_tpu_torch
+
+ray_tpu_torch.init(num_cpus=1, _system_config={"worker_forkserver_enabled": %(forked)s})
+
+@ray_tpu_torch.remote
+def probe():
+    import os, sys
+    with open(f"/proc/{os.getpid()}/cmdline", "rb") as f:
+        argv = f.read().replace(b"\\0", b" ").decode()
+    mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu", "torch"))
+    return argv, mods, os.getpid()
+
+argv, mods, pid = ray_tpu_torch.get(probe.remote(), timeout=60)
+ray_tpu_torch.shutdown()
+print(repr((argv, mods, pid != os.getpid())))
+"""
+
+
+@pytest.mark.parametrize("forked", [True, False], ids=["forked", "cold"])
+def test_runtime_workers_run_the_port(forked):
+    """A task under ``ray_tpu_torch.init()`` runs in a worker whose argv names
+    ``ray_tpu_torch`` (the forkserver template's, or a cold-spawned worker's
+    own) and whose modules hold neither JAX, the JAX package nor torch (the
+    template imports none, so a forked worker can still open the card)."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", _WORKER_PROBE % {"forked": forked}], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    argv, mods, other_process = eval(proc.stdout.strip().splitlines()[-1])
+    assert other_process
+    assert mods == []
+    entry = "ray_tpu_torch._private.worker_template" if forked else "ray_tpu_torch._private.worker_main"
+    assert f"-m {entry} " in argv, argv
+    assert "ray_tpu." not in argv.replace("ray_tpu_torch.", "")
