@@ -11,8 +11,10 @@ from a seed), plain and speculating; GPT training at bench.py's 406M shape
 (24 layers, bf16, random weights from a seed); and the serving engine at
 GPT-124M (the reference's default GPTConfig, 12 layers, bf16 over fp32
 master weights), plain, speculating and across a weight hot-swap, in
-process and then from a GPU actor of the port's runtime. Phases, each of
-which raises on failure:
+process and then from a GPU actor of the port's runtime; and GPT-J-6B
+served by Serve from a ``num_gpus=1`` replica over the handle and HTTP,
+with a mid-stream failover on GPT-124M. Phases, each of which raises on
+failure:
 
 1. device: name, compute capability, power limit;
 2. build: the three kernel sources, in parallel, and their ``-Xptxas -v`` register /
@@ -114,7 +116,33 @@ which raises on failure:
     the object plane (zero-copy get in the actor, host-to-device copy,
     ``update_weights``), timed, and greedy tokens after it against the
     dense forward under seed 1; (f) ``shutdown()`` leaves no runtime process,
-    no /dev/shm segment of the store and no extra compute app on the card.
+    no /dev/shm segment of the store and no extra compute app on the card;
+24. Serve over the engine (``ray_tpu_torch.serve``): (a) ``init()`` with no
+    arguments and ``serve.run(build_llm_app(model="gptj", ...), http=True)``
+    with phase 6's engine config and seed 0: one ``num_gpus=1`` replica
+    (``CountingLLMDeployment``, the package's ``LLMDeployment`` with a
+    method that reads the kernels' counts inside the replica), timed from
+    ``serve.run`` to ready; the controller's and the proxy's processes map
+    no torch or CUDA library; (b) phase 6's traffic through
+    ``handle.options(stream=True)`` from driver threads: greedy tokens
+    against the dense forward, K1 at 28 launches a decode step and both
+    audits read from the replica, tokens/s and TTFT beside phase 6's, and
+    Serve's added ms per request (the client's time minus the engine's
+    submit-to-finish from its phase ledger); (c) the greedy prompts over
+    loopback HTTP (chunked streams, the ``x-request-id`` echo, (b)'s
+    tokens), then a ``deadline_s`` the backlog cannot meet answered 429
+    with ``Retry-After``; (d) one ``loadgen.run_curve`` arm: 32 Poisson
+    arrivals at half (b)'s request rate, client TTFT and e2e percentiles,
+    the share of requests attributed and of phase sums within 5% of e2e;
+    (e) ``serve.delete`` returns the GPU resource and the replica's memory;
+    (f) GPT-124M (full width and depth, fp32, spec_k=4, ``warmup=False``)
+    in one replica: a greedy 256-token stream cut after 64 tokens by SIGKILL
+    of the replica resumes on the replacement (placed once the dead
+    worker's GPU is released) and equals an uninterrupted stream and the
+    dense forward; kill -> replacement ready -> first resumed token timed;
+    K1 and K2 at 12 launches a step in the new replica; (g)
+    ``serve.shutdown()`` and ``shutdown()`` leave no runtime process and no
+    store segment.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it has
 the card's name and power limit, the one before that the kernels' record.
@@ -128,6 +156,7 @@ import dataclasses
 import gc
 import json
 import os
+import signal
 import subprocess
 import sys
 import threading
@@ -135,6 +164,9 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
+# phase 24 drives the HTTP ingress, whose proxy is built on h11: the card's
+# machine has it (and grpc), so the ingress is held there every run
+import h11  # noqa: F401
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -142,12 +174,13 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import ray_tpu_torch
-from ray_tpu_torch import _native
-from ray_tpu_torch._private import events, shm_store
+from ray_tpu_torch import _native, serve
+from ray_tpu_torch._private import chaos, events, shm_store
 from ray_tpu_torch._private.shm_store import shm_mapping_of
 from ray_tpu_torch.exceptions import OverloadedError
 from ray_tpu_torch.llm import EngineConfig, EngineStalledError, LLMEngine, SamplingParams
 from ray_tpu_torch.llm import engine as engine_mod
+from ray_tpu_torch.llm import loadgen
 from ray_tpu_torch.llm import prefix_cache as prefix_mod
 from ray_tpu_torch.llm import watchdog as watchdog_mod
 from ray_tpu_torch.llm.model_runner import _row_noise, _window_noise
@@ -178,6 +211,7 @@ from ray_tpu_torch.ops.paged_attention import (
     verify_partials_torch,
 )
 from ray_tpu_torch.parallel import adamw, build_train_step
+from ray_tpu_torch.serve.llm import LLMDeployment, build_llm_app
 from ray_tpu_torch.util import metrics, phases, tracing
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and operations/s by input type
@@ -192,6 +226,8 @@ KERNELS = ("paged_attention", "paged_verify_attention", "flash_attention")
 S, H, D, BS, T = 8, 16, 256, 16, 128
 W = 5
 NB = S * T + 1  # the serve phase's pool: 1025 blocks, block 0 the trash block
+# phase 6's engine over that pool, served again by a replica in phase 24
+GPTJ_ENGINE = EngineConfig(max_slots=S, block_size=BS, max_blocks_per_seq=T, num_blocks=NB, prefill_chunk=256)
 # phase 8's windows: every width up to 9 (past the first design's widest, 8), one and
 # two 16-row query tiles and one past them (a second walk of the pages);
 # phase 9's sweep
@@ -824,11 +860,7 @@ def serve_6b(card: str) -> dict:
     params = gptj_init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     torch.cuda.synchronize()
     print(f"GPT-J-6B random init on the card: {time.perf_counter() - t0:.1f} s")
-    eng = LLMEngine(
-        cfg, params,
-        EngineConfig(max_slots=8, block_size=16, max_blocks_per_seq=128, num_blocks=1025,
-                     prefill_chunk=256),
-    )
+    eng = LLMEngine(cfg, params, GPTJ_ENGINE)
     eng.warmup()
     return dict(serve_mix(eng, params, "GPT-J-6B serve", card, gptj_forward), params=params)
 
@@ -1761,7 +1793,12 @@ def shed_at_service_rate(eng: LLMEngine, card: str) -> tuple[int, int]:
             time.sleep(0.01)
     finally:
         stop_loop(*loop)
-    if refused.retry_after_s != max(0.1, round(ev["estimate_s"] - deadline, 2)):
+    # the engine rounds est - deadline from its unrounded estimate, while the
+    # event carries the estimate rounded to 3 places: the unrounded one lies
+    # within 0.0005 of it, and those two ends give every retry_after_s the
+    # engine could have computed
+    ends = {max(0.1, round(ev["estimate_s"] + d - deadline, 2)) for d in (-0.0005, 0.0005)}
+    if refused.retry_after_s != ev["retry_after_s"] or refused.retry_after_s not in ends:
         raise AssertionError(f"shed: retry_after_s {refused.retry_after_s} against the event's {ev}")
     if abs(ev["estimate_s"] - est) > 0.2 * est or metric_value(m["shed"]) - shed0 != 1:
         raise AssertionError(f"shed: engine estimate {ev['estimate_s']} s against {est:.3f} s, counter "
@@ -2446,10 +2483,10 @@ def engine_in_an_actor(card: str, in_process: dict) -> dict:
                 push_s=t2 - t0)
 
 
-def clean_shutdown(before: dict, pids: set, actor_pid: int, apps: tuple) -> None:
-    """Phase 23 (f): after ``shutdown()`` no worker (the actor's included)
-    nor the template survives, no /dev/shm segment of the store remains,
-    and the card's compute apps are back to the driver's."""
+def clean_shutdown(before: dict, pids: set, actor_pid: int, apps: tuple, label: str = "(f)") -> None:
+    """Phase 23 (f), phase 24 (g): after ``shutdown()`` no worker (the
+    actor's included) nor the template survives, no /dev/shm segment of the
+    store remains, and the card's compute apps are back to the driver's."""
     apps_before, apps_alive = apps
     t0 = time.perf_counter()
     ray_tpu_torch.shutdown()
@@ -2471,8 +2508,8 @@ def clean_shutdown(before: dict, pids: set, actor_pid: int, apps: tuple) -> None
         raise AssertionError(f"after shutdown nvidia-smi still lists the card's compute apps {apps_after} "
                              f"(before the runtime: {before['apps']})")
     seen = any(ln.split(",")[0].strip() == str(actor_pid) for ln in apps_alive)
-    print(f"(f) shutdown in {shutdown_s:.3f} s: {len(pids)} runtime processes gone (the actor {actor_pid}, the "
-          f"GPU task workers and the template), no rta-/psm_ segment left in /dev/shm, nvidia-smi compute apps "
+    print(f"{label} shutdown in {shutdown_s:.3f} s: {len(pids)} runtime processes gone (the actor {actor_pid}, "
+          f"the other workers and the template), no rta-/psm_ segment left in /dev/shm, nvidia-smi compute apps "
           f"{len(apps_before)} -> {len(apps_alive)} with the actor -> {len(apps_after)} (the actor's pid "
           f"{'listed while it lived' if seen else 'not visible to nvidia-smi in this container'})")
 
@@ -2494,6 +2531,510 @@ def runtime_on_card(card: str, in_process: dict) -> dict:
     clean_shutdown(before, tasks["pids"] | {tasks["template"], served["actor_pid"]}, served["actor_pid"],
                    served["apps"])
     return served["launches"]
+
+
+# ---------------------------------------------------------------------------
+# phase 24: Serve over the port's engine
+# ---------------------------------------------------------------------------
+
+FAILOVER_NEW = 256  # (f): the greedy stream's new tokens
+FAILOVER_CUT = 64  # (f): the tokens the client holds when the replica is killed
+LOADGEN_REQUESTS = 32  # (d)
+ATTRIBUTION_EPS = 0.05  # (d): phases must sum to e2e within this share
+TORCH_LIBS = ("libtorch", "libc10", "libcuda", "libcudart", "libnvrtc", "libcublas")
+
+
+class CountingLLMDeployment(LLMDeployment):
+    """Phase 24's replica: the package's ``LLMDeployment`` with one method
+    added, which reads inside the replica the kernels' launch counts, the
+    runner's step counts, both ledgers' audits and the HBM ledger, and with
+    ``reset`` then sets the counts to 0."""
+
+    def kernel_counts(self, reset: bool = False) -> dict:
+        import os
+
+        from ray_tpu_torch.ops.paged_attention import paged_attention_cuda, paged_verify_attention_cuda
+
+        eng = self._engine
+        out = dict(k1=paged_attention_cuda.launches, k2=paged_verify_attention_cuda.launches,
+                   decode=eng.runner.launches["decode"], verify=eng.runner.launches.get("verify", 0),
+                   audits=(eng.pool.audit()["ok"], eng.prefix_cache.audit()["ok"]),
+                   hbm=eng.hbm_ledger(), pid=os.getpid())
+        if reset:
+            paged_attention_cuda.launches = 0
+            paged_verify_attention_cuda.launches = 0
+            eng.runner.launches = dict.fromkeys(eng.runner.launches, 0)
+        return out
+
+
+def counting_app(**kw):
+    """``build_llm_app(**kw)`` with its deployment's class swapped for
+    ``CountingLLMDeployment`` (every option of the app kept)."""
+    app = build_llm_app(**kw)
+    if app.deployment.config.ray_actor_options != {"num_gpus": 1}:
+        raise AssertionError(f"a replica built for the card asks for "
+                             f"{app.deployment.config.ray_actor_options}, not one GPU")
+    app.deployment = dataclasses.replace(app.deployment, callable_cls=CountingLLMDeployment)
+    return app
+
+
+def live_actor_pids(class_name: str) -> list[int]:
+    """Worker pids of the live actors of ``class_name`` (the head's table)."""
+    from ray_tpu_torch._private.head import ACTOR_ALIVE
+    from ray_tpu_torch._private.runtime import get_ctx
+
+    head = get_ctx().head
+    with head.lock:
+        return [a.worker.proc.pid for a in head.actors.values()
+                if a.create_spec.get("class_name") == class_name and a.state == ACTOR_ALIVE
+                and a.worker is not None and a.worker.proc is not None]
+
+
+def runtime_pids() -> set:
+    """Every live worker's pid and each node's template pid."""
+    from ray_tpu_torch._private.runtime import get_ctx
+
+    head = get_ctx().head
+    with head.lock:
+        pids = {wh.proc.pid for node in head.nodes.values() for wh in node.all_workers
+                if wh.proc is not None and wh.proc.pid}
+        pids |= {node.template.popen.pid for node in head.nodes.values() if node.template is not None}
+    return pids
+
+
+def mapped_libs(pid: int) -> list[str]:
+    with open(f"/proc/{pid}/maps") as f:
+        return sorted({ln.split()[-1].rsplit("/", 1)[-1] for ln in f if any(lib in ln for lib in TORCH_LIBS)})
+
+
+def sp_kwargs(sp: SamplingParams) -> dict:
+    """A request's sampling knobs as the deployment's keyword arguments."""
+    return dict(max_tokens=sp.max_tokens, temperature=sp.temperature, top_k=sp.top_k, top_p=sp.top_p,
+                seed=sp.seed)
+
+
+def ledger_times(rids) -> dict:
+    """{request id: engine submit-to-finish seconds} from the replicas'
+    ``llm.phase.ledger`` events, drained through the head."""
+    want, out = set(rids), {}
+    deadline = time.monotonic() + 30
+    while True:
+        for e in events.collect_cluster_events():
+            if e.get("type") == "llm.phase.ledger" and e.get("request_id") in want:
+                out[e["request_id"]] = e["t_finish"] - e["t_submit"]
+        if len(out) == len(want) or time.monotonic() > deadline:
+            return out
+        time.sleep(0.2)
+
+
+def handle_traffic(handle, cfg, params, card: str, in_process: dict) -> dict:
+    """(b): phase 6's traffic through ``handle.options(stream=True)`` from
+    driver threads, started as ``serve_threads`` starts it (the first
+    request's first token, then the rest)."""
+    first, rest = mix_traffic(cfg.vocab_size)
+    items = [first, *rest]
+    results, client_s, ttft, errors = {}, {}, {}, []
+    rids = {idx: f"p24b-{idx}" for idx in range(len(items))}
+    first_token = threading.Event()
+
+    def client(idx):
+        prompt, sp = items[idx]
+        try:
+            with tracing.trace_context(rids[idx]):
+                t0 = time.perf_counter()
+                toks = []
+                for tok in handle.options(stream=True).remote(prompt, **sp_kwargs(sp)):
+                    if not toks:
+                        ttft[idx] = time.perf_counter() - t0
+                        first_token.set()
+                    toks.append(tok)
+                client_s[idx] = time.perf_counter() - t0
+            results[idx] = (prompt, sp, SimpleNamespace(out=toks), toks)
+        except BaseException as e:  # surfaced below
+            errors.append(e)
+            first_token.set()
+
+    counts0 = handle.kernel_counts.remote(True).result(timeout=120)  # every count from 0
+    t_start = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(0,))]
+    threads[0].start()
+    if not first_token.wait(timeout=600):
+        raise AssertionError("(b): the first request has no first token")
+    threads += [threading.Thread(target=client, args=(idx,)) for idx in range(1, len(items))]
+    for t in threads[1:]:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t_start
+    if errors:
+        raise errors[0]
+    counts = handle.kernel_counts.remote().result(timeout=120)
+    if len(results) != len(items):
+        raise AssertionError(f"(b): {len(results)} of {len(items)} requests returned")
+    for idx, (prompt, sp, view, _) in sorted(results.items()):
+        if len(view.out) != sp.max_tokens or not all(0 <= t < cfg.vocab_size for t in view.out):
+            raise AssertionError(f"(b): request {idx} streamed {len(view.out)} tokens or out-of-range ones")
+    if not all(counts["audits"]):
+        raise AssertionError(f"(b): audit failed in the replica {counts['audits']}")
+    if counts["decode"] < 1 or counts["k1"] != cfg.n_layers * counts["decode"]:
+        raise AssertionError(f"(b): K1 launched {counts['k1']} times over {counts['decode']} decode steps "
+                             f"in the replica (expected {cfg.n_layers} per step)")
+    check_greedy(cfg, params, results, "(b) GPT-J-6B through the handle", gptj_forward)
+    engine_s = ledger_times(rids.values())
+    if len(engine_s) != len(items):
+        raise AssertionError(f"(b): {len(engine_s)} of {len(items)} engine phase ledgers reached the driver")
+    added = sorted((client_s[idx] - engine_s[rids[idx]]) * 1e3 for idx in results)
+    n_tok = sum(len(r[2].out) for r in results.values())
+    ttfts = sorted(ttft.values())
+    tps, ttft6 = in_process
+    print(
+        f"(b) GPT-J-6B through the handle [{card}]: {len(results)} requests, {n_tok} tokens in {wall:.3f} s = "
+        f"{n_tok / wall:.2f} tokens/s (in process, phase 6: {tps:.2f}); client TTFT min/median/max "
+        f"{ttfts[0] * 1e3:.1f}/{ttfts[len(ttfts) // 2] * 1e3:.1f}/{ttfts[-1] * 1e3:.1f} ms (phase 6: {ttft6}); "
+        f"Serve's added time per request (client minus the engine's submit-to-finish) min/median/max "
+        f"{added[0]:.2f}/{added[len(added) // 2]:.2f}/{added[-1]:.2f} ms; K1 launches {counts['k1']} = "
+        f"{cfg.n_layers} x {counts['decode']} (read from the replica, pid {counts['pid']}; before the run "
+        f"it had {counts0['k1']} from its warmup)"
+    )
+    return dict(results=results, k1=counts["k1"], wall=wall, tokens_per_s=n_tok / wall,
+                requests_per_s=len(items) / wall, added_ms=added[len(added) // 2],
+                ttft_ms=ttfts[len(ttfts) // 2] * 1e3)
+
+
+def http_post(port: int, app: str, body: dict, headers: dict | None = None, timeout: float = 600):
+    """(status, headers, body bytes) of one POST over loopback HTTP."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", f"/{app}", body=json.dumps(body),
+                     headers={"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, {k.lower(): v for k, v in resp.getheaders()}, resp.read()
+    finally:
+        conn.close()
+
+
+def http_traffic(handle, port: int, cfg, served: dict, card: str) -> int:
+    """(c): (b)'s greedy prompts over loopback HTTP, from client threads:
+    chunked streams, the ``x-request-id`` echo, (b)'s tokens. Then a
+    request whose ``deadline_s`` the backlog cannot meet gets 429 with
+    ``Retry-After``. Returns the replica's K1 launches."""
+    greedy = {idx: r for idx, r in served["results"].items() if r[1].temperature == 0}
+    got, errors = {}, []
+
+    def client(idx):
+        prompt, sp = greedy[idx][:2]
+        try:
+            got[idx] = http_post(port, "gptj", {"prompt": prompt, "max_tokens": sp.max_tokens},
+                                 {"x-request-id": f"p24c-{idx}"})
+        except BaseException as e:
+            errors.append(e)
+
+    handle.kernel_counts.remote(True).result(timeout=120)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(idx,)) for idx in greedy]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    for idx, (status, hdrs, body) in sorted(got.items()):
+        toks = [json.loads(ln) for ln in body.splitlines() if ln.strip()]
+        if status != 200 or hdrs.get("transfer-encoding") != "chunked" or hdrs.get("x-request-id") != f"p24c-{idx}":
+            raise AssertionError(f"(c): request {idx} answered {status} with headers {hdrs}")
+        if toks != greedy[idx][2].out:
+            raise AssertionError(f"(c): request {idx}'s tokens over HTTP differ from (b)'s")
+    counts = handle.kernel_counts.remote().result(timeout=120)
+    if counts["decode"] < 1 or counts["k1"] != cfg.n_layers * counts["decode"] or not all(counts["audits"]):
+        raise AssertionError(f"(c): the replica's counts {counts}")
+    print(f"(c) GPT-J-6B over HTTP [{card}]: {len(got)} greedy requests in {wall:.3f} s, chunked, x-request-id "
+          f"echoed, every token equal to (b)'s; K1 launches {counts['k1']} = {cfg.n_layers} x {counts['decode']}")
+    # the shed: a backlog that outlasts the engine's 0.5 s rate window, then
+    # a request whose deadline the backlog cannot meet
+    prompt = greedy[min(greedy)][0]
+    backlog_errors: list = []
+
+    def backlog(i):
+        try:
+            st, _, _ = http_post(port, "gptj", {"prompt": prompt, "max_tokens": 48, "seed": i,
+                                                "temperature": 0.8})
+            if st != 200:
+                backlog_errors.append(st)
+        except BaseException as e:
+            backlog_errors.append(e)
+
+    threads = [threading.Thread(target=backlog, args=(i,)) for i in range(12)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 120
+    while True:
+        st = handle.stats.remote().result(timeout=60)
+        if st["running"] + st["waiting"] >= 8 and st["service_rate_tokens_per_s"] > 0:
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"(c): the backlog never formed: {st}")
+        time.sleep(0.05)
+    status, hdrs, body = http_post(port, "gptj", {"prompt": prompt, "max_tokens": 48, "deadline_s": 0.05},
+                                   {"x-request-id": "p24c-shed"})
+    for t in threads:
+        t.join(timeout=900)
+    if status != 429 or int(hdrs.get("retry-after", "0")) < 1 or hdrs.get("x-request-id") != "p24c-shed":
+        raise AssertionError(f"(c): the doomed request answered {status} {hdrs} {body[:200]!r}")
+    if backlog_errors:
+        raise AssertionError(f"(c): backlog requests failed: {backlog_errors}")
+    counts = handle.kernel_counts.remote().result(timeout=120)
+    print(f"(c) shed [{card}]: with {st['running']} running and {st['waiting']} waiting at "
+          f"{st['service_rate_tokens_per_s']:.1f} tokens/s, a 0.05 s deadline got 429, Retry-After "
+          f"{hdrs['retry-after']} s ({json.loads(body)['error'][:160]}); the 12 backlog requests completed")
+    return counts["k1"]
+
+
+def open_loop(handle, port: int, cfg, served: dict, card: str) -> dict:
+    """(d): one ``loadgen.run_curve`` arm: Poisson arrivals at half the
+    request rate (b) sustained, ``LOADGEN_REQUESTS`` requests of phase 6's
+    prompts (cycled) with their sampling knobs, 32 new tokens."""
+    items = [served["results"][idx][:2] for idx in sorted(served["results"])]
+    rate = served["requests_per_s"] / 2
+    offsets = loadgen.arrivals("poisson", rate=rate, duration_s=4 * LOADGEN_REQUESTS / rate, seed=24)
+    offsets = offsets[:LOADGEN_REQUESTS]
+    if len(offsets) != LOADGEN_REQUESTS:
+        raise AssertionError(f"(d): the curve has {len(offsets)} arrivals")
+
+    def payload(i):
+        prompt, sp = items[i % len(items)]
+        return {"prompt": prompt, **sp_kwargs(sp)}
+
+    handle.kernel_counts.remote(True).result(timeout=120)
+    t0 = time.perf_counter()
+    recs = loadgen.run_curve(port, "gptj", offsets, payload)
+    dur = time.perf_counter() - t0
+    counts = handle.kernel_counts.remote().result(timeout=120)
+    client = loadgen.summarize_client(recs, dur)
+    if client["ok"] != LOADGEN_REQUESTS:
+        raise AssertionError(f"(d): {client['ok']} of {LOADGEN_REQUESTS} requests answered 200: {client}")
+    if counts["decode"] < 1 or counts["k1"] != cfg.n_layers * counts["decode"] or not all(counts["audits"]):
+        raise AssertionError(f"(d): the replica's counts {counts}")
+    rids = {r["request_id"] for r in recs if r.get("request_id")}
+    deadline = time.monotonic() + 30
+    while True:
+        attr = loadgen._attribution_for(loadgen._drain_phase_events(), rids, ATTRIBUTION_EPS)
+        if attr["n_requests"] >= len(rids) or time.monotonic() > deadline:
+            break
+        time.sleep(0.5)
+    frac = attr["n_requests"] / client["ok"]
+    if frac < 1.0 or attr["within_eps_frac"] is None:
+        raise AssertionError(f"(d): {attr['n_requests']} of {client['ok']} requests attributed")
+    e2e, ttft = client["e2e_s"], client["ttft_s"]
+    print(
+        f"(d) open loop [{card}]: {LOADGEN_REQUESTS} Poisson arrivals at {rate:.3f} requests/s (half of (b)'s "
+        f"{served['requests_per_s']:.3f}) over {dur:.1f} s; client TTFT p50/p99 {ttft['p50'] * 1e3:.1f}/"
+        f"{ttft['p99'] * 1e3:.1f} ms, e2e p50/p99 {e2e['p50'] * 1e3:.1f}/{e2e['p99'] * 1e3:.1f} ms; "
+        f"attributed_frac {frac:.4f} ({attr['scopes']['proxy']} proxy-joined); phases sum to e2e within "
+        f"{ATTRIBUTION_EPS:.0%} for {attr['within_eps']}/{attr['n_requests']} ({attr['within_eps_frac']:.4f}, "
+        f"worst {attr['worst_err']:.4f}); per-phase p50 "
+        + ", ".join(f"{k} {v['p50'] * 1e3:.1f} ms" for k, v in attr["per_phase"].items())
+        + f"; K1 launches {counts['k1']} = {cfg.n_layers} x {counts['decode']}"
+    )
+    if attr["within_eps_frac"] < 0.99:
+        raise AssertionError(f"(d): phases sum to e2e within {ATTRIBUTION_EPS:.0%} for only "
+                             f"{attr['within_eps']} of {attr['n_requests']} requests")
+    return dict(k1=counts["k1"], ttft=ttft, e2e=e2e, attributed_frac=frac, within=attr["within_eps_frac"])
+
+
+def gpu_available() -> float:
+    return ray_tpu_torch.available_resources().get("GPU", 0.0)
+
+
+def delete_app(handle, card: str) -> None:
+    """(e): ``serve.delete`` gives the card back: the GPU resource is free
+    again and the driver sees the replica's memory returned."""
+    ledger = handle.kernel_counts.remote().result(timeout=120)["hbm"]
+    held = ledger["params_bytes"] + ledger["pool_bytes"]
+    free0 = torch.cuda.mem_get_info()[0]
+    if gpu_available() != 0.0:
+        raise AssertionError(f"(e): the GPU resource reads {gpu_available()} while the replica holds it")
+    t0 = time.perf_counter()
+    serve.delete("gptj")
+    deadline = time.monotonic() + 60
+    while (gpu_available() != 1.0 or torch.cuda.mem_get_info()[0] - free0 < held) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    back_s = time.perf_counter() - t0
+    freed = torch.cuda.mem_get_info()[0] - free0
+    if gpu_available() != 1.0 or freed < held:
+        raise AssertionError(f"(e): after serve.delete the GPU resource reads {gpu_available()} and "
+                             f"{freed / 1e9:.2f} GB came back (the replica's weights and pool: {held / 1e9:.2f} GB)")
+    print(f"(e) serve.delete [{card}]: the GPU resource free again and {freed / 1e9:.2f} GB of device memory "
+          f"back in {back_s:.2f} s (the replica's weights and KV pool {held / 1e9:.2f} GB; the rest its CUDA "
+          f"context, activations and allocator cache; required: at least the weights and pool)")
+
+
+def failover(card: str) -> dict:
+    """(f): GPT-124M at full width and depth in one ``num_gpus=1`` replica,
+    speculating (spec_k=4), ``warmup=False``, in fp32: the resumed replica
+    re-prefills prompt + delivered tokens where the first one decoded them
+    one by one, and in bf16 the two paths round differently, which flips
+    greedy near-ties of random weights (on the CPU at the 12th token after
+    the cut); fp32 holds the resume itself to token identity. A greedy
+    ``FAILOVER_NEW``-token stream is cut after ``FAILOVER_CUT`` tokens by
+    SIGKILL of its replica; the handle resumes it on the replacement, which
+    the controller can place only once the dead worker's GPU is released.
+    The tokens must equal an uninterrupted stream's and the dense
+    forward's; the new replica runs K1 and K2 at 12 launches a step."""
+    cfg = dataclasses.replace(GPT_124M, dtype="float32")
+    t0 = time.perf_counter()
+    handle = serve.run(counting_app(model="gpt", model_cfg=cfg, warmup=False,
+                                    engine_config=dataclasses.replace(GPT_ENGINE, spec_k=4)), name="gpt")
+    ready_s = time.perf_counter() - t0
+    controller = ray_tpu_torch.get_actor("SERVE_CONTROLLER")
+    rng = np.random.RandomState(24)
+    pat = [int(t) for t in rng.randint(0, cfg.vocab_size, 16)]
+    prompt = [int(t) for t in rng.randint(0, cfg.vocab_size, 32)] + pat * 4
+    clean = list(handle.options(stream=True).remote(prompt, max_tokens=FAILOVER_NEW))
+    pids = runtime_pids()
+    stream = handle.options(stream=True).remote(prompt, max_tokens=FAILOVER_NEW)
+    got, marks = [], {}
+    old_id = None
+
+    def watch():
+        """Timestamps after the kill: the GPU released, the replacement
+        ready (a new initialized replica)."""
+        while "ready" not in marks and time.perf_counter() - marks["kill"] < 120:
+            if "released" not in marks and gpu_available() == 1.0:
+                marks["released"] = time.perf_counter()
+            ids = ray_tpu_torch.get(controller.get_replica_actor_ids.remote("gpt_LLMDeployment"), timeout=30)
+            new = [h for h in ids.get("gpt_LLMDeployment", []) if h != old_id]
+            if new and ray_tpu_torch.get(controller.ready.remote(), timeout=30):
+                marks["ready"] = time.perf_counter()
+                marks["new_id"] = new[0]
+            time.sleep(0.01)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    arrivals = []
+    for tok in stream:
+        got.append(tok)
+        arrivals.append(time.perf_counter())
+        if len(got) == FAILOVER_CUT and "kill" not in marks:
+            old_id = stream._replica._actor_id.hex()
+            pid = chaos.pid_of_actor(old_id)
+            marks["kill"] = time.perf_counter()
+            os.kill(pid, signal.SIGKILL)
+            watcher.start()
+    watcher.join(timeout=150)
+    if "kill" not in marks or "ready" not in marks:
+        raise AssertionError(f"(f): the failover did not run through: {sorted(marks)}")
+    # tokens the dead replica produced before the kill still arrive at once;
+    # the first resumed token is the one after the longest silence
+    after = [t for t in arrivals if t > marks["kill"]]
+    gaps = [b - a for a, b in zip([marks["kill"], *after], after)]
+    marks["resumed"] = after[max(range(len(gaps)), key=gaps.__getitem__)]
+    if got != clean or len(got) != FAILOVER_NEW:
+        bad = next((i for i, (a, b) in enumerate(zip(got, clean)) if a != b), min(len(got), len(clean)))
+        raise AssertionError(f"(f): the resumed stream ({len(got)} tokens) differs from the uninterrupted one "
+                             f"from token {bad}")
+    if "released" in marks and marks["released"] > marks["ready"]:
+        raise AssertionError("(f): the replacement was ready before the dead worker's GPU was released")
+    # two short requests on the new replica: a random prompt, whose first
+    # steps the drafter cannot match (plain decode, K1), and a periodic one
+    # (verify, K2) — the resumed stream alone may take either path only
+    # (on the card a periodic stream verified at every step)
+    extra = [([int(t) for t in rng.randint(0, cfg.vocab_size, 40)], 16), (pat * 5, 16)]
+    for p, n in extra:
+        if len(list(handle.options(stream=True).remote(p, max_tokens=n))) != n:
+            raise AssertionError("(f): a request on the new replica came back short")
+    counts = handle.kernel_counts.remote().result(timeout=120)
+    if counts["decode"] < 1 or counts["verify"] < 1:
+        raise AssertionError(f"(f): the new replica ran {counts['decode']} decode and {counts['verify']} "
+                             f"verify steps")
+    if counts["k1"] != cfg.n_layers * counts["decode"] or counts["k2"] != cfg.n_layers * counts["verify"]:
+        raise AssertionError(f"(f): the new replica's launches {counts}")
+    if not all(counts["audits"]):
+        raise AssertionError(f"(f): audit failed in the new replica {counts['audits']}")
+    params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    check_greedy(cfg, params, {0: (prompt, SamplingParams(max_tokens=FAILOVER_NEW), SimpleNamespace(out=got),
+                                   got)}, "(f) GPT-124M stream across the failover", gpt_forward_plain)
+    del params
+    released = (f"{(marks['released'] - marks['kill']) * 1e3:.1f} ms" if "released" in marks
+                else "not seen between two polls")
+    print(
+        f"(f) failover [{card}]: GPT-124M (fp32) replica up in {ready_s:.2f} s (warmup=False); a {FAILOVER_NEW}-token "
+        f"greedy stream killed (SIGKILL of pid {pid}) after {FAILOVER_CUT} tokens; kill -> GPU released "
+        f"{released}; kill -> replacement ready {(marks['ready'] - marks['kill']) * 1e3:.1f} ms (the controller "
+        f"polled every ~10 ms); kill -> first resumed token {(marks['resumed'] - marks['kill']) * 1e3:.1f} ms; "
+        f"the stream equals the uninterrupted "
+        f"one and the dense forward; the new replica (pid {counts['pid']}), with two short requests more (a random "
+        f"and a periodic prompt): K1 {counts['k1']} = {cfg.n_layers} x {counts['decode']}, K2 {counts['k2']} = "
+        f"{cfg.n_layers} x {counts['verify']}"
+    )
+    return dict(k1=counts["k1"], k2=counts["k2"], pids=pids | runtime_pids() | {pid}, replica_pid=counts["pid"],
+                kill_ready_ms=(marks["ready"] - marks["kill"]) * 1e3,
+                kill_resumed_ms=(marks["resumed"] - marks["kill"]) * 1e3)
+
+
+def serve_on_card(card: str, in_process: tuple) -> dict:
+    """Phase 24: Serve over the port's engine, (a)-(g)."""
+    cfg = GPTJ_6B
+    t_phase = time.perf_counter()
+    print("(a) start")
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    before = dict(shm=shm_entries(), apps=compute_apps())
+    ray_tpu_torch.init()
+    try:
+        if ray_tpu_torch.cluster_resources().get("GPU") != 1.0:
+            raise AssertionError(f"(a): init() offers {ray_tpu_torch.cluster_resources()}")
+        app = counting_app(model="gptj", model_cfg=cfg, engine_config=GPTJ_ENGINE, seed=0)
+        t0 = time.perf_counter()
+        handle = serve.run(app, name="gptj", http=True, http_port=0)
+        ready_s = time.perf_counter() - t0
+        controller = ray_tpu_torch.get_actor("SERVE_CONTROLLER")
+        port = ray_tpu_torch.get(controller.get_proxy_port.remote(), timeout=60)
+        control = {name: live_actor_pids(name) for name in ("ServeController", "ProxyActor")}
+        replica = live_actor_pids("Replica")
+        if sorted(len(v) for v in control.values()) != [1, 1] or len(replica) != 1:
+            raise AssertionError(f"(a): control plane {control}, replicas {replica}")
+        libs = {name: mapped_libs(pids[0]) for name, pids in control.items()}
+        if any(libs.values()):
+            raise AssertionError(f"(a): the Serve control plane mapped torch or CUDA: {libs}")
+        replica_libs = mapped_libs(replica[0])
+        if not any("libcuda" in lib for lib in replica_libs):
+            raise AssertionError(f"(a): the replica mapped no CUDA library: {replica_libs}")
+        apps_alive = compute_apps()
+        print(f"(a) GPT-J-6B app ready in {ready_s:.2f} s after serve.run (one num_gpus=1 replica, pid "
+              f"{replica[0]}: weights drawn on the card from seed 0 + warmup; GPU available now "
+              f"{gpu_available()}); HTTP on port {port}; controller pid {control['ServeController'][0]} and "
+              f"proxy pid {control['ProxyActor'][0]} mapped no torch or CUDA library (the replica maps "
+              f"{', '.join(replica_libs[:4])}, ...)")
+        params = gptj_init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        print("(b) handle traffic")
+        served = handle_traffic(handle, cfg, params, card, in_process)
+        del params
+        torch.cuda.empty_cache()
+        print("(c) HTTP")
+        k1_http = http_traffic(handle, port, cfg, served, card)
+        print("(d) open-loop load")
+        loaded = open_loop(handle, port, cfg, served, card)
+        pids = runtime_pids()
+        print("(e) delete")
+        delete_app(handle, card)
+        print("(f) failover on one card")
+        failed_over = failover(card)
+        pids |= failed_over["pids"]
+        print("(g) shutdown")
+        serve.shutdown()
+    except BaseException:
+        try:
+            serve.shutdown()
+        finally:
+            ray_tpu_torch.shutdown()
+        raise
+    clean_shutdown(before, pids, failed_over["replica_pid"], (before["apps"], apps_alive), label="(g)")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 24 [{card}]: {phase_s:.1f} s")
+    return dict(k1_gptj=served["k1"] + k1_http + loaded["k1"], k1_gpt=failed_over["k1"], k2=failed_over["k2"],
+                seconds=phase_s)
 
 
 def flash_bound(nbytes: int, ops: float) -> tuple[float, str]:
@@ -3021,6 +3562,11 @@ def main() -> int:
 
     phase("23 the runtime on the card")
     runtime = runtime_on_card(card, gpt_served["in_process"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("24 Serve over the engine")
+    served24 = serve_on_card(card, (served["tokens_per_s"], served["ttft_ms"]))
 
     kernels = [
         dict(
@@ -3029,7 +3575,7 @@ def main() -> int:
             source="ray_tpu_torch/ops/csrc/paged_attention.cu",
             replaces="ray_tpu/ops/paged_attention.py:203",
             launches=(served["launches"] + gpt_served["k1"] + swapped["launches"] + production["k1"]
-                      + runtime["k1"]),
+                      + runtime["k1"] + served24["k1_gptj"] + served24["k1_gpt"]),
             max_abs_err=err,
             ms=timing["ms"],
             plain_ms=timing["plain_ms"],
@@ -3039,7 +3585,9 @@ def main() -> int:
             head_dims=list(DECODE_HEAD_DIMS),
             launches_by_path={"gptj_6b_serve": served["launches"], "gpt_124m_serve": gpt_served["k1"],
                               "gpt_124m_hot_swap": swapped["launches"],
-                              "gpt_124m_production": production["k1"], "gpt_124m_actor": runtime["k1"]},
+                              "gpt_124m_production": production["k1"], "gpt_124m_actor": runtime["k1"],
+                              "gptj_6b_serve_replica": served24["k1_gptj"],
+                              "gpt_124m_serve_failover": served24["k1_gpt"]},
             at_head_dim_64=dict(timing64, bound_by="bytes"),
         ),
         dict(
@@ -3047,9 +3595,10 @@ def main() -> int:
             route="cuda",
             source="ray_tpu_torch/ops/csrc/paged_verify_attention.cu",
             replaces="ray_tpu/ops/paged_attention.py:304",
-            launches=spec["launches"] + gpt_served["k2"] + production["k2"] + runtime["k2"],
+            launches=spec["launches"] + gpt_served["k2"] + production["k2"] + runtime["k2"] + served24["k2"],
             launches_by_path={"gptj_6b_spec_serve": spec["launches"], "gpt_124m_spec_serve": gpt_served["k2"],
-                              "gpt_124m_production": production["k2"], "gpt_124m_actor": runtime["k2"]},
+                              "gpt_124m_production": production["k2"], "gpt_124m_actor": runtime["k2"],
+                              "gpt_124m_serve_failover": served24["k2"]},
             max_abs_err=err2,
             ms=timing2["ms"],
             plain_ms=timing2["plain_ms"],

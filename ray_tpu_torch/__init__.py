@@ -21,6 +21,13 @@ Ported so far:
   hand-written Hopper kernels for decode and speculative verification
   (``ops.paged_attention``), and the engine with its drafters, weight
   hot-swap, watchdog, deadline-aware shedding and HBM ledger (``llm``);
+- Serve (``serve``): deployments, the controller, replicas, handles with
+  power-of-two routing and mid-stream failover, ``@serve.batch``,
+  multiplexing, the HTTP (asyncio + h11) and gRPC ingresses, and
+  ``serve.llm``, which serves the paged engine from ``num_gpus=1``
+  replicas; ``_private.chaos`` (worker, replica and controller killers),
+  ``llm.loadgen`` (the open-loop HTTP load harness) and ``obs``'s request
+  latency attribution;
 - observability: ``util.metrics``, ``util.tracing``, ``util.phases``,
   ``util.waterfall``, ``util.slo``, ``util.state`` and ``_private.events``,
   their cluster halves included;
@@ -64,7 +71,7 @@ __version__ = "0.1.0"
 
 _LAZY_SUBMODULES = {
     "llm", "models", "ops", "parallel", "util", "accelerators",
-    "cluster_utils", "dag", "experimental",
+    "cluster_utils", "dag", "experimental", "serve", "obs",
 }
 
 #: names exported from the heavy subpackages, loaded on first access

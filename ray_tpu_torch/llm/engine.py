@@ -51,6 +51,7 @@ Not ported yet (ROADMAP.md): tensor parallelism (``tp > 1``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import threading
@@ -269,6 +270,10 @@ class EngineConfig:
 NGRAM_MAX = 3
 MIN_ACCEPT = 0.3
 BACKOFF_MAX = 32
+#: how long ``run_loop`` pauses after a step while another thread waits for
+#: the engine lock (``_caller_lock``): long enough for the woken waiter to
+#: take the lock before the loop's next step does
+HANDOFF_S = 2e-4
 
 
 class LLMEngine:
@@ -331,6 +336,14 @@ class LLMEngine:
         self._params_bytes = _tree_device_bytes(params)
         self._drafter_bytes = _tree_device_bytes(getattr(self._drafter, "_params", None))
         self._lock = threading.Lock()
+        # callers other than the step loop (submit, stats, update_weights,
+        # has_work) count themselves here while they wait for the lock, and
+        # run_loop pauses HANDOFF_S after a step while any does: Python's
+        # locks are not fair, and a loop that takes the lock again right
+        # after releasing it kept a replica's stats() and submit() waiting
+        # through whole backlogs (seconds) on the CPU
+        self._callers_waiting = 0
+        self._callers_lock = threading.Lock()
         self._requests: dict[str, Request] = {}
         self._step_n = 0
         self._finished_published = 0  # scheduler.finish_count already counted
@@ -462,7 +475,7 @@ class LLMEngine:
             )
             req.stream.put(("done", done_reason))
             return req
-        with self._lock:
+        with self._caller_lock():
             if self.cfg.shed and deadline_s is not None:
                 est = self._estimate_completion_s_locked(params.max_tokens - len(req.out))
                 if est is not None and est > deadline_s:
@@ -523,7 +536,7 @@ class LLMEngine:
         return True
 
     def has_work(self) -> bool:
-        with self._lock:
+        with self._caller_lock():
             return self.scheduler.has_work()
 
     def progress(self) -> tuple[float, int]:
@@ -557,7 +570,7 @@ class LLMEngine:
         the installed version."""
         new = params.state_dict()
         t0 = time.perf_counter()
-        with self._lock:
+        with self._caller_lock():
             old = self.runner.params.state_dict(keep_vars=True)
             if list(new) != list(old):
                 raise ValueError(
@@ -693,7 +706,7 @@ class LLMEngine:
             )
 
     def stats(self) -> dict:
-        with self._lock:
+        with self._caller_lock():
             # ONE pool-ledger snapshot feeds utilization, free_blocks and the
             # hbm section — separate property reads could each interleave
             # with an allocation and disagree in one response
@@ -726,10 +739,31 @@ class LLMEngine:
             return s
 
     def run_loop(self, stop: threading.Event, idle_sleep_s: float = 0.002) -> None:
-        """Drive ``step()`` until ``stop`` is set (run it in a thread)."""
+        """Drive ``step()`` until ``stop`` is set (run it in a thread).
+        While another thread waits for the engine lock, each busy step is
+        followed by a ``HANDOFF_S`` pause, so the waiter gets the lock
+        between two steps instead of after the backlog."""
         while not stop.is_set():
             if not self.step():
                 stop.wait(idle_sleep_s)
+            elif self._callers_waiting:
+                time.sleep(HANDOFF_S)
+
+    @contextlib.contextmanager
+    def _caller_lock(self):
+        """The engine lock, taken by a thread other than the step loop's;
+        counted in ``_callers_waiting`` while it waits (``run_loop``)."""
+        with self._callers_lock:
+            self._callers_waiting += 1
+        try:
+            self._lock.acquire()
+        finally:
+            with self._callers_lock:
+                self._callers_waiting -= 1
+        try:
+            yield
+        finally:
+            self._lock.release()
 
     # -- the step ----------------------------------------------------------
 

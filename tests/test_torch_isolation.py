@@ -56,6 +56,9 @@ def test_importing_the_port_loads_no_jax():
         "import ray_tpu_torch._private.worker_template, ray_tpu_torch._private.node_agent\n"
         "import ray_tpu_torch.cluster_utils, ray_tpu_torch.dag.compiled, ray_tpu_torch.accelerators.gpu\n"
         "import ray_tpu_torch.experimental.channel, ray_tpu_torch.util.state, ray_tpu_torch._native\n"
+        "import ray_tpu_torch.serve, ray_tpu_torch.serve.llm, ray_tpu_torch.serve._private.proxy\n"
+        "import ray_tpu_torch.serve._private.grpc_proxy, ray_tpu_torch.serve._private.controller\n"
+        "import ray_tpu_torch._private.chaos, ray_tpu_torch.obs, ray_tpu_torch.llm.loadgen\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
