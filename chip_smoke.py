@@ -13,7 +13,9 @@ GPT-124M (the reference's default GPTConfig, 12 layers, bf16 over fp32
 master weights), plain, speculating and across a weight hot-swap, in
 process and then from a GPU actor of the port's runtime; and GPT-J-6B
 served by Serve from a ``num_gpus=1`` replica over the handle and HTTP,
-with a mid-stream failover on GPT-124M. Phases, each of which raises on
+with a mid-stream failover on GPT-124M; and the 406M training shape through
+``TorchTrainer`` on a ``num_gpus=1`` worker of the runtime, restarted from
+its checkpoint after the worker dies. Phases, each of which raises on
 failure:
 
 1. device: name, compute capability, power limit;
@@ -142,7 +144,25 @@ failure:
     dense forward; kill -> replacement ready -> first resumed token timed;
     K1 and K2 at 12 launches a step in the new replica; (g)
     ``serve.shutdown()`` and ``shutdown()`` leave no runtime process and no
-    store segment.
+    store segment;
+25. Train over the runtime (``ray_tpu_torch.train``): ``init()`` with the card
+    as one ``GPU``, then (a) ``TorchTrainer(ScalingConfig(num_workers=1,
+    use_gpu=True))`` trains phase 17's model (``TRAIN_406M``, batch 26,
+    weights from a CUDA generator seeded 0 built in the worker, phase 17's
+    tokens through ``get_dataset_shard("train")``) for 12 steps through
+    K3-K5, saving its train state after step 8 (``save_state``,
+    ``CheckpointConfig(num_to_keep=1)``): losses of steps 0-5 equal phase
+    17's bit for bit, the worker's K3/K4/K5 launches as expected; the median
+    step against phase 17's, the checkpoint's bytes and save time, fit() to
+    the first report, peak memory; (b) the same run with
+    ``FailureConfig(max_failures=1)``, whose first worker process ends by
+    ``os._exit(1)`` right after reporting step 9: the group restarts from
+    step 8's checkpoint and steps 9-11 equal (a)'s bit for bit; death to
+    the first resumed report split into the worker's start, the model's
+    build, the checkpoint's load and the first step; (c) after each
+    ``fit()`` the ``GPU`` resource and the card's memory are free again;
+    (d) two CPU actors allreduce 64 MB fp32 torch tensors by fan-in and by
+    the ring (``ray_tpu_torch.collective``), equal to numpy's sums.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it has
 the card's name and power limit, the one before that the kernels' record.
@@ -156,12 +176,15 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from types import SimpleNamespace
 
 # phase 24 drives the HTTP ingress, whose proxy is built on h11: the card's
@@ -3326,6 +3349,12 @@ def qkv_grad_gaps(got, want, d: int) -> dict:
             for i, name in enumerate("qkv")}
 
 
+def train_406m_tokens() -> np.ndarray:
+    """The 406M step's batch: (26, 1025) int64 tokens from numpy seed 13."""
+    rng = np.random.RandomState(13)
+    return rng.randint(0, TRAIN_406M.vocab_size, (TRAIN_B, TRAIN_406M.seq_len + 1))
+
+
 def train_406m(card: str) -> dict:
     """Phase 17: the 406M training shape of bench.py (vocab 50304, seq 1024,
     d 1024, 24 layers, 16 heads, remat "attn", one CE chunk), bf16, random
@@ -3341,8 +3370,7 @@ def train_406m(card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0))
     n_params = sum(p.numel() for p in params.parameters())
-    rng = np.random.RandomState(13)
-    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (TRAIN_B, cfg.seq_len + 1))).cuda()
+    tokens = torch.from_numpy(train_406m_tokens()).cuda()
     # the einsum path under remat "full": the same values, with one block's
     # (26, 16, 1024, 1024) probabilities alive at a time
     _, flash_grads = qkv_grads(cfg, params, tokens)
@@ -3453,7 +3481,295 @@ def train_406m(card: str) -> dict:
 
     print(f"  fused CE forward + backward {cuda_ms(ce_step, 5, warmup=1):.3f} ms per step "
           f"({TRAIN_B * s} tokens x vocab {V}, {cfg.ce_chunks} chunk; CUDA events, alone)")
-    return dict(launches=dict(zip(("K3", "K4", "K5"), launches)))
+    return dict(launches=dict(zip(("K3", "K4", "K5"), launches)), losses=losses[:steps + 1],
+                step_ms=step_ms, n_params=n_params)
+
+
+# ---------------------------------------------------------------------------
+# phase 25: Train over the runtime
+# ---------------------------------------------------------------------------
+
+TRAIN25_STEPS = 12  # (a): steps 0-11
+TRAIN25_CKPT_AT = 8  # the step after which the train state is checkpointed (9 steps in)
+TRAIN25_DIE_AFTER = 9  # (b): the first attempt's worker dies right after reporting this step
+COLLECTIVE_BYTES = 64 << 20  # (d): each rank's fp32 tensor
+
+
+def train_loop_406m(config: dict) -> None:
+    """Phase 25's train loop, run by the ``TorchTrainer`` worker: phase 17's
+    model and step (``TRAIN_406M`` at batch 26, ``gpt_init`` with a CUDA
+    generator seeded 0, ``build_train_step(gpt_loss, adamw(1e-4))``) over
+    the batches of ``get_dataset_shard("train")``, each moved to the card
+    in the loop. It resumes from ``get_checkpoint()`` when there is one,
+    saves the train state after step ``ckpt_at`` (``save_state``), and
+    reports after every step: the loss, the step's ms (host clock ending in
+    the loss's sync), the worker's K3/K4/K5 launches counted from 0 at the
+    loop's start, its peak memory and its clock. On a first attempt with
+    ``die_after`` set, the worker process ends with ``os._exit(1)`` right
+    after reporting that step, its clock written to ``death_file``
+    first."""
+    t_enter = time.time()
+    from ray_tpu_torch import train
+
+    # a fresh worker keeps torch's default, no TF32, which main() sets for
+    # phase 17 (and the loop names no ``torch.backends``: cloudpickle cannot
+    # carry its module objects by value)
+    cfg = config["cfg"]
+    t0 = time.perf_counter()
+    params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    init_fn, step_fn = build_train_step(lambda p, t: gpt_loss(cfg, p, t), adamw(1e-4))
+    state = init_fn(params)
+    build_s = time.perf_counter() - t0
+    start, load_s = 0, None
+    ckpt = train.get_checkpoint()
+    if ckpt is not None:
+        t0 = time.perf_counter()
+        state = train.load_state(ckpt, state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        start = state.step
+    reset_flash_launches()
+    torch.cuda.reset_peak_memory_stats()
+    for i, batch in enumerate(train.get_dataset_shard("train")):
+        if i < start:
+            continue
+        tokens = torch.from_numpy(batch).cuda()
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, tokens)
+        loss = loss.item()  # ends in a host sync
+        step_ms = (time.perf_counter() - t0) * 1e3
+        saved = None
+        if i == config["ckpt_at"]:
+            stage = tempfile.mkdtemp(dir=config["stage"])
+            t0 = time.perf_counter()
+            saved = train.save_state(state, stage)
+            save_s = time.perf_counter() - t0
+            ckpt_bytes = sum(f.stat().st_size for f in Path(stage).iterdir())
+        metrics = dict(step=i, loss=loss, ms=step_ms, launches=list(flash_launches()), resumed_from=start,
+                       wall=time.time(), enter_wall=t_enter, build_s=build_s, load_s=load_s,
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if saved is not None:
+            metrics.update(save_s=save_s, ckpt_bytes=ckpt_bytes)
+        train.report(metrics, checkpoint=saved)
+        if saved is not None:
+            shutil.rmtree(stage)  # committed into the trial directory by now
+        if i == config["die_after"] and start == 0:
+            Path(config["death_file"]).write_text(repr(time.time()))
+            os._exit(1)  # a real process death, right after reporting this step
+
+
+def fit_406m(storage: str, name: str, die_after: int = -1) -> tuple:
+    """One ``TorchTrainer`` run of ``train_loop_406m`` on one ``num_gpus=1``
+    worker: (the ``Result``, the clock at ``fit()``, the death file)."""
+    from ray_tpu_torch import train
+
+    stage = tempfile.mkdtemp(dir=storage, prefix="stage_")
+    death_file = os.path.join(stage, "died_at")
+    batches = [train_406m_tokens()] * TRAIN25_STEPS
+    trainer = train.TorchTrainer(
+        train_loop_406m,
+        train_loop_config=dict(cfg=TRAIN_406M, ckpt_at=TRAIN25_CKPT_AT, die_after=die_after, stage=stage,
+                               death_file=death_file),
+        scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=train.RunConfig(
+            name=name, storage_path=storage, verbose=1,
+            checkpoint_config=train.CheckpointConfig(num_to_keep=1),
+            failure_config=train.FailureConfig(max_failures=1 if die_after >= 0 else 0)),
+        datasets={"train": batches},
+    )
+    t_fit = time.time()
+    result = trainer.fit()
+    return result, t_fit, death_file
+
+
+def card_released(free_before: int, cache_bytes: int, label: str, timeout_s: float = 60.0) -> None:
+    """(c): after ``fit()`` the ``GPU`` resource is free again and the card's
+    free memory is back to what it was before the phase, within
+    this process's allocator cache (the worker's process and context are gone)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        gpu = gpu_available()
+        free = torch.cuda.mem_get_info()[0]
+        if gpu == 1.0 and free >= free_before - cache_bytes:
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{label}: GPU resource {gpu}, card free {free / 1e9:.3f} GB against "
+                                 f"{free_before / 1e9:.3f} GB before the phase (cache {cache_bytes / 1e9:.3f} GB)")
+        time.sleep(0.2)
+    print(f"(c) {label}: GPU resource free again ({gpu}), card free {free / 1e9:.3f} GB against "
+          f"{free_before / 1e9:.3f} GB before the phase (allocator cache {cache_bytes / 1e9:.3f} GB), "
+          f"{compute_apps() or 'no'} compute apps")
+
+
+class CollectiveMember:
+    """(d): a CPU actor in a host collective group."""
+
+    def __init__(self, rank: int, world: int, group: str):
+        from ray_tpu_torch import collective
+
+        self.rank, self.world, self.group = rank, world, group
+        collective.init_collective_group(world, rank, group_name=group)
+
+    @staticmethod
+    def values(rank: int, n: int) -> np.ndarray:
+        # integers: every sum is exact in fp32, whatever the order
+        return np.random.RandomState(rank).randint(-1000, 1000, n).astype(np.float32)
+
+    def allreduce(self, n: int, ring: bool) -> tuple:
+        """One allreduce of an (n,) fp32 CPU tensor, by the ring or by
+        fan-in (the ring threshold put above or below the tensor in this
+        process): (its result equals numpy's sum, the path taken, seconds)."""
+        from ray_tpu_torch import collective
+        from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
+        x = torch.from_numpy(self.values(self.rank, n))
+        GLOBAL_CONFIG.collective_ring_threshold_bytes = 1 if ring else 4 * n + 1
+        collective.barrier(group_name=self.group)
+        t0 = time.perf_counter()
+        out = collective.allreduce(x, group_name=self.group, timeout=300.0)
+        s = time.perf_counter() - t0
+        want = sum(self.values(r, n) for r in range(self.world))
+        return out is x and np.array_equal(out.numpy(), want), s
+
+
+def collective_on_the_runtime() -> None:
+    """(d): two CPU actors allreduce 64 MB fp32 torch tensors, by fan-in and
+    by the ring; the results equal numpy's sums."""
+    member = ray_tpu_torch.remote(num_cpus=1)(CollectiveMember)
+    world, n = 2, COLLECTIVE_BYTES // 4
+    members = [member.remote(r, world, "phase25") for r in range(world)]
+    for ring in (False, True):
+        out = ray_tpu_torch.get([m.allreduce.remote(n, ring) for m in members], timeout=600)
+        if not all(ok for ok, _ in out):
+            raise AssertionError(f"(d) allreduce by {'ring' if ring else 'fan-in'}: a result differs from numpy's sum")
+        slowest = max(s for _, s in out)
+        print(f"(d) allreduce of {COLLECTIVE_BYTES / 2**20:.0f} MB fp32 torch tensors over {world} CPU actors by "
+              f"{'the ring' if ring else 'fan-in'}: equal to numpy's sum on every rank; slowest rank "
+              f"{slowest * 1e3:.1f} ms, {COLLECTIVE_BYTES / slowest / 1e9:.3f} GB/s of tensor per rank")
+    for m in members:
+        ray_tpu_torch.kill(m)
+
+
+def train_over_runtime(card: str, phase17: dict) -> dict:
+    """Phase 25: ``TorchTrainer`` over the port's runtime with the card as one
+    ``GPU``. (a) 12 steps of phase 17's model and batch on one
+    ``num_gpus=1`` worker, the train state checkpointed after step 8
+    (``CheckpointConfig(num_to_keep=1)``): losses of steps 0-5 equal phase
+    17's bit for bit, K3/K4/K5 launches as expected, finite losses; the
+    median step against phase 17's, the checkpoint's bytes and save and
+    load times, ``fit()`` to the first report, peak memory. (b) the same
+    run under ``FailureConfig(max_failures=1)`` whose first worker calls
+    ``os._exit(1)`` right after reporting step 9: the group restarts from
+    step 8's checkpoint, steps 9-11 equal (a)'s bit for bit; the death to
+    the first resumed report, split. (c) after each ``fit()`` the GPU and
+    its memory are released. (d) the host collectives on CPU actors."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    free_before = torch.cuda.mem_get_info()[0]
+    cache_bytes = max(torch.cuda.memory_reserved() - torch.cuda.memory_allocated(), 64 << 20)
+    ray_tpu_torch.init()
+    res = ray_tpu_torch.cluster_resources()
+    if res.get("GPU") != 1.0:
+        raise AssertionError(f"ray_tpu_torch.init() offers GPU {res.get('GPU')}, expected 1")
+    storage = tempfile.mkdtemp(prefix="phase25_")
+    n_params = phase17["n_params"]
+    want_bytes = 12 * n_params  # fp32 masters and AdamW's two moments
+    disk = shutil.disk_usage(storage)
+    print(f"storage {storage}: {disk.free / 1e9:.1f} GB free of {disk.total / 1e9:.1f} GB; a checkpoint is "
+          f"~{want_bytes / 1e9:.2f} GB (12 bytes a parameter), staged and committed: twice that")
+    if disk.free < 2.5 * want_bytes:
+        raise AssertionError(f"{storage} has {disk.free / 1e9:.1f} GB free: too little for two checkpoints")
+    try:
+        # (a) uninterrupted
+        result, t_fit, _ = fit_406m(storage, "uninterrupted")
+        if result.error is not None:
+            raise AssertionError(f"(a) fit() failed: {result.error!r}")
+        hist = [h["metrics"] for h in result.metrics_history]
+        if [m["step"] for m in hist] != list(range(TRAIN25_STEPS)):
+            raise AssertionError(f"(a) reported steps {[m['step'] for m in hist]}")
+        losses = [m["loss"] for m in hist]
+        launches = tuple(hist[-1]["launches"])
+        # the trainer's time between two steps: report, ack and the next
+        # batch's copy (the clock of step i's report minus step i - 1's,
+        # less step i); after step 8 it also commits the checkpoint
+        between = {m["step"]: m["wall"] - prev["wall"] - m["ms"] / 1e3 for prev, m in zip(hist, hist[1:])}
+        commit_s = between.pop(TRAIN25_CKPT_AT + 1)
+        want = expected_flash_launches(TRAIN_406M, TRAIN25_STEPS)
+        same17 = losses[:len(phase17["losses"])] == phase17["losses"]
+        ms = [m["ms"] for m in hist[1:]]
+        saved = hist[TRAIN25_CKPT_AT]
+        print(f"(a) TorchTrainer, 1 num_gpus=1 worker, {TRAIN25_STEPS} steps [{card}]: losses "
+              f"{[f'{x:.6f}' for x in losses]}; steps 0-{len(phase17['losses']) - 1} "
+              f"{'equal' if same17 else 'DIFFER from'} phase 17's bit for bit; median step "
+              f"{np.median(ms):.3f} ms against phase 17's {np.median(phase17['step_ms']):.3f} ms "
+              f"({np.median(ms) / np.median(phase17['step_ms']):.3f}x; steps {[f'{x:.1f}' for x in ms]}); "
+              f"K3/K4/K5 launches {launches} = {want} expected; fit() to the first report "
+              f"{hist[0]['wall'] - t_fit:.2f} s (worker start to loop {hist[0]['enter_wall'] - t_fit:.2f} s, "
+              f"model built on the card {hist[0]['build_s']:.2f} s, step 0 {hist[0]['ms']:.1f} ms); "
+              f"the trainer between two steps {np.median(list(between.values())) * 1e3:.2f} ms (median; "
+              f"report, ack, batch to the card); checkpoint after step {TRAIN25_CKPT_AT}: "
+              f"{saved['ckpt_bytes'] / 1e9:.3f} GB ({saved['ckpt_bytes'] / n_params:.2f} bytes a parameter) "
+              f"saved in {saved['save_s']:.2f} s, committed into the trial directory (and the stage deleted) "
+              f"in {commit_s:.2f} s; worker peak memory {max(m['peak_gb'] for m in hist):.2f} GB")
+        if not same17:
+            raise AssertionError(f"(a) losses of steps 0-5 {losses[:6]} differ from phase 17's {phase17['losses']}")
+        if launches != want:
+            raise AssertionError(f"(a) K3/K4/K5 launched {launches} times, expected {want}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"(a) non-finite loss {losses}")
+        card_released(free_before, cache_bytes, "after (a)")
+        shutil.rmtree(os.path.join(storage, "uninterrupted"), ignore_errors=True)
+
+        # (b) the worker dies after reporting step 9 and the group restarts
+        result_b, t_fit_b, death_file = fit_406m(storage, "failover", die_after=TRAIN25_DIE_AFTER)
+        if result_b.error is not None:
+            raise AssertionError(f"(b) fit() failed: {result_b.error!r}")
+        hist_b = [h["metrics"] for h in result_b.metrics_history]
+        first = [m for m in hist_b if m["resumed_from"] == 0]
+        resumed = [m for m in hist_b if m["resumed_from"] > 0]
+        died_at = float(Path(death_file).read_text())
+        ckpt_step = result_b.checkpoint.get_metadata().get("step") if result_b.checkpoint else None
+        if [m["step"] for m in first] != list(range(TRAIN25_DIE_AFTER + 1)) or \
+                [m["step"] for m in resumed] != list(range(TRAIN25_CKPT_AT + 1, TRAIN25_STEPS)):
+            raise AssertionError(f"(b) reported steps {[(m['step'], m['resumed_from']) for m in hist_b]}")
+        got = [m["loss"] for m in resumed]
+        same_a = got == losses[TRAIN25_CKPT_AT + 1:]
+        r0 = resumed[0]
+        f_launch = tuple(first[-1]["launches"])
+        want_f = expected_flash_launches(TRAIN_406M, len(first))
+        r_launch = tuple(resumed[-1]["launches"])
+        want_r = expected_flash_launches(TRAIN_406M, len(resumed))
+        print(f"(b) worker os._exit(1) after reporting step {TRAIN25_DIE_AFTER}; the group restarted from "
+              f"step {TRAIN25_CKPT_AT}'s checkpoint (train state {ckpt_step} steps in); resumed steps "
+              f"{[m['step'] for m in resumed]} losses {[f'{x:.6f}' for x in got]} "
+              f"{'equal' if same_a else 'DIFFER from'} (a)'s bit for bit; death to the first resumed report "
+              f"{r0['wall'] - died_at:.2f} s = group restart and worker start to the loop "
+              f"{r0['enter_wall'] - died_at:.2f} s + model built on the card {r0['build_s']:.2f} s + checkpoint "
+              f"load {r0['load_s']:.2f} s + first step {r0['ms'] / 1e3:.2f} s + the rest "
+              f"{r0['wall'] - r0['enter_wall'] - r0['build_s'] - r0['load_s'] - r0['ms'] / 1e3:.2f} s; "
+              f"K3/K4/K5 launches in the worker that died {f_launch} = {want_f} expected, in the new worker "
+              f"{r_launch} = {want_r} expected")
+        if not same_a:
+            raise AssertionError(f"(b) resumed losses {got} differ from (a)'s {losses[TRAIN25_CKPT_AT + 1:]}")
+        if ckpt_step is None or ckpt_step < TRAIN25_CKPT_AT + 1:
+            raise AssertionError(f"(b) the last checkpoint is {ckpt_step} steps in, expected step "
+                                 f"{TRAIN25_CKPT_AT}'s ({TRAIN25_CKPT_AT + 1} steps in) or later")
+        if f_launch != want_f:
+            raise AssertionError(f"(b) K3/K4/K5 launched {f_launch} times in the worker that died, expected {want_f}")
+        if r_launch != want_r:
+            raise AssertionError(f"(b) K3/K4/K5 launched {r_launch} times in the new worker, expected {want_r}")
+        card_released(free_before, cache_bytes, "after (b)")
+
+        # (d) host collectives on the runtime
+        collective_on_the_runtime()
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+        ray_tpu_torch.shutdown()
+    print(f"phase 25 [{card}]: {time.perf_counter() - t_phase:.1f} s")
+    launches_b = tuple(a + b for a, b in zip(f_launch, r_launch))
+    return dict(launches=dict(zip(("K3", "K4", "K5"), tuple(a + b for a, b in zip(launches, launches_b)))))
 
 
 def main() -> int:
@@ -3568,6 +3884,9 @@ def main() -> int:
     phase("24 Serve over the engine")
     served24 = serve_on_card(card, (served["tokens_per_s"], served["ttft_ms"]))
 
+    phase("25 Train over the runtime")
+    trained25 = train_over_runtime(card, trained)
+
     kernels = [
         dict(
             name="paged_decode_attention",
@@ -3615,7 +3934,9 @@ def main() -> int:
             route="cuda",
             source="ray_tpu_torch/ops/csrc/flash_attention.cu",
             replaces=f"ray_tpu/ops/flash_attention.py:{line}",
-            launches=trained["launches"][kernel],
+            launches=trained["launches"][kernel] + trained25["launches"][kernel],
+            launches_by_path={"gpt_406m_train_step": trained["launches"][kernel],
+                              "gpt_406m_torch_trainer": trained25["launches"][kernel]},
             **flash_timing[kernel],
         ))
     print(json.dumps({"kernels": kernels}))

@@ -34,7 +34,14 @@ Ported so far:
 - GPT training on one device — the model (``models.gpt``), causal attention
   with hand-written flash forward and backward kernels (``ops.attention``,
   ``ops.flash_attention``), the fused cross-entropy (``ops.fused_ce``) and
-  the AdamW train step (``parallel``).
+  the AdamW train step (``parallel``); GPT-J's training loss
+  (``models.gptj.gptj_loss``);
+- Train (``train``): ``TorchTrainer`` over a worker group of actors (one
+  card each with ``use_gpu``), sessions with ``report``, checkpoints of
+  train states, restart from the latest checkpoint after a worker dies,
+  ``torch.distributed`` bring-up, and the HuggingFace weight loaders
+  (``train.integrations``); host collectives among actors
+  (``collective``).
 
 ROADMAP.md lists what is still to port.
 
@@ -71,7 +78,7 @@ __version__ = "0.1.0"
 
 _LAZY_SUBMODULES = {
     "llm", "models", "ops", "parallel", "util", "accelerators",
-    "cluster_utils", "dag", "experimental", "serve", "obs",
+    "cluster_utils", "dag", "experimental", "serve", "obs", "train", "collective",
 }
 
 #: names exported from the heavy subpackages, loaded on first access

@@ -33,15 +33,16 @@ mixture-of-experts (``n_experts > 0``) and ring attention are not ported
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.models._remat import remat_block
 from ray_tpu_torch.models.gptj import LayerNorm, _attend_cached
 from ray_tpu_torch.models.sampling import pick_tokens
 from ray_tpu_torch.ops.attention import causal_attention
@@ -269,11 +270,6 @@ def _block(cfg: GPTConfig, x, layer: GPTBlock):
     return _attn_out_mlp(cfg, x, att, layer)
 
 
-def _checkpoint(fn, *args):
-    # the blocks draw no random numbers: no RNG state to stash and restore
-    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
-
-
 def gpt_hidden(cfg: GPTConfig, params: GPT, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (batch, seq) int → final hidden (batch, seq, d_model) in the
     activation dtype. The lm head is applied by the caller."""
@@ -284,14 +280,13 @@ def gpt_hidden(cfg: GPTConfig, params: GPT, tokens: torch.Tensor) -> torch.Tenso
     x = F.embedding(tokens, params.embed.weight).to(dt)
     x = x + params.pos_embed.weight[:s].to(dt)
     for layer in params.blocks:
-        if not cfg.remat:
-            x = _block(cfg, x, layer)
-        elif cfg.remat_policy == "full":
-            x = _checkpoint(_block, cfg, x, layer)
-        else:  # "attn": the flash op's saved tensors stand between two segments
-            q, k, v = _checkpoint(_attn_in, cfg, x, layer)
-            att = causal_attention(q, k, v, impl=cfg.attn_impl)
-            x = _checkpoint(_attn_out_mlp, cfg, x, att, layer)
+        x = remat_block(
+            cfg,
+            x,
+            partial(_block, cfg, layer=layer),
+            partial(_attn_in, cfg, layer=layer),
+            partial(_attn_out_mlp, cfg, layer=layer),
+        )
     return params.ln_f(x)
 
 

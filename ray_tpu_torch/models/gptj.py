@@ -14,12 +14,22 @@ lm head stay fp32, because the reference computes the lm head in fp32.
 are (in, out): ``params_from_jax`` transposes when it carries weights over.
 
 ``gptj_forward`` and ``gptj_decode`` (greedy, or sampled per token) are the
-dense oracles the engine is tested against.
+dense oracles the engine is tested against; they attend with the plain
+einsum. ``gptj_hidden`` and ``gptj_loss`` are the training path: attention
+through ``ops.attention.causal_attention`` with ``cfg.attn_impl`` (on the
+card ``auto`` takes the flash kernels K3-K5, which take head dims 64 and
+128, so GPT-J-6B's 256 raises there as the kernels do), per-block
+rematerialization through ``models._remat`` as ``models.gpt`` does it
+(``"full"`` and ``"attn"``; the reference's ``"dots"`` raises), and the
+fused cross-entropy with the lm head's bias (``ops.fused_ce``) when
+``cfg.fused_loss``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
+from typing import Optional
 
 import numpy as np
 import torch
@@ -27,8 +37,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.models._remat import remat_block
 from ray_tpu_torch.models.sampling import pick_tokens
 from ray_tpu_torch.ops.attention import causal_attention
+from ray_tpu_torch.ops.fused_ce import fused_softmax_cross_entropy_bias
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +52,13 @@ class GPTJConfig:
     n_heads: int = 16
     rotary_dim: int = 64
     dtype: str = "bfloat16"
+    #: the training path's options (``gptj_hidden``/``gptj_loss``), with the
+    #: reference's defaults; serving ignores them
+    remat: bool = True
+    remat_policy: str = "full"
+    attn_impl: str = "auto"
+    fused_loss: bool = True
+    ce_chunks: Optional[int] = None
 
     @property
     def d_ff(self) -> int:
@@ -216,13 +235,13 @@ def _project_qkv(cfg: GPTJConfig, h, layer: GPTJBlock, positions):
     )
 
 
-def _block(cfg: GPTJConfig, x, layer: GPTJBlock, positions):
+def _block(cfg: GPTJConfig, x, layer: GPTJBlock, positions, impl: str = "xla"):
     """One GPT-J block: parallel attention + MLP over one layernorm.
     Returns the new hidden state and this block's rotated (k, v)."""
     b, s, d = x.shape
     h = layer.ln1(x)
     q, k, v = _project_qkv(cfg, h, layer, positions)
-    att = causal_attention(q, k, v, impl="xla").transpose(1, 2).reshape(b, s, d)
+    att = causal_attention(q, k, v, impl=impl).transpose(1, 2).reshape(b, s, d)
     return x + layer.attn_out(att) + layer.mlp(h), k, v
 
 
@@ -234,6 +253,74 @@ def gptj_forward(cfg: GPTJConfig, params: GPTJ, tokens: torch.Tensor) -> torch.T
     for layer in params.blocks:
         x, _, _ = _block(cfg, x, layer, positions)
     return params.logits(x)
+
+
+# ---------------------------------------------------------------------------
+# training path
+# ---------------------------------------------------------------------------
+
+_PORTED_POLICIES = ("full", "attn")
+
+
+def _check_remat(cfg: GPTJConfig) -> None:
+    if cfg.remat and cfg.remat_policy not in _PORTED_POLICIES:
+        if cfg.remat_policy == "dots":
+            raise NotImplementedError(
+                "remat_policy='dots' is not ported yet (ported: "
+                f"{_PORTED_POLICIES}): ROADMAP.md, queue A"
+            )
+        raise ValueError(f"remat_policy must be 'full', 'attn' or 'dots', got {cfg.remat_policy!r}")
+
+
+def _train_block(cfg: GPTJConfig, x, layer: GPTJBlock, positions):
+    return _block(cfg, x, layer, positions, cfg.attn_impl)[0]
+
+
+def _attn_in(cfg: GPTJConfig, x, layer: GPTJBlock, positions):
+    return _project_qkv(cfg, layer.ln1(x), layer, positions)
+
+
+def _attn_out_mlp(cfg: GPTJConfig, x, att, layer: GPTJBlock):
+    b, s, d = x.shape
+    return x + layer.attn_out(att.transpose(1, 2).reshape(b, s, d)) + layer.mlp(layer.ln1(x))
+
+
+def gptj_hidden(cfg: GPTJConfig, params: GPTJ, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (b, s) int → final hidden (b, s, d) in the activation dtype,
+    differentiable. Under remat ``"attn"`` the pre-attention segment (ln1,
+    q/k/v, rotary) and the post-attention segment (out-projection, MLP) are
+    recomputed apart, and the attention op's saved tensors stand between
+    them, so the forward kernel never runs again."""
+    _check_remat(cfg)
+    x = params.embed(tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    for layer in params.blocks:
+        x = remat_block(
+            cfg,
+            x,
+            partial(_train_block, cfg, layer=layer, positions=positions),
+            partial(_attn_in, cfg, layer=layer, positions=positions),
+            partial(_attn_out_mlp, cfg, layer=layer),
+        )
+    return params.ln_f(x)
+
+
+def gptj_loss(cfg: GPTJConfig, params: GPTJ, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross-entropy, mean over (b, s - 1). With
+    ``cfg.fused_loss`` the (tokens, vocab) logits go through the fused
+    cross-entropy with the lm head's bias, in ``cfg.ce_chunks`` chunks."""
+    hidden = gptj_hidden(cfg, params, tokens[:, :-1])
+    targets = tokens[:, 1:]
+    head = params.lm_head
+    if cfg.fused_loss:
+        b, s, d = hidden.shape
+        losses = fused_softmax_cross_entropy_bias(
+            hidden.reshape(b * s, d), head.weight.t(), head.bias, targets.reshape(-1), cfg.ce_chunks
+        )
+        return losses.mean()
+    logits = hidden.float() @ head.weight.t() + head.bias
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
 
 
 def _attend_cached(q1, k_cache, v_cache, length: int):

@@ -68,6 +68,46 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_train_and_collective_load_no_jax_and_no_torch_until_asked():
+    """``train`` and ``collective`` (which runtime workers import for every
+    train worker and collective member) load neither JAX, the JAX package
+    nor torch; ``train.integrations`` and ``models.gptj``'s loss bring torch
+    and still no JAX."""
+    code = (
+        "import sys, ray_tpu_torch.train, ray_tpu_torch.collective\n"
+        "import ray_tpu_torch.train._storage, ray_tpu_torch.train._checkpoint_manager\n"
+        "import ray_tpu_torch.collective.coordinator, ray_tpu_torch.collective.types\n"
+        "light = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu', 'torch'))\n"
+        "import ray_tpu_torch.train.integrations, ray_tpu_torch.train.integrations.huggingface\n"
+        "from ray_tpu_torch.models.gptj import gptj_loss, gptj_hidden\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
+        "print(light, bad); sys.exit(1 if light or bad or 'torch' not in sys.modules else 0)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_sends_its_runtime_code_by_value():
+    """On the card ``chip_smoke.py`` runs as ``__main__``, so the functions
+    and classes it hands the runtime's workers (phase 23's GPU task, phase
+    25's train loop and collective member) travel by cloudpickle's value
+    path, which must be able to carry every global they name."""
+    code = (
+        "import sys, cloudpickle\n"
+        "sys.path.insert(0, '.')\n"
+        "import chip_smoke as cs\n"
+        "cloudpickle.register_pickle_by_value(cs)\n"
+        "for obj in (cs.train_loop_406m, cs.CollectiveMember, cs.k1_in_a_gpu_task, cs.GPTEngineHost):\n"
+        "    cloudpickle.dumps(obj)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_engine_without_device_needs_cuda(monkeypatch):
     from ray_tpu_torch.llm import EngineConfig, LLMEngine
     from ray_tpu_torch.models.gptj import GPTJConfig, gptj_init, params_from_jax
