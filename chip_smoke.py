@@ -15,8 +15,9 @@ process and then from a GPU actor of the port's runtime; and GPT-J-6B
 served by Serve from a ``num_gpus=1`` replica over the handle and HTTP,
 with a mid-stream failover on GPT-124M; and the 406M training shape through
 ``TorchTrainer`` on a ``num_gpus=1`` worker of the runtime, restarted from
-its checkpoint after the worker dies. Phases, each of which raises on
-failure:
+its checkpoint after the worker dies, and fed from a ``ray_tpu_torch.data``
+Dataset through ``iter_torch_batches``, beside a global shuffle of a 1.07 GB
+token corpus to the card. Phases, each of which raises on failure:
 
 1. device: name, compute capability, power limit;
 2. build: the three kernel sources, in parallel, and their ``-Xptxas -v`` register /
@@ -162,7 +163,25 @@ failure:
     build, the checkpoint's load and the first step; (c) after each
     ``fit()`` the ``GPU`` resource and the card's memory are free again;
     (d) two CPU actors allreduce 64 MB fp32 torch tensors by fan-in and by
-    the ring (``ray_tpu_torch.collective``), equal to numpy's sums.
+    the ring (``ray_tpu_torch.collective``), equal to numpy's sums;
+26. Data into Train (``ray_tpu_torch.data``): (a) phase 25 (a)'s run fed
+    from ``data.read_numpy`` over 13 ``.npy`` files of 24 rows (phase 17's
+    batch 12 times over, so batches straddle files) through
+    ``TorchTrainer(datasets=...)``, ``get_dataset_shard`` and
+    ``iter_torch_batches(batch_size=26, drop_last=True)``, whose batches
+    land on the card with no copy of the loop's own: 12 batches, losses equal
+    phase 25 (a)'s bit for bit, K3/K4/K5 at 288 launches each, the card
+    released after ``fit()``; the median step against phase 17's, the
+    trainer between two steps against phase 25's, ``fit()`` to the first
+    report; (b) 64 ``.npy`` files of 4096 rows x 1025 int32 tokens (numpy
+    seed 0, 1.07 GB) through ``read_numpy`` -> ``random_shuffle(seed=0)``
+    -> ``iter_torch_batches(batch_size=256, dtypes=int64)`` to the card in
+    the driver, and the same without the shuffle: every row arrives once
+    (the row count and a multiset hash computed on the card, equal to
+    numpy's over the files), the shuffled first batch differs from the
+    corpus's first 256 rows; rows/s and GB/s from the first read to the
+    last batch on the card, the shuffle's share of that time, the object
+    store's capacity and peak use.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it has
 the card's name and power limit, the one before that the kernels' record.
@@ -3530,10 +3549,15 @@ def train_loop_406m(config: dict) -> None:
         start = state.step
     reset_flash_launches()
     torch.cuda.reset_peak_memory_stats()
-    for i, batch in enumerate(train.get_dataset_shard("train")):
+    shard = train.get_dataset_shard("train")
+    if config.get("from_dataset"):
+        # phase 26: a Dataset's batches, moved to the card by its iterator
+        batches = (b["tokens"] for b in shard.iter_torch_batches(batch_size=TRAIN_B, drop_last=True))
+    else:
+        batches = (torch.from_numpy(b).cuda() for b in shard)
+    for i, tokens in enumerate(batches):
         if i < start:
             continue
-        tokens = torch.from_numpy(batch).cuda()
         t0 = time.perf_counter()
         state, loss = step_fn(state, tokens)
         loss = loss.item()  # ends in a host sync
@@ -3546,6 +3570,7 @@ def train_loop_406m(config: dict) -> None:
             save_s = time.perf_counter() - t0
             ckpt_bytes = sum(f.stat().st_size for f in Path(stage).iterdir())
         metrics = dict(step=i, loss=loss, ms=step_ms, launches=list(flash_launches()), resumed_from=start,
+                       on_card=tokens.is_cuda, rows=tokens.shape[0],
                        wall=time.time(), enter_wall=t_enter, build_s=build_s, load_s=load_s,
                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         if saved is not None:
@@ -3558,18 +3583,21 @@ def train_loop_406m(config: dict) -> None:
             os._exit(1)  # a real process death, right after reporting this step
 
 
-def fit_406m(storage: str, name: str, die_after: int = -1) -> tuple:
+def fit_406m(storage: str, name: str, die_after: int = -1, dataset=None) -> tuple:
     """One ``TorchTrainer`` run of ``train_loop_406m`` on one ``num_gpus=1``
-    worker: (the ``Result``, the clock at ``fit()``, the death file)."""
+    worker: (the ``Result``, the clock at ``fit()``, the death file). Fed
+    phase 17's batch 12 times as a list, or ``dataset`` (phase 26, which
+    saves no checkpoint)."""
     from ray_tpu_torch import train
 
     stage = tempfile.mkdtemp(dir=storage, prefix="stage_")
     death_file = os.path.join(stage, "died_at")
-    batches = [train_406m_tokens()] * TRAIN25_STEPS
+    batches = [train_406m_tokens()] * TRAIN25_STEPS if dataset is None else dataset
     trainer = train.TorchTrainer(
         train_loop_406m,
-        train_loop_config=dict(cfg=TRAIN_406M, ckpt_at=TRAIN25_CKPT_AT, die_after=die_after, stage=stage,
-                               death_file=death_file),
+        train_loop_config=dict(cfg=TRAIN_406M, ckpt_at=TRAIN25_CKPT_AT if dataset is None else -1,
+                               die_after=die_after, stage=stage, death_file=death_file,
+                               from_dataset=dataset is not None),
         scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
         run_config=train.RunConfig(
             name=name, storage_path=storage, verbose=1,
@@ -3769,7 +3797,213 @@ def train_over_runtime(card: str, phase17: dict) -> dict:
         ray_tpu_torch.shutdown()
     print(f"phase 25 [{card}]: {time.perf_counter() - t_phase:.1f} s")
     launches_b = tuple(a + b for a, b in zip(f_launch, r_launch))
-    return dict(launches=dict(zip(("K3", "K4", "K5"), tuple(a + b for a, b in zip(launches, launches_b)))))
+    return dict(launches=dict(zip(("K3", "K4", "K5"), tuple(a + b for a, b in zip(launches, launches_b)))),
+                losses=losses, between_ms=np.median(list(between.values())) * 1e3)
+
+
+# ---------------------------------------------------------------------------
+# phase 26: Data into Train
+# ---------------------------------------------------------------------------
+
+DATA26_FILES, DATA26_ROWS = 13, 24  # (a): 312 rows = phase 17's batch 12 times, 24 rows a file
+SHUFFLE_FILES, SHUFFLE_ROWS, SHUFFLE_BATCH = 64, 4096, 256  # (b): 262,144 rows of 1025 int32 tokens
+HASH_MUL = 0x9E3779B97F4A7C15 - (1 << 64)  # (b): a row hash's odd multiplier, as a signed int64
+
+
+def write_406m_corpus(d: str) -> None:
+    """(a): phase 17's (26, 1025) int64 batch 12 times over, as 13 .npy
+    files of 24 rows: the trainer's 26-row batches straddle files and
+    blocks."""
+    tokens = np.concatenate([train_406m_tokens()] * TRAIN25_STEPS)
+    assert len(tokens) == DATA26_FILES * DATA26_ROWS
+    for i in range(DATA26_FILES):
+        np.save(os.path.join(d, f"part-{i:03d}.npy"), tokens[i * DATA26_ROWS:(i + 1) * DATA26_ROWS])
+
+
+def hash_weights() -> np.ndarray:
+    return np.random.RandomState(1).randint(1, 1 << 62, TRAIN_406M.seq_len + 1, dtype=np.int64)
+
+
+def rows_hash(x, w):
+    """Sum of a mixed hash of each row (int64, wrapping): order-free, so a
+    permutation of the rows keeps it and a lost or repeated row moves it.
+    Runs on numpy arrays and on torch tensors alike."""
+    r = (x * w).sum(1)
+    r = r ^ (r >> 29)
+    return (r * HASH_MUL).sum()
+
+
+def write_shuffle_corpus(d: str) -> tuple:
+    """(b): 64 files of 4096 rows x 1025 int32 tokens from numpy seed 0
+    (1.07 GB): (numpy's hash of every row, the corpus's first 256 rows)."""
+    rng = np.random.RandomState(0)
+    w = hash_weights()
+    total = np.zeros(1, dtype=np.int64)
+    first = None
+    for i in range(SHUFFLE_FILES):
+        x = rng.randint(0, TRAIN_406M.vocab_size, (SHUFFLE_ROWS, TRAIN_406M.seq_len + 1)).astype(np.int32)
+        np.save(os.path.join(d, f"part-{i:03d}.npy"), x)
+        total += rows_hash(x.astype(np.int64), w)
+        if first is None:
+            first = x[:SHUFFLE_BATCH].astype(np.int64)
+    return int(total[0]), first
+
+
+class StorePeak:
+    """Polls the object store's arena use and /dev/shm's on a thread: the
+    peak of each while a pipeline runs."""
+
+    def __init__(self):
+        self.arena = shm_store.attach_arena(shm_store._write_arena_name)
+        self.peak_arena = self.peak_shm = 0
+        self.shm0 = shutil.disk_usage("/dev/shm").used
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+
+    def _poll(self):
+        while not self._stop.wait(0.01):
+            self.peak_arena = max(self.peak_arena, self.arena.used)
+            self.peak_shm = max(self.peak_shm, shutil.disk_usage("/dev/shm").used - self.shm0)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+
+
+def spilled_objects() -> int:
+    from ray_tpu_torch._private.head import _object_metrics
+
+    return int(sum(_object_metrics()["spills"]._snapshot()["data"].values()))
+
+
+def tokens_to_card(ds, w_card) -> tuple:
+    """(b): a Dataset's rows to the card as int64 batches of 256 through
+    ``iter_torch_batches`` (the card is its default device): (rows, the rows'
+    hash computed on the card, the first batch on the host, seconds from
+    the first read to the last batch on the card)."""
+    t0 = time.perf_counter()
+    n, first = 0, None
+    total = torch.zeros((), dtype=torch.int64, device="cuda")
+    for batch in ds.iter_torch_batches(batch_size=SHUFFLE_BATCH, dtypes={"tokens": torch.int64}):
+        x = batch["tokens"]
+        if not x.is_cuda or x.dtype != torch.int64:
+            raise AssertionError(f"(b) a batch arrived as {x.dtype} on {x.device}")
+        if first is None:
+            first = x.cpu()
+        total += rows_hash(x, w_card)
+        n += x.shape[0]
+    torch.cuda.synchronize()
+    return n, int(total.item()), first, time.perf_counter() - t0
+
+
+def shuffle_to_card(card: str) -> None:
+    """(b): the 1.07 GB corpus read and sent to the card, then read,
+    shuffled globally and sent to the card: every row arrives once in both,
+    the shuffled first batch differs from the corpus's; rows/s, GB/s, the
+    shuffle's share and the store's peak use."""
+    from ray_tpu_torch import data
+
+    corpus = tempfile.mkdtemp(prefix="phase26b_")
+    try:
+        t0 = time.perf_counter()
+        want_hash, first_rows = write_shuffle_corpus(corpus)
+        rows = SHUFFLE_FILES * SHUFFLE_ROWS
+        nbytes = rows * (TRAIN_406M.seq_len + 1) * 4
+        print(f"(b) corpus: {SHUFFLE_FILES} files x {SHUFFLE_ROWS} rows x {TRAIN_406M.seq_len + 1} int32 tokens "
+              f"(numpy seed 0), {nbytes / 1e9:.3f} GB, written and hashed in {time.perf_counter() - t0:.1f} s")
+        w_card = torch.from_numpy(hash_weights()).cuda()
+        spills0 = spilled_objects()
+        peak = StorePeak()
+        try:
+            # plain, shuffled, plain: the share is read against the later,
+            # warm plain run
+            runs = [tokens_to_card(data.read_numpy(corpus, column="tokens"), w_card),
+                    tokens_to_card(data.read_numpy(corpus, column="tokens").random_shuffle(seed=0), w_card),
+                    tokens_to_card(data.read_numpy(corpus, column="tokens"), w_card)]
+        finally:
+            peak.stop()
+        shuffled, plain = runs[1], runs[2]
+        for label, (n, got_hash, first, secs) in zip(("read", "read + random_shuffle", "read again"), runs):
+            if n != rows or got_hash != want_hash:
+                raise AssertionError(f"(b) {label}: {n} rows with hash {got_hash} arrived, expected {rows} rows "
+                                     f"with numpy's hash {want_hash}")
+        if not (torch.equal(runs[0][2], torch.from_numpy(first_rows)) and torch.equal(plain[2], runs[0][2])):
+            raise AssertionError("(b) without the shuffle the first batch is not the corpus's first 256 rows")
+        if torch.equal(shuffled[2], torch.from_numpy(first_rows)):
+            raise AssertionError("(b) the shuffled first batch equals the corpus's first 256 rows")
+        arena = peak.arena
+        share = (shuffled[3] - plain[3]) / shuffled[3]
+        for label, (n, _, _, secs) in zip(("read -> card", "read -> random_shuffle -> card", "read -> card again"),
+                                          runs):
+            print(f"(b) {label} [{card}]: {n} rows, each once (row count and the card's hash equal numpy's "
+                  f"{want_hash}); {secs:.2f} s from the first read to the last batch on the card, "
+                  f"{n / secs:.0f} rows/s, {nbytes / secs / 1e9:.3f} GB/s of int32 tokens")
+        print(f"(b) the shuffled first batch differs from the corpus's first 256 rows; the shuffle's share of "
+              f"the shuffled run {share:.3f} ({shuffled[3] - plain[3]:.2f} s over the later plain read); object "
+              f"store: "
+              f"arena capacity {arena.capacity / 1e9:.2f} GB, peak arena use {peak.peak_arena / 1e9:.3f} GB, "
+              f"peak /dev/shm growth {peak.peak_shm / 1e9:.3f} GB, {spilled_objects() - spills0} objects spilled")
+    finally:
+        shutil.rmtree(corpus, ignore_errors=True)
+
+
+def data_into_train(card: str, phase17: dict, phase25: dict) -> dict:
+    """Phase 26: (a) phase 25 (a)'s run fed from a ``read_numpy`` Dataset
+    through ``iter_torch_batches``: 12 batches on the card, losses equal
+    phase 25 (a)'s bit for bit, K3/K4/K5 at 288 each, the card released;
+    (b) ``shuffle_to_card``."""
+    from ray_tpu_torch import data
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    free_before = torch.cuda.mem_get_info()[0]
+    cache_bytes = max(torch.cuda.memory_reserved() - torch.cuda.memory_allocated(), 64 << 20)
+    ray_tpu_torch.init()
+    storage = tempfile.mkdtemp(prefix="phase26_")
+    try:
+        corpus = os.path.join(storage, "tokens")
+        os.makedirs(corpus)
+        write_406m_corpus(corpus)
+        result, t_fit, _ = fit_406m(storage, "dataset", dataset=data.read_numpy(corpus, column="tokens"))
+        if result.error is not None:
+            raise AssertionError(f"(a) fit() failed: {result.error!r}")
+        hist = [h["metrics"] for h in result.metrics_history]
+        losses = [m["loss"] for m in hist]
+        launches = tuple(hist[-1]["launches"]) if hist else None
+        want = expected_flash_launches(TRAIN_406M, TRAIN25_STEPS)
+        same25 = losses == phase25["losses"]
+        ms = [m["ms"] for m in hist[1:]]
+        between = [m["wall"] - prev["wall"] - m["ms"] / 1e3 for prev, m in zip(hist, hist[1:])]
+        print(f"(a) TorchTrainer fed data.read_numpy({DATA26_FILES} files x {DATA26_ROWS} rows) through "
+              f"iter_torch_batches(batch_size={TRAIN_B}, drop_last=True) [{card}]: {len(hist)} batches of "
+              f"{sorted({m['rows'] for m in hist})} rows, on the card {all(m['on_card'] for m in hist)}; losses "
+              f"{[f'{x:.6f}' for x in losses]} {'equal' if same25 else 'DIFFER from'} phase 25 (a)'s bit for bit; "
+              f"median step {np.median(ms):.3f} ms against phase 17's {np.median(phase17['step_ms']):.3f} ms "
+              f"({np.median(ms) / np.median(phase17['step_ms']):.3f}x); the trainer between two steps "
+              f"{np.median(between) * 1e3:.2f} ms (median; report, ack, the next batch from the Dataset to the "
+              f"card) against phase 25's {phase25['between_ms']:.2f} ms; fit() to the first report "
+              f"{hist[0]['wall'] - t_fit:.2f} s (worker start to loop {hist[0]['enter_wall'] - t_fit:.2f} s, "
+              f"model built {hist[0]['build_s']:.2f} s, step 0 {hist[0]['ms']:.1f} ms); K3/K4/K5 launches "
+              f"{launches} = {want} expected")
+        if [m["step"] for m in hist] != list(range(TRAIN25_STEPS)):
+            raise AssertionError(f"(a) reported steps {[m['step'] for m in hist]}, expected 0-{TRAIN25_STEPS - 1}")
+        if not all(m["on_card"] and m["rows"] == TRAIN_B for m in hist):
+            raise AssertionError("(a) a batch did not arrive on the card with 26 rows")
+        if not same25:
+            raise AssertionError(f"(a) losses {losses} differ from phase 25 (a)'s {phase25['losses']}")
+        if launches != want:
+            raise AssertionError(f"(a) K3/K4/K5 launched {launches} times, expected {want}")
+        card_released(free_before, cache_bytes, "after (a)")
+
+        shuffle_to_card(card)
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+        ray_tpu_torch.shutdown()
+    print(f"phase 26 [{card}]: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=dict(zip(("K3", "K4", "K5"), launches)))
 
 
 def main() -> int:
@@ -3887,6 +4121,9 @@ def main() -> int:
     phase("25 Train over the runtime")
     trained25 = train_over_runtime(card, trained)
 
+    phase("26 Data into Train")
+    trained26 = data_into_train(card, trained, trained25)
+
     kernels = [
         dict(
             name="paged_decode_attention",
@@ -3934,9 +4171,10 @@ def main() -> int:
             route="cuda",
             source="ray_tpu_torch/ops/csrc/flash_attention.cu",
             replaces=f"ray_tpu/ops/flash_attention.py:{line}",
-            launches=trained["launches"][kernel] + trained25["launches"][kernel],
+            launches=trained["launches"][kernel] + trained25["launches"][kernel] + trained26["launches"][kernel],
             launches_by_path={"gpt_406m_train_step": trained["launches"][kernel],
-                              "gpt_406m_torch_trainer": trained25["launches"][kernel]},
+                              "gpt_406m_torch_trainer": trained25["launches"][kernel],
+                              "gpt_406m_trainer_from_dataset": trained26["launches"][kernel]},
             **flash_timing[kernel],
         ))
     print(json.dumps({"kernels": kernels}))

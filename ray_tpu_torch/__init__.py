@@ -41,7 +41,11 @@ Ported so far:
   train states, restart from the latest checkpoint after a worker dies,
   ``torch.distributed`` bring-up, and the HuggingFace weight loaders
   (``train.integrations``); host collectives among actors
-  (``collective``).
+  (``collective``);
+- Data (``data``): lazy datasets on numpy-dict blocks — reads, maps,
+  global shuffles, sorts, groupbys, splits and writes run as tasks of the
+  runtime, and ``iter_torch_batches`` hands batches to the card; a trainer
+  given ``datasets=`` splits a Dataset among its workers.
 
 ROADMAP.md lists what is still to port.
 
@@ -78,7 +82,7 @@ __version__ = "0.1.0"
 
 _LAZY_SUBMODULES = {
     "llm", "models", "ops", "parallel", "util", "accelerators",
-    "cluster_utils", "dag", "experimental", "serve", "obs", "train", "collective",
+    "cluster_utils", "dag", "experimental", "serve", "obs", "train", "collective", "data",
 }
 
 #: names exported from the heavy subpackages, loaded on first access

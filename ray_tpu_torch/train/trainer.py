@@ -204,6 +204,10 @@ class DataParallelTrainer:
         if not self.datasets:
             return None
         datasets = self.datasets
+        # a Dataset is split once per world size, not once per rank: each
+        # ``split`` executes the plan, and two executions of an unseeded
+        # shuffle would hand the ranks overlapping shares
+        splits: dict = {}
 
         def split(rank: int, world: int) -> dict:
             shards = {}
@@ -211,7 +215,9 @@ class DataParallelTrainer:
                 if hasattr(ds, "streaming_split_shard"):
                     shards[name] = ds.streaming_split_shard(rank, world)
                 elif hasattr(ds, "split"):
-                    shards[name] = ds.split(world)[rank]
+                    if (name, world) not in splits:
+                        splits[(name, world)] = ds.split(world)
+                    shards[name] = splits[(name, world)][rank]
                 else:
                     shards[name] = _IterShard(ds, rank, world)
             return shards

@@ -89,6 +89,42 @@ def test_train_and_collective_load_no_jax_and_no_torch_until_asked():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_data_loads_no_jax_torch_or_pyarrow_until_asked():
+    """``data`` loads neither JAX, the JAX package, torch, pyarrow nor pandas
+    — not on import, not while a pipeline runs (reads, maps, a shuffle, the
+    driver's batches), and not in the forked workers that run its tasks;
+    ``iter_torch_batches`` brings torch, and still no JAX."""
+    code = (
+        "import sys, tempfile, os, numpy as np\n"
+        "import ray_tpu_torch, ray_tpu_torch.data\n"
+        "from ray_tpu_torch.data import (aggregate, block, context, dataset, datasource, datasource_ext,\n"
+        "                                exchange, execution, iterator, plan)\n"
+        "heavy = ('jax', 'jaxlib', 'ray_tpu', 'torch', 'pyarrow', 'pandas')\n"
+        "loaded = lambda: sorted(m for m in sys.modules if m.split('.')[0] in heavy)\n"
+        "after_import = loaded()\n"
+        "d = tempfile.mkdtemp()\n"
+        "[np.save(os.path.join(d, f'{i}.npy'), np.arange(40).reshape(10, 4) + i) for i in range(3)]\n"
+        "ray_tpu_torch.init(num_cpus=2, num_gpus=0)\n"
+        "rd = ray_tpu_torch.data\n"
+        "probe = lambda b: {'mods': np.array([','.join(sorted(m for m in sys.modules\n"
+        "                   if m.split('.')[0] in heavy))] * len(b['x']), dtype=object)}\n"
+        "ds = rd.read_numpy(d, column='x').random_shuffle(seed=0)\n"
+        "in_workers = sorted({r['mods'] for r in ds.map_batches(probe).take_all()})\n"
+        "n = sum(len(b['x']) for b in ds.iter_batches(batch_size=7))\n"
+        "after_run = loaded()\n"
+        "t = next(iter(ds.iter_torch_batches(batch_size=7, device='cpu')))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu'))\n"
+        "ray_tpu_torch.shutdown()\n"
+        "print(after_import, in_workers, after_run, bad, n)\n"
+        "sys.exit(1 if after_import or in_workers != [''] or after_run or bad or n != 30\n"
+        "         or 'torch' not in sys.modules else 0)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_chip_smoke_sends_its_runtime_code_by_value():
     """On the card ``chip_smoke.py`` runs as ``__main__``, so the functions
     and classes it hands the runtime's workers (phase 23's GPU task, phase
@@ -210,6 +246,20 @@ def test_training_entry_points_without_device_need_cuda(monkeypatch):
         init_fn(params)
     state = init_fn(params, "cpu")
     assert state.step == 0 and all(p.device.type == "cpu" for p in state.params.parameters())
+
+
+def test_iter_torch_batches_without_device_needs_cuda(monkeypatch):
+    """``iter_torch_batches()`` with no device means the card, as
+    ``jax.device_put``'s default device does on the reference: without a GPU
+    it raises at the call, before any data moves."""
+    from ray_tpu_torch import data as rd
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = rd.range(8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ds.iter_torch_batches(batch_size=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ds.iterator().iter_torch_batches(batch_size=4, device="cuda")
 
 
 def test_flash_on_a_card_raises_for_a_head_dim_the_kernels_lack(monkeypatch):
