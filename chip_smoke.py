@@ -17,7 +17,10 @@ with a mid-stream failover on GPT-124M; and the 406M training shape through
 ``TorchTrainer`` on a ``num_gpus=1`` worker of the runtime, restarted from
 its checkpoint after the worker dies, and fed from a ``ray_tpu_torch.data``
 Dataset through ``iter_torch_batches``, beside a global shuffle of a 1.07 GB
-token corpus to the card. Phases, each of which raises on failure:
+token corpus to the card; GPT-124M trained under each remat policy and as
+a mixture of experts, and tuned by ``Tuner`` over trial actors sharing the
+card (ASHA, PBT) and over a ``TorchTrainer``. Phases, each of which raises
+on failure:
 
 1. device: name, compute capability, power limit;
 2. build: the three kernel sources, in parallel, and their ``-Xptxas -v`` register /
@@ -74,7 +77,8 @@ token corpus to the card. Phases, each of which raises on failure:
     50304, batch 26, bf16, remat "attn") through ``build_train_step``:
     step 0's qkv weight gradients and loss against the einsum path; step
     time, tokens/s, MFU, losses, peak memory, K3-K5 launches against the
-    expected per-step counts, and a profile of two steps;
+    expected per-step counts, remat "attn" against "attn_qkv" in turns,
+    and a profile of two steps;
 18. GPT fp32 identity: a full-width (d 768, 12 heads of 64, vocab 50304),
     2-layer fp32 GPT engine is token-identical to the dense ``gpt_decode``,
     plain and speculating at spec_k 4 (test-double and n-gram drafters);
@@ -181,7 +185,38 @@ token corpus to the card. Phases, each of which raises on failure:
     numpy's over the files), the shuffled first batch differs from the
     corpus's first 256 rows; rows/s and GB/s from the first read to the
     last batch on the card, the shuffle's share of that time, the object
-    store's capacity and peak use.
+    store's capacity and peak use;
+27. GPT remat policies and MoE, at GPT-124M's full width (d 768, 12 layers,
+    12 heads of 64, vocab 50304, bf16, fused CE, batch 8 x 1024, weights
+    from a CUDA generator seeded 0): (a) one ``build_train_step`` step under
+    each of the remat policies "full", "dots", "attn", "attn_qkv" and
+    "big" from one set of weights: losses equal bit for bit, gradients
+    within ``GRAD_POLICY_GAP`` of "full"'s, K3/K4/K5 at 24/12/12 launches a
+    step under "full" and "dots" and 12/12/12 under the others; then 5
+    steps each, the policies in turns: median step and peak memory; (b)
+    with 8 experts in every block (top-2, capacity 1.25, aux 0.01, remat
+    "full"): the aux loss at init within (0.5, 6.0), step 0's loss and
+    aux against the port's fp32 plain path on the card (einsum attention,
+    the reference's einsum dispatch), the fp32 index dispatch against the
+    einsum one, 5 AdamW steps with finite, falling losses; dropped
+    assignments per layer, K3/K4/K5 launches, step ms, tokens/s, peak
+    memory;
+28. Tune over Train (``ray_tpu_torch.tune``), ``init()`` with the card as
+    one ``GPU``, dense GPT-124M (remat "attn", batch 8) as the trainable:
+    (a) ``Tuner`` with ``ASHAScheduler(max_t=6, grace_period=2,
+    reduction_factor=2)``, 4 trials of lr from ``loguniform(1e-5, 1e-3)``
+    (seed 28) at ``with_resources({"CPU": 1, "GPU": 0.5})``, two at a time
+    on the card: every trial ``TERMINATED``, ASHA stops one before max_t,
+    the best trial's losses equal a ``build_train_step`` run in this process bit
+    for bit, the trials' K3/K4/K5 launches add up to 12 a step each; (b)
+    ``PopulationBasedTraining`` over 2 trials, interval 2, 6 iterations,
+    each report carrying a checkpoint of the train state: an exploit
+    happens, the exploiting trial's restored parameters hash equal to the
+    donor's checkpoint, its lr is the donor's times 0.8 or 1.2; (c)
+    ``Tuner(TorchTrainer(..., ScalingConfig(num_workers=1, use_gpu=True)))``
+    over two lrs, 2 steps each (``as_trainable``): the best result has the
+    lower loss, the inner worker holds the card (the cluster's GPU is all
+    taken while it trains), its launches reported.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it has
 the card's name and power limit, the one before that the kernels' record.
@@ -227,7 +262,7 @@ from ray_tpu_torch.llm import prefix_cache as prefix_mod
 from ray_tpu_torch.llm import watchdog as watchdog_mod
 from ray_tpu_torch.llm.model_runner import _row_noise, _window_noise
 from ray_tpu_torch.llm.scheduler import RUNNING
-from ray_tpu_torch.models.gpt import GPTConfig, gpt_decode, gpt_forward, gpt_init, gpt_loss
+from ray_tpu_torch.models.gpt import GPT, GPTConfig, gpt_decode, gpt_forward, gpt_init, gpt_loss
 from ray_tpu_torch.models.gptj import GPTJ_6B, GPTJConfig, gptj_decode, gptj_forward, gptj_init
 from ray_tpu_torch.ops import _kernels
 from ray_tpu_torch.ops.flash_attention import (
@@ -3286,9 +3321,10 @@ def reset_flash_launches() -> None:
 
 def expected_flash_launches(cfg: GPTConfig, steps: int) -> tuple[int, int, int]:
     """K3, K4, K5 launches for ``steps`` training steps: one of each per
-    layer, and K3 once more per layer under full remat (the backward
-    recomputes the block)."""
-    k3 = (2 if cfg.remat and cfg.remat_policy == "full" else 1) * cfg.n_layers * steps
+    layer, and K3 once more per layer under remat "full" and "dots" (the
+    backward recomputes the flash forward; the other policies keep its
+    out and lse)."""
+    k3 = (2 if cfg.remat and cfg.remat_policy in ("full", "dots") else 1) * cfg.n_layers * steps
     return k3, cfg.n_layers * steps, cfg.n_layers * steps
 
 
@@ -3381,8 +3417,8 @@ def train_406m(card: str) -> dict:
     gradients of every layer's qkv weight are held against the einsum
     attention path's (``QKV_GRAD_GAP``), and its loss too; then one warmup
     step, 5 timed steps through ``build_train_step`` and ``adamw(1e-4)``
-    with the launch counts from 0, then 2 unprofiled and 2 profiled
-    steps."""
+    with the launch counts from 0, then 12 steps alternating remat "attn"
+    and "attn_qkv", then 2 unprofiled and 2 profiled steps."""
     cfg = TRAIN_406M
     gc.collect()
     torch.cuda.empty_cache()
@@ -3445,6 +3481,26 @@ def train_406m(card: str) -> dict:
         f"losses {[f'{x:.6f}' for x in losses]} (step 0 xla {xla_loss:.6f}, tolerance 1e-2); peak memory "
         f"{peak_gb:.2f} GB; K3/K4/K5 launches {launches} = {want} expected"
     )
+
+    # remat "attn" (ln1 and the qkv projection recomputed) against
+    # "attn_qkv" (the qkv projection kept, the port's "attn" before its
+    # repair), in turns on the same state: the step and its memory peak
+    # above what it found allocated
+    qkv_cfg = dataclasses.replace(cfg, remat_policy="attn_qkv")
+    _, qkv_step_fn = build_train_step(lambda p, t: gpt_loss(qkv_cfg, p, t), adamw(1e-4))
+    policy_ms, policy_peak = {"attn": [], "attn_qkv": []}, {"attn": 0, "attn_qkv": 0}
+    for policy in ("attn", "attn_qkv", "attn_qkv", "attn") * 3:
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        state, loss = (step_fn if policy == "attn" else qkv_step_fn)(state, tokens)
+        loss.item()
+        policy_ms[policy].append((time.perf_counter() - t0) * 1e3)
+        policy_peak[policy] = max(policy_peak[policy], torch.cuda.max_memory_allocated() - before)
+    print("  remat policy in turns (attn, attn_qkv, attn_qkv, attn) x 3: " + "; ".join(
+        f"{p} median {np.median(v):.3f} ms (steps {[f'{x:.1f}' for x in v]}), peak {policy_peak[p] / 1e9:.3f} GB "
+        f"above the train state" for p, v in policy_ms.items())
+        + f"; attn_qkv / attn {np.median(policy_ms['attn_qkv']) / np.median(policy_ms['attn']):.4f}")
 
     # where the step's time goes: 2 steps without the profiler, 2 with it
     def run(n) -> float:
@@ -4006,6 +4062,483 @@ def data_into_train(card: str, phase17: dict, phase25: dict) -> dict:
     return dict(launches=dict(zip(("K3", "K4", "K5"), launches)))
 
 
+# ---------------------------------------------------------------------------
+# phase 27: GPT remat policies and MoE
+# ---------------------------------------------------------------------------
+
+POLICIES = ("full", "dots", "attn", "attn_qkv", "big")
+GPT27_B, GPT27_TIMED, MOE27_STEPS = 8, 5, 5  # batch 8 x 1024; timed steps per policy; (b)'s steps
+# (a): a policy's step-0 gradients may differ from "full"'s by this much,
+# as the largest |g - g_full| over max |g_full| of each parameter (bf16
+# activations: one bf16 step is 2^-8 = 3.9e-3 of a value); the recompute
+# reruns the same operators on the same inputs, so it is 0 where they are
+# deterministic
+GRAD_POLICY_GAP = 1e-2
+# (b): the MoE step 0 on the card (bf16, K3-K5, index dispatch, fused CE)
+# against the port's fp32 plain path on the card (einsum attention, the
+# reference's einsum dispatch): the loss within this, absolute (it is ~11),
+# and the aux loss within this share of its value; bf16 rounds the router's
+# logits, which can move a near-tie assignment
+MOE_STEP0_TOL = 2e-2
+# (b): the index dispatch against the einsum dispatch, both fp32: the same
+# products summed in another order
+MOE_DISPATCH_RTOL = 1e-5
+# (b): GPT-124M with 8 experts in every block (Switch-Base-8's count) and
+# the reference's routing defaults: top-2, capacity factor 1.25, aux weight
+# 0.01; remat "full"
+MOE27 = dataclasses.replace(GPT_124M, n_experts=8)
+
+
+def gpt27_tokens(seed: int, b: int = GPT27_B) -> torch.Tensor:
+    """(b, 1025) int64 tokens on the card from numpy ``seed``."""
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.randint(0, GPT_124M.vocab_size, (b, GPT_124M.seq_len + 1))).cuda()
+
+
+def remat_policies(card: str) -> dict:
+    """Phase 27 (a): GPT-124M at full width (bf16, fused CE, batch 8 x 1024,
+    one set of weights from a CUDA generator seeded 0) takes one
+    ``build_train_step`` step under each remat policy: the losses equal bit
+    for bit, the gradients within ``GRAD_POLICY_GAP`` of "full"'s, K3/K4/K5
+    at 24/12/12 launches a step under "full" and "dots" and 12/12/12 under
+    the others; then ``GPT27_TIMED`` steps each, the policies in turns: the
+    median step and the peak memory of a step."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    init = gpt_init(GPT_124M, torch.Generator(device="cuda").manual_seed(0))
+    tokens = gpt27_tokens(27)
+    runs, full_grads = {}, None
+    reset_flash_launches()
+    for policy in POLICIES:
+        cfg = dataclasses.replace(GPT_124M, remat_policy=policy)
+        init_fn, step_fn = build_train_step(lambda p, t, cfg=cfg: gpt_loss(cfg, p, t), adamw(1e-4))
+        state = init_fn(copy.deepcopy(init))
+        before = flash_launches()
+        state, loss = step_fn(state, tokens)
+        run = runs[policy] = dict(step_fn=step_fn, state=state, loss=loss.item(), ms=[], peak=[],
+                                  launches=tuple(a - b for a, b in zip(flash_launches(), before)),
+                                  want=expected_flash_launches(cfg, 1))
+        grads = [p.grad.detach().clone() for p in state.params.parameters()]
+        if full_grads is None:
+            full_grads = grads
+        run["gap"] = max((g - f).abs().max().item() / max(f.abs().max().item(), 1e-30)
+                         for g, f in zip(grads, full_grads))
+        del grads
+    del init, full_grads
+    for _ in range(GPT27_TIMED):
+        for policy in POLICIES:
+            run = runs[policy]
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            run["state"], loss = run["step_fn"](run["state"], tokens)
+            loss.item()  # ends in a host sync
+            run["ms"].append((time.perf_counter() - t0) * 1e3)
+            run["peak"].append(torch.cuda.max_memory_allocated() - before)
+    launches = flash_launches()
+    losses = {p: r["loss"] for p, r in runs.items()}
+    for policy, run in runs.items():
+        print(f"  {policy:9s} step 0 loss {run['loss']!r}; K3/K4/K5 launches a step {run['launches']} "
+              f"(expected {run['want']}); gradients' largest gap to full's {run['gap']:.3g}; median step "
+              f"{np.median(run['ms']):.3f} ms (steps {[f'{x:.1f}' for x in run['ms']]}); peak memory of a "
+              f"step {max(run['peak']) / 1e9:.3f} GB above the {len(POLICIES)} train states")
+    first_diff = next((p for p in POLICIES if losses[p] != losses["full"]), None)
+    print(f"(a) GPT-124M under each remat policy [{card}]: batch {GPT27_B} x {GPT_124M.seq_len}, "
+          f"{GPT27_TIMED} steps each in turns after step 0; step 0 losses "
+          + ("equal bit for bit" if first_diff is None else
+             f"DIFFER, first {first_diff} {losses[first_diff]!r} against full's {losses['full']!r}")
+          + f"; gradient gap limit {GRAD_POLICY_GAP}; K3/K4/K5 launches over the phase {launches}")
+    if first_diff is not None:
+        raise AssertionError(f"(a) step 0 loss under {first_diff} {losses[first_diff]!r} differs from "
+                             f"full's {losses['full']!r}")
+    for policy, run in runs.items():
+        if run["launches"] != run["want"]:
+            raise AssertionError(f"(a) {policy}: K3/K4/K5 launched {run['launches']} in a step, "
+                                 f"expected {run['want']}")
+        if not run["gap"] <= GRAD_POLICY_GAP:
+            raise AssertionError(f"(a) {policy}: step 0 gradients {run['gap']:.3g} from full's "
+                                 f"(limit {GRAD_POLICY_GAP})")
+    return dict(launches=launches, ms={p: float(np.median(r["ms"])) for p, r in runs.items()},
+                peak_gb={p: max(r["peak"]) / 1e9 for p, r in runs.items()})
+
+
+def moe_dropped_shares(cfg: GPTConfig, params, tokens) -> list:
+    """The share of dropped assignments in each layer of one forward,
+    read from the routing (``gpt._moe_route``) as it runs."""
+    from ray_tpu_torch.models import gpt as gpt_mod
+
+    shares, route = [], gpt_mod._moe_route
+
+    def recording(*args):
+        out = route(*args)
+        shares.append(1.0 - out[3].float().mean().item())
+        return out
+
+    gpt_mod._moe_route = recording
+    try:
+        with torch.no_grad():
+            _, aux = gpt_mod.gpt_hidden(cfg, params, tokens)
+    finally:
+        gpt_mod._moe_route = route
+    return shares, aux.item()
+
+
+def moe_train(card: str) -> dict:
+    """Phase 27 (b): ``MOE27`` (GPT-124M, 8 experts a block, top-2,
+    capacity 1.25, aux 0.01, remat "full", bf16) from a CUDA generator
+    seeded 0, batch 8 x 1024: the aux loss at init within the reference's
+    test bounds (0.5, 6.0); step 0's loss and aux against the fp32 plain
+    path on the card (einsum attention and dispatch) within
+    ``MOE_STEP0_TOL``, and the fp32 index dispatch against the einsum one;
+    then ``MOE27_STEPS`` AdamW steps (lr 1e-4) through ``build_train_step``:
+    losses finite and falling, K3/K4/K5 launches as expected, step ms,
+    tokens/s, peak memory, and the dropped share per layer."""
+    cfg = MOE27
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in params.parameters())
+    tokens = gpt27_tokens(28)
+    shares, aux0 = moe_dropped_shares(cfg, params, tokens[:, :-1])
+    plain = dataclasses.replace(cfg, dtype="float32", attn_impl="xla", fused_loss=False, remat=False)
+    with torch.no_grad():
+        plain_loss = gpt_loss(plain, params, tokens, moe_dispatch="einsum").item()
+        plain_aux = gpt_forward(plain, params, tokens[:, :-1], return_aux=True, moe_dispatch="einsum")[1].item()
+        index_loss = gpt_loss(plain, params, tokens).item()
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_fn, step_fn = build_train_step(lambda p, t: gpt_loss(cfg, p, t), adamw(1e-4))
+    state = init_fn(params)
+    reset_flash_launches()
+    losses, step_ms = [], []
+    for _ in range(MOE27_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, tokens)
+        losses.append(loss.item())  # ends in a host sync
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = flash_launches()
+    want = expected_flash_launches(cfg, MOE27_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = float(np.median(step_ms[1:]))
+    print(f"(b) MoE GPT-124M [{card}]: {n_params / 1e9:.3f} B parameters ({cfg.n_experts} experts a block, "
+          f"top-{cfg.experts_per_token}, capacity factor {cfg.capacity_factor}, aux weight "
+          f"{cfg.moe_aux_weight}), batch {GPT27_B} x {cfg.seq_len}, remat \"full\"; aux at init {aux0!r} "
+          f"(bounds 0.5-6.0); step 0 loss {losses[0]!r} and aux {aux0!r} against the fp32 plain path's "
+          f"{plain_loss!r} and {plain_aux!r} (tolerance {MOE_STEP0_TOL}); fp32 index dispatch loss "
+          f"{index_loss!r} against the einsum's (rtol {MOE_DISPATCH_RTOL}); dropped assignments by layer "
+          f"{[f'{s:.4f}' for s in shares]}; losses {[f'{x:.6f}' for x in losses]}; median step {ms:.3f} ms "
+          f"(steps {[f'{x:.1f}' for x in step_ms]}), {GPT27_B * cfg.seq_len / (ms / 1e3):.0f} tokens/s; peak "
+          f"memory {peak_gb:.2f} GB; K3/K4/K5 launches {launches} = {want} expected")
+    if not 0.5 < aux0 < 6.0:
+        raise AssertionError(f"(b) aux loss at init {aux0}, outside (0.5, 6.0)")
+    if not (abs(losses[0] - plain_loss) <= MOE_STEP0_TOL
+            and abs(aux0 - plain_aux) <= MOE_STEP0_TOL * abs(plain_aux)):
+        raise AssertionError(f"(b) step 0 loss {losses[0]} / aux {aux0} against the fp32 plain path's "
+                             f"{plain_loss} / {plain_aux}")
+    if not abs(index_loss - plain_loss) <= MOE_DISPATCH_RTOL * abs(plain_loss):
+        raise AssertionError(f"(b) fp32 index dispatch loss {index_loss} against the einsum's {plain_loss}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"(b) losses not finite and falling: {losses}")
+    if launches != want:
+        raise AssertionError(f"(b) K3/K4/K5 launched {launches} times over {MOE27_STEPS} steps, expected {want}")
+    return dict(launches=launches, ms=ms, peak_gb=peak_gb)
+
+
+# ---------------------------------------------------------------------------
+# phase 28: Tune over Train
+# ---------------------------------------------------------------------------
+
+TUNE_CFG = dataclasses.replace(GPT_124M, remat_policy="attn")  # dense GPT-124M, batch 8
+TUNE_STEPS = 6  # every trial's steps (ASHA's max_t, PBT's iterations)
+TUNE_INNER_STEPS = 2  # (c): the steps of each trainer run inside a trial
+TUNE_TIMEOUT_S = 600  # a Tuner run taking longer fails the phase
+
+
+def tune_batches() -> np.ndarray:
+    """(TUNE_STEPS, 8, 1025) tokens from numpy seed 28: step i trains on
+    batch i."""
+    rng = np.random.RandomState(28)
+    return rng.randint(0, GPT_124M.vocab_size, (TUNE_STEPS, GPT27_B, GPT_124M.seq_len + 1))
+
+
+def params_hash(module) -> int:
+    """A hash of a module's parameters, bit for bit, computed on their
+    device: each parameter's float bits weighted by position, summed in
+    int64 (wrapping), chained over the parameters in order."""
+    h = 0
+    for p in module.parameters():
+        bits = p.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        w = torch.arange(1, bits.numel() + 1, device=bits.device, dtype=torch.int64)
+        h = (h * 1_000_003 + int((bits * w).sum().item())) % (1 << 61)
+    return h
+
+
+def gpt_124m_trainable(config: dict) -> None:
+    """Phase 28's trainable, run in a trial's process on the card (its
+    share bound by the controller): ``TUNE_CFG`` from a CUDA generator
+    seeded 0, ``build_train_step(gpt_loss, adamw(config["lr"]))``, step i on
+    ``tune_batches()[i]`` up to ``TUNE_STEPS``, ``tune.report`` after each
+    step with the loss, the lr, the process's K3/K4/K5 launches counted from
+    0 and its card; with ``config["stage"]`` each report carries the train
+    state (``save_state``: the model and AdamW's moments) and its params'
+    hash. From a checkpoint (PBT's exploit) it resumes at the saved step
+    with the saved moments and ``config["lr"]``, and reports the restored
+    params' hash."""
+    from ray_tpu_torch import train, tune
+
+    cfg = TUNE_CFG
+    params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    init_fn, step_fn = build_train_step(lambda p, t: gpt_loss(cfg, p, t), adamw(config["lr"]))
+    state = init_fn(params)
+    restored = {}
+    ckpt = tune.get_checkpoint()
+    if ckpt is not None:
+        state = train.load_state(ckpt, state)
+        for group in state.opt_state.param_groups:  # the saved optimizer state carries the donor's lr
+            group["lr"] = config["lr"]
+        restored = dict(restored_step=state.step, restored_hash=params_hash(state.params))
+    reset_flash_launches()
+    batches = tune_batches()
+    while state.step < TUNE_STEPS:
+        tokens = torch.from_numpy(batches[state.step]).cuda()
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, tokens)
+        metrics = dict(loss=loss.item(), ms=(time.perf_counter() - t0) * 1e3, lr=config["lr"],
+                       state_step=state.step, launches=list(flash_launches()), pid=os.getpid(),
+                       cards=os.environ.get("CUDA_VISIBLE_DEVICES"), **restored)
+        saved = stage = None
+        if config.get("stage"):
+            stage = tempfile.mkdtemp(dir=config["stage"])
+            saved = train.save_state(state, stage)
+            metrics["saved_hash"] = params_hash(state.params)
+        tune.report(metrics, checkpoint=saved)
+        if stage is not None:
+            shutil.rmtree(stage)  # committed into the trial directory by now
+
+
+def tune_losses_here(lr: float, steps: int) -> list:
+    """The trainable's first ``steps`` losses, computed in this process."""
+    params = gpt_init(TUNE_CFG, torch.Generator(device="cuda").manual_seed(0))
+    init_fn, step_fn = build_train_step(lambda p, t: gpt_loss(TUNE_CFG, p, t), adamw(lr))
+    state, batches, losses = init_fn(params), tune_batches(), []
+    for i in range(steps):
+        state, loss = step_fn(state, torch.from_numpy(batches[i]).cuda())
+        losses.append(loss.item())
+    return losses
+
+
+def process_launches(history: list) -> tuple:
+    """K3/K4/K5 launches of a trial's processes: each report carries its
+    process's count, so the last report of each process holds its total."""
+    last = {}
+    for m in history:
+        last[m["pid"]] = m["launches"]
+    return tuple(sum(v[i] for v in last.values()) for i in range(3))
+
+
+def experiment_trials(storage: str, name: str) -> list:
+    with open(os.path.join(storage, name, "experiment_state.json")) as f:
+        return json.load(f)["trials"]
+
+
+def fit_in_time(tuner, label: str):
+    """``tuner.fit()``, failing the phase past ``TUNE_TIMEOUT_S`` rather
+    than waiting for trials forever."""
+    def expire(signum, frame):
+        raise TimeoutError(f"{label}: trials still running after {TUNE_TIMEOUT_S} s")
+
+    before = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(TUNE_TIMEOUT_S)
+    try:
+        return tuner.fit()
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, before)
+
+
+def tune_asha(card: str, storage: str) -> tuple:
+    """(a): 4 trials, lr from ``loguniform(1e-5, 1e-3)`` (seed 28), under
+    ``ASHAScheduler(max_t=6, grace_period=2, reduction_factor=2)``, two at a
+    time at half a GPU each."""
+    from ray_tpu_torch import tune
+
+    t0 = time.perf_counter()
+    grid = fit_in_time(tune.Tuner(
+        tune.with_resources(gpt_124m_trainable, {"CPU": 1, "GPU": 0.5}),
+        param_space={"lr": tune.loguniform(1e-5, 1e-3)},
+        tune_config=tune.TuneConfig(
+            metric="loss", mode="min", num_samples=4, seed=28, max_concurrent_trials=2,
+            scheduler=tune.ASHAScheduler(metric="loss", mode="min", max_t=TUNE_STEPS, grace_period=2,
+                                         reduction_factor=2)),
+        run_config=tune.RunConfig(name="asha", storage_path=storage),
+    ), "(a)")
+    took = time.perf_counter() - t0
+    trials = experiment_trials(storage, "asha")
+    histories = [r.metrics_history for r in grid]
+    iters = [len(h) for h in histories]
+    launches = tuple(sum(process_launches(h)[i] for h in histories) for i in range(3))
+    want = tuple(n * sum(iters) for n in expected_flash_launches(TUNE_CFG, 1))
+    best = grid.get_best_result()
+    got = [m["loss"] for m in best.metrics_history]
+    here = tune_losses_here(best.metrics["lr"], len(got))
+    cards = sorted({m["cards"] for h in histories for m in h})
+    lrs = [f"{h[0]['lr']:.3g}" for h in histories]
+    finals = [f"{h[-1]['loss']:.6f}" for h in histories]
+    print(f"(a) ASHA over 4 trials of GPT-124M (batch {GPT27_B}, remat \"attn\"), two at a time at GPU 0.5 "
+          f"[{card}]: {took:.1f} s; states {[t['state'] for t in trials]}, iterations {iters} (max_t "
+          f"{TUNE_STEPS}); lrs {lrs}; final losses {finals}; the trials' cards {cards}; best lr "
+          f"{best.metrics['lr']:.4g}, its losses {[f'{x:.6f}' for x in got]} "
+          f"{'equal' if got == here else 'DIFFER from'} this process's bit for bit; K3/K4/K5 launches "
+          f"{launches} = {want} expected (12 a step each over {sum(iters)} steps); median step "
+          f"{np.median([m['ms'] for h in histories for m in h[1:]]):.1f} ms with two trials on the card")
+    if set(t["state"] for t in trials) != {"TERMINATED"} or grid.errors:
+        raise AssertionError(f"(a) trial states {[t['state'] for t in trials]}, errors {grid.errors}")
+    if not min(iters) < TUNE_STEPS:
+        raise AssertionError(f"(a) ASHA stopped no trial before max_t: iterations {iters}")
+    if got != here:
+        raise AssertionError(f"(a) the best trial's losses {got} differ from this process's {here}")
+    if launches != want:
+        raise AssertionError(f"(a) K3/K4/K5 launched {launches} times over {sum(iters)} steps, expected {want}")
+    return launches, took
+
+
+def tune_pbt(card: str, storage: str) -> tuple:
+    """(b): 2 trials (lr 1e-5 and 1e-3) under ``PopulationBasedTraining``
+    (``perturbation_interval=2``, lr perturbed by 0.8 or 1.2, never
+    resampled), ``TUNE_STEPS`` iterations, every report checkpointing the
+    train state."""
+    from ray_tpu_torch import tune
+
+    stage = tempfile.mkdtemp(dir=storage, prefix="stage_")
+    # every checkpoint is kept: with keep-N a donor's newer commits could
+    # delete the one an exploiting trial is about to load
+    need = 2 * TUNE_STEPS * 12 * sum(p.numel() for p in GPT(TUNE_CFG, device="meta").parameters())
+    free = shutil.disk_usage(storage).free
+    print(f"(b) storage {storage}: {free / 1e9:.1f} GB free; the run keeps {2 * TUNE_STEPS} checkpoints of "
+          f"~{need / 2 / TUNE_STEPS / 1e9:.2f} GB (12 bytes a parameter)")
+    if free < 1.2 * need:
+        raise AssertionError(f"(b) {free / 1e9:.1f} GB free: too little for {need / 1e9:.1f} GB of checkpoints")
+    t0 = time.perf_counter()
+    grid = fit_in_time(tune.Tuner(
+        tune.with_resources(gpt_124m_trainable, {"CPU": 1, "GPU": 0.5}),
+        param_space={"lr": tune.grid_search([1e-5, 1e-3]), "stage": stage},
+        tune_config=tune.TuneConfig(
+            metric="loss", mode="min", max_concurrent_trials=2,
+            scheduler=tune.PopulationBasedTraining(
+                metric="loss", mode="min", perturbation_interval=2, seed=28, resample_probability=0.0,
+                hyperparam_mutations={"lr": tune.loguniform(1e-6, 1e-2)})),
+        run_config=tune.RunConfig(name="pbt", storage_path=storage),
+    ), "(b)")
+    took = time.perf_counter() - t0
+    trials = experiment_trials(storage, "pbt")
+    histories = [r.metrics_history for r in grid]
+    exploits = []
+    for i, h in enumerate(histories):
+        donor = histories[1 - i]
+        for prev, m in zip(h, h[1:]):
+            if m.get("restored_hash") is not None and m["pid"] != prev["pid"]:
+                saved = {d["saved_hash"] for d in donor if d["state_step"] == m["restored_step"]}
+                exploits.append(dict(
+                    trial=i, step=m["restored_step"], hash_ok=m["restored_hash"] in saved, lr=m["lr"],
+                    perturbed=any(m["lr"] in (d["lr"] * 0.8, d["lr"] * 1.2) for d in donor)))
+    launches = tuple(sum(process_launches(h)[i] for h in histories) for i in range(3))
+    steps = sum(1 for h in histories for _ in h)
+    want = tuple(n * steps for n in expected_flash_launches(TUNE_CFG, 1))
+    finals = [f"{h[-1]['loss']:.6f}" for h in histories]
+    print(f"(b) PBT over 2 trials of GPT-124M, perturbation interval 2, {TUNE_STEPS} iterations, a checkpoint of "
+          f"the train state with every report [{card}]: {took:.1f} s; states {[t['state'] for t in trials]}; "
+          f"exploits {exploits}; final losses {finals}; K3/K4/K5 launches {launches} = {want} expected over "
+          f"{steps} steps")
+    if set(t["state"] for t in trials) != {"TERMINATED"} or grid.errors:
+        raise AssertionError(f"(b) trial states {[t['state'] for t in trials]}, errors {grid.errors}")
+    if not exploits:
+        raise AssertionError("(b) no trial exploited another's checkpoint")
+    if not all(e["hash_ok"] and e["perturbed"] for e in exploits):
+        raise AssertionError(f"(b) an exploit restored other params than the donor's, or an lr that is no "
+                             f"perturbation of the donor's: {exploits}")
+    if launches != want:
+        raise AssertionError(f"(b) K3/K4/K5 launched {launches} times over {steps} steps, expected {want}")
+    return launches, took
+
+
+def gpt_124m_train_loop(config: dict) -> None:
+    """(c)'s train loop, run by the ``TorchTrainer`` worker inside a trial:
+    ``TUNE_INNER_STEPS`` steps of the trainable's model and batches at
+    ``config["lr"]``, then one report with the losses, the worker's
+    K3/K4/K5 launches, its card and the cluster's free GPU."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+
+    params = gpt_init(TUNE_CFG, torch.Generator(device="cuda").manual_seed(0))
+    init_fn, step_fn = build_train_step(lambda p, t: gpt_loss(TUNE_CFG, p, t), adamw(config["lr"]))
+    state, batches, losses = init_fn(params), tune_batches(), []
+    reset_flash_launches()
+    for i in range(TUNE_INNER_STEPS):
+        state, loss = step_fn(state, torch.from_numpy(batches[i]).cuda())
+        losses.append(loss.item())
+    train.report(dict(loss=losses[-1], losses=losses, lr=config["lr"], launches=list(flash_launches()),
+                      cards=os.environ.get("CUDA_VISIBLE_DEVICES"), device=torch.cuda.get_device_name(),
+                      free_gpu=rt.available_resources().get("GPU", 0.0)))
+
+
+def tuner_over_trainer(card: str, storage: str) -> tuple:
+    """(c): ``Tuner(TorchTrainer(..., ScalingConfig(num_workers=1,
+    use_gpu=True)))`` over a grid of two lrs, one trial at a time (the
+    trial holds a CPU, its trainer's worker the GPU)."""
+    from ray_tpu_torch import train, tune
+
+    trainer = train.TorchTrainer(
+        gpt_124m_train_loop,
+        scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=train.RunConfig(name="inner", storage_path=storage),
+    )
+    t0 = time.perf_counter()
+    grid = fit_in_time(tune.Tuner(
+        trainer,
+        param_space={"lr": tune.grid_search([1e-5, 1e-3])},
+        tune_config=tune.TuneConfig(metric="loss", mode="min", max_concurrent_trials=1),
+        run_config=tune.RunConfig(name="outer", storage_path=storage),
+    ), "(c)")
+    took = time.perf_counter() - t0
+    results = [r.metrics for r in grid]
+    best = grid.get_best_result()
+    launches = tuple(sum(m["launches"][i] for m in results) for i in range(3))
+    want = tuple(n * TUNE_INNER_STEPS * len(results) for n in expected_flash_launches(TUNE_CFG, 1))
+    print(f"(c) Tuner over TorchTrainer(ScalingConfig(num_workers=1, use_gpu=True)), lr grid [1e-5, 1e-3], "
+          f"{TUNE_INNER_STEPS} steps a trial [{card}]: {took:.1f} s; losses "
+          f"{[(m['lr'], [f'{x:.6f}' for x in m['losses']]) for m in results]}; best lr {best.metrics['lr']}; "
+          f"the inner workers' cards {[m['cards'] for m in results]} ({results[0]['device']}), the cluster's "
+          f"free GPU while they trained {[m['free_gpu'] for m in results]}; K3/K4/K5 launches {launches} = "
+          f"{want} expected")
+    if grid.errors or len(results) != 2:
+        raise AssertionError(f"(c) errors {grid.errors}, results {results}")
+    if best.metrics["loss"] != min(m["loss"] for m in results):
+        raise AssertionError(f"(c) best result {best.metrics} is not the lower loss")
+    if not all(m["free_gpu"] == 0.0 and m["device"] == torch.cuda.get_device_name(0) for m in results):
+        raise AssertionError(f"(c) the inner worker did not hold the card: {results}")
+    if launches != want:
+        raise AssertionError(f"(c) K3/K4/K5 launched {launches} times, expected {want}")
+    return launches, took
+
+
+def tune_over_train(card: str) -> dict:
+    """Phase 28: ``ray_tpu_torch.tune`` over the card as one ``GPU``:
+    ``tune_asha``, ``tune_pbt`` and ``tuner_over_trainer``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    ray_tpu_torch.init()
+    storage = tempfile.mkdtemp(prefix="phase28_")
+    try:
+        asha, asha_s = tune_asha(card, storage)
+        pbt, pbt_s = tune_pbt(card, storage)
+        inner, inner_s = tuner_over_trainer(card, storage)
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+        ray_tpu_torch.shutdown()
+    return dict(asha=asha, pbt=pbt, inner=inner, seconds=(asha_s, pbt_s, inner_s))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4124,6 +4657,20 @@ def main() -> int:
     phase("26 Data into Train")
     trained26 = data_into_train(card, trained, trained25)
 
+    phase("27 GPT remat policies and MoE")
+    t_phase = time.perf_counter()
+    remat = remat_policies(card)
+    moe = moe_train(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 27 [{card}]: {time.perf_counter() - t_phase:.1f} s")
+
+    phase("28 Tune over Train")
+    t_phase = time.perf_counter()
+    tuned = tune_over_train(card)
+    print(f"phase 28 [{card}]: {time.perf_counter() - t_phase:.1f} s ((a) {tuned['seconds'][0]:.1f}, "
+          f"(b) {tuned['seconds'][1]:.1f}, (c) {tuned['seconds'][2]:.1f} s of Tuner runs)")
+
     kernels = [
         dict(
             name="paged_decode_attention",
@@ -4164,17 +4711,23 @@ def main() -> int:
             at_head_dim_64=dict(timing2_64, bound_by="bytes"),
         ),
     ]
-    for kernel_name, kernel, line in (("flash_fwd", "K3", 57), ("flash_bwd_dq", "K4", 137),
-                                      ("flash_bwd_dkv", "K5", 177)):
+    for i, (kernel_name, kernel, line) in enumerate((("flash_fwd", "K3", 57), ("flash_bwd_dq", "K4", 137),
+                                                     ("flash_bwd_dkv", "K5", 177))):
+        by_path = {"gpt_406m_train_step": trained["launches"][kernel],
+                   "gpt_406m_torch_trainer": trained25["launches"][kernel],
+                   "gpt_406m_trainer_from_dataset": trained26["launches"][kernel],
+                   "gpt_124m_remat_policies": remat["launches"][i],
+                   "gpt_124m_moe_train": moe["launches"][i],
+                   "gpt_124m_tune_asha": tuned["asha"][i],
+                   "gpt_124m_tune_pbt": tuned["pbt"][i],
+                   "gpt_124m_tuner_over_trainer": tuned["inner"][i]}
         kernels.append(dict(
             name=kernel_name,
             route="cuda",
             source="ray_tpu_torch/ops/csrc/flash_attention.cu",
             replaces=f"ray_tpu/ops/flash_attention.py:{line}",
-            launches=trained["launches"][kernel] + trained25["launches"][kernel] + trained26["launches"][kernel],
-            launches_by_path={"gpt_406m_train_step": trained["launches"][kernel],
-                              "gpt_406m_torch_trainer": trained25["launches"][kernel],
-                              "gpt_406m_trainer_from_dataset": trained26["launches"][kernel]},
+            launches=sum(by_path.values()),
+            launches_by_path=by_path,
             **flash_timing[kernel],
         ))
     print(json.dumps({"kernels": kernels}))

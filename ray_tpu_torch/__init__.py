@@ -45,7 +45,11 @@ Ported so far:
 - Data (``data``): lazy datasets on numpy-dict blocks — reads, maps,
   global shuffles, sorts, groupbys, splits and writes run as tasks of the
   runtime, and ``iter_torch_batches`` hands batches to the card; a trainer
-  given ``datasets=`` splits a Dataset among its workers.
+  given ``datasets=`` splits a Dataset among its workers;
+- Tune (``tune``): ``Tuner``/``tune.run`` over trial actors of the runtime
+  — search spaces, searchers (TPE, Optuna), ASHA, the median rule, PBT and
+  PB2, checkpoints and experiment state — with trials holding fractional
+  GPU shares, and a trainer run as a trial (``as_trainable``).
 
 ROADMAP.md lists what is still to port.
 
@@ -83,6 +87,7 @@ __version__ = "0.1.0"
 _LAZY_SUBMODULES = {
     "llm", "models", "ops", "parallel", "util", "accelerators",
     "cluster_utils", "dag", "experimental", "serve", "obs", "train", "collective", "data",
+    "tune",
 }
 
 #: names exported from the heavy subpackages, loaded on first access

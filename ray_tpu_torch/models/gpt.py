@@ -1,5 +1,5 @@
 """Decoder-only transformer (GPT family) for training and serving (port of
-the dense path of ``ray_tpu/models/gpt.py``).
+``ray_tpu/models/gpt.py``).
 
 * Parameters live in an ``nn.Module`` (``GPT``) as **fp32 master weights**;
   every use casts them to the activation dtype (``cfg.dtype``), as the
@@ -13,21 +13,26 @@ the dense path of ``ray_tpu/models/gpt.py``).
 * Attention goes through ``ops.attention.causal_attention`` with
   ``cfg.attn_impl``: on the card ``auto`` and ``flash`` run the flash
   kernels K3 (forward) and K4/K5 (backward).
+* ``n_experts > 0`` puts a mixture of experts in every block's MLP
+  (``_moe_mlp``): top-k routing with a capacity per expert, over-capacity
+  assignments dropped in the reference's order, and the Switch
+  load-balancing loss, which ``gpt_hidden`` returns beside the hidden state
+  and ``gpt_loss`` adds with ``cfg.moe_aux_weight``. The experts' weights
+  keep the reference's layouts: ``router`` (d, E), ``moe_in`` (E, d, 4d),
+  ``moe_out`` (E, 4d, d), no biases.
 * ``gpt_loss`` feeds the final hidden state to the fused cross-entropy
   (``ops.fused_ce``) when ``cfg.fused_loss``.
 * ``gpt_decode`` is the dense KV-cached decoder (greedy or sampled per
   token), the oracle the paged engine (``llm.model_runner``) is tested
   against and the GPT draft model's proposer (``llm.drafter``).
 
-Rematerialization (``cfg.remat``) maps to ``torch.utils.checkpoint`` per
-block: ``"full"`` recomputes the whole block in the backward (K3 runs again
-there); ``"attn"`` checkpoints the pre-attention segment (ln1, qkv) and the
-post-attention segment (out-projection, MLP) apart, with the flash op
-between them, so K3 never runs again — it keeps q, k and v besides the
-flash out and lse (the reference keeps only out and lse and recomputes the
-qkv projection). The policies ``"dots"``, ``"attn_qkv"`` and ``"big"``,
-mixture-of-experts (``n_experts > 0``) and ring attention are not ported
-(ROADMAP.md) and raise ``NotImplementedError``.
+Rematerialization (``cfg.remat``) checkpoints each block under one of the
+reference's five policies (``models._remat``): ``"full"`` and ``"dots"``
+run the flash forward (K3) again in the backward; ``"attn"``, ``"attn_qkv"``
+and ``"big"`` keep its out and lse, and ``"attn_qkv"`` the qkv projection
+(``kept_linear``), ``"big"`` the gelu output (``kept_gelu``) besides. Ring
+attention (``attn_impl="ring"``) and the experts sharded over an ``ep``
+mesh axis are not ported (ROADMAP.md, queue A8).
 """
 
 from __future__ import annotations
@@ -42,14 +47,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ray_tpu_torch.device import resolve_device
-from ray_tpu_torch.models._remat import remat_block
+from ray_tpu_torch.models._remat import check_policy, kept_gelu, kept_linear, remat_block
 from ray_tpu_torch.models.gptj import LayerNorm, _attend_cached
 from ray_tpu_torch.models.sampling import pick_tokens
 from ray_tpu_torch.ops.attention import causal_attention
 from ray_tpu_torch.ops.fused_ce import fused_softmax_cross_entropy
 
-_PORTED_POLICIES = ("full", "attn")
-_UNPORTED_POLICIES = ("dots", "attn_qkv", "big")
+#: ``moe_dispatch``: "index" moves each kept assignment's row by its
+#: (expert, slot); "einsum" is the reference's one-hot dispatch and combine
+MOE_DISPATCH = ("index", "einsum")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +64,7 @@ class GPTConfig:
 
     ``scan_unroll`` is accepted and has no effect: the reference unrolls its
     ``lax.scan`` over layers, and eager PyTorch runs the layers as a Python
-    loop. ``n_experts > 0`` and ``attn_impl="ring"`` raise (ROADMAP.md)."""
+    loop. ``attn_impl="ring"`` raises (ROADMAP.md, queue A8)."""
 
     vocab_size: int = 50_304
     seq_len: int = 1024
@@ -67,14 +73,17 @@ class GPTConfig:
     n_heads: int = 12
     dtype: str = "bfloat16"           # activation/compute dtype
     remat: bool = True
-    #: "full" recomputes the whole block in the backward; "attn" keeps the
-    #: flash op's inputs and outputs so the forward kernel never runs again
+    #: what a block keeps for the backward: "full" (nothing), "dots",
+    #: "attn", "attn_qkv" or "big" (``models._remat``)
     remat_policy: str = "full"
     fused_loss: bool = True
     #: vocab chunk count for the fused loss (None = auto)
     ce_chunks: Optional[int] = None
     attn_impl: str = "auto"           # auto|xla|flash (ring: not ported)
     scan_unroll: int = 1
+    #: mixture of experts (0 = dense MLP): top-``experts_per_token``
+    #: routing, ``capacity_factor`` x the even share of assignments per
+    #: expert, load-balancing loss weight ``moe_aux_weight``
     n_experts: int = 0
     experts_per_token: int = 2
     capacity_factor: float = 1.25
@@ -94,24 +103,11 @@ class GPTConfig:
 
 
 def _check_supported(cfg: GPTConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "mixture-of-experts GPT (n_experts > 0) is not ported yet: ROADMAP.md, queue A"
-        )
     if cfg.attn_impl == "ring":
         raise NotImplementedError(
-            "ring attention (attn_impl='ring') is not ported yet: ROADMAP.md, queue A"
+            "ring attention (attn_impl='ring') is not ported yet: ROADMAP.md, queue A8"
         )
-    if cfg.remat and cfg.remat_policy not in _PORTED_POLICIES:
-        if cfg.remat_policy in _UNPORTED_POLICIES:
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r} is not ported yet (ported: "
-                f"{_PORTED_POLICIES}): ROADMAP.md, queue A"
-            )
-        raise ValueError(
-            f"remat_policy must be one of {sorted(_PORTED_POLICIES + _UNPORTED_POLICIES)}, "
-            f"got {cfg.remat_policy!r}"
-        )
+    check_policy(cfg)
 
 
 class GPTBlock(nn.Module):
@@ -122,8 +118,14 @@ class GPTBlock(nn.Module):
         self.attn_qkv = nn.Linear(d, 3 * d, device=device)
         self.attn_out = nn.Linear(d, d, device=device)
         self.ln2 = LayerNorm(d, device)
-        self.mlp_in = nn.Linear(d, dff, device=device)
-        self.mlp_out = nn.Linear(dff, d, device=device)
+        if cfg.n_experts > 0:
+            E = cfg.n_experts
+            self.router = nn.Parameter(torch.empty(d, E, device=device))
+            self.moe_in = nn.Parameter(torch.empty(E, d, dff, device=device))
+            self.moe_out = nn.Parameter(torch.empty(E, dff, d, device=device))
+        else:
+            self.mlp_in = nn.Linear(d, dff, device=device)
+            self.mlp_out = nn.Linear(dff, d, device=device)
 
 
 class GPT(nn.Module):
@@ -150,9 +152,10 @@ def _empty_model(cfg: GPTConfig, device) -> GPT:
 @torch.no_grad()
 def gpt_init(cfg: GPTConfig, generator: torch.Generator, device=None) -> GPT:
     """Random init in the reference's distributions: embeddings normal with
-    std 0.02, kernels normal scaled by fan_in^-0.5, zero biases, unit/zero
-    layernorms. ``device=None`` means the card (``resolve_device``); the
-    draws are made there, so ``generator`` must live on that device type."""
+    std 0.02, kernels (the experts' too) normal scaled by fan_in^-0.5, zero
+    biases, unit/zero layernorms. ``device=None`` means the card
+    (``resolve_device``); the draws are made there, so ``generator`` must
+    live on that device type."""
     device = resolve_device(device)
     if generator.device.type != device.type:
         raise ValueError(
@@ -171,14 +174,15 @@ def gpt_init(cfg: GPTConfig, generator: torch.Generator, device=None) -> GPT:
     for blk in model.blocks:
         blk.ln1.scale.fill_(1.0)
         blk.ln2.scale.fill_(1.0)
-        for lin in (blk.attn_qkv, blk.attn_out, blk.mlp_in, blk.mlp_out):
+        for lin in (blk.attn_qkv, blk.attn_out) + (() if cfg.n_experts else (blk.mlp_in, blk.mlp_out)):
             normal(lin.weight, lin.in_features**-0.5)
+        if cfg.n_experts:
+            normal(blk.router, cfg.d_model**-0.5)
+            normal(blk.moe_in, cfg.d_model**-0.5)
+            normal(blk.moe_out, cfg.d_ff**-0.5)
     model.ln_f.scale.fill_(1.0)
     normal(model.lm_head.weight, cfg.d_model**-0.5)
     return model
-
-
-_LINEARS = ("attn_qkv", "attn_out", "mlp_in", "mlp_out")
 
 
 def _param_map(model: GPT):
@@ -190,10 +194,14 @@ def _param_map(model: GPT):
         for ln in ("ln1", "ln2"):
             yield getattr(blk, ln).scale, ("blocks", ln, "scale"), i, False
             yield getattr(blk, ln).bias, ("blocks", ln, "bias"), i, False
-        for name in _LINEARS:
+        moe = hasattr(blk, "router")
+        for name in ("attn_qkv", "attn_out") + (() if moe else ("mlp_in", "mlp_out")):
             lin = getattr(blk, name)
             yield lin.weight, ("blocks", name, "kernel"), i, True
             yield lin.bias, ("blocks", name, "bias"), i, False
+        if moe:  # kept in the reference's layouts: nothing to transpose
+            for name in ("router", "moe_in", "moe_out"):
+                yield getattr(blk, name), ("blocks", name, "kernel"), i, False
     yield model.ln_f.scale, ("ln_f", "scale"), None, False
     yield model.ln_f.bias, ("ln_f", "bias"), None, False
     yield model.lm_head.weight, ("lm_head", "kernel"), None, True
@@ -204,7 +212,8 @@ def params_from_jax(tree: dict, cfg: GPTConfig, device=None) -> GPT:
     """Carry a reference parameter tree over: nested dicts of numpy arrays
     with the stacked leading ``L`` axis and kernels laid out (in, out), as
     ``ray_tpu.models.gpt.gpt_init`` returns them (after
-    ``jax.device_get``). ``device=None`` means the card."""
+    ``jax.device_get``), dense or mixture-of-experts. ``device=None`` means
+    the card."""
     dev = resolve_device(device)
     model = _empty_model(cfg, dev)
     for param, path, layer, transposed in _param_map(model):
@@ -248,7 +257,10 @@ def _linear(x, lin: nn.Linear):
 def _attn_in(cfg: GPTConfig, x, layer: GPTBlock):
     """ln1 and the qkv projection: (q, k, v), each (b, heads, s, head_dim)."""
     b, s, d = x.shape
-    q, k, v = _linear(layer.ln1(x), layer.attn_qkv).split(d, dim=-1)
+    h = layer.ln1(x)
+    lin = layer.attn_qkv
+    qkv = kept_linear(h, lin.weight.to(h.dtype), lin.bias.to(h.dtype), "qkv")
+    q, k, v = qkv.split(d, dim=-1)
 
     def heads(t):
         return t.view(b, s, cfg.n_heads, cfg.head_dim).transpose(1, 2)
@@ -256,60 +268,145 @@ def _attn_in(cfg: GPTConfig, x, layer: GPTBlock):
     return heads(q), heads(k), heads(v)
 
 
-def _attn_out_mlp(cfg: GPTConfig, x, att, layer: GPTBlock):
-    """The out-projection's residual, then the MLP's."""
+def _attn_out(x, att, layer: GPTBlock):
+    """The out-projection's residual."""
     b, s, d = x.shape
-    x = x + _linear(att.transpose(1, 2).reshape(b, s, d), layer.attn_out)
-    mid = F.gelu(_linear(layer.ln2(x), layer.mlp_in), approximate="tanh")
+    return x + _linear(att.transpose(1, 2).reshape(b, s, d), layer.attn_out)
+
+
+def _mlp(x, layer: GPTBlock):
+    """The dense MLP's residual."""
+    mid = kept_gelu(_linear(layer.ln2(x), layer.mlp_in), "mlp_mid")
     return x + _linear(mid, layer.mlp_out)
 
 
-def _block(cfg: GPTConfig, x, layer: GPTBlock):
+def _moe_route(cfg: GPTConfig, flat, router):
+    """Top-k routing with a capacity per expert, as the reference's
+    ``_moe_mlp`` (``ray_tpu/models/gpt.py:124-175``). ``flat`` (n, d).
+    Returns ``(gate_w (n, k) fp32, expert (n*k,), slot (n*k,), keep (n*k,)
+    bool, aux)``, assignments token-major. Within an expert, slots go to
+    assignments in that order (a cumsum over it), and those at or past the
+    capacity drop. ``aux`` is the Switch load-balancing loss, ``E *
+    sum(frac * mean_prob) * k``, where ``frac`` (kept assignments per
+    expert) carries no gradient."""
+    n = flat.shape[0]
+    E, k = cfg.n_experts, cfg.experts_per_token
+    cap = max(1, int(cfg.capacity_factor * k * n / E))
+    probs = torch.softmax((flat @ router.to(flat.dtype)).float(), dim=-1)  # (n, E)
+    # a stable sort puts the lower expert first among equal probabilities,
+    # as lax.top_k does (torch.topk promises no order of ties)
+    gate_w, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_w, gate_idx = gate_w[:, :k], gate_idx[:, :k]
+    gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    expert = gate_idx.reshape(n * k)
+    onehot = F.one_hot(expert, E).float()                       # (nk, E)
+    slot = ((torch.cumsum(onehot, dim=0) - 1.0) * onehot).sum(-1)
+    keep = slot < cap
+    frac = (onehot * keep[:, None]).mean(0)
+    aux = E * torch.sum(frac * probs.mean(0)) * k
+    return gate_w, expert, slot.long(), keep, aux
+
+
+def _moe_mlp(cfg: GPTConfig, x, layer: GPTBlock, dispatch: str = "index"):
+    """Mixture-of-experts MLP: (out (b, s, d) in x's dtype, aux fp32).
+    ``dispatch="index"`` gathers each expert's ``(E, cap, d)`` input by slot
+    and sums each token's at most k gated expert outputs in fp32;
+    ``"einsum"`` is the reference's one-hot form, an ``(n, E, cap)``
+    dispatch and combine tensor (O(n·E·cap) memory, the plain version the
+    index form is held against). Both cast the gate weights to x's dtype
+    first, as the reference's combine does."""
+    b, s, d = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    n = b * s
+    cap = max(1, int(cfg.capacity_factor * k * n / E))
+    dt = x.dtype
+    flat = x.reshape(n, d)
+    gate_w, expert, slot, keep, aux = _moe_route(cfg, flat, layer.router)
+    if dispatch == "index":
+        # kept assignment -> row expert * cap + slot; the dropped ones all
+        # point at a last row that reads zeros and is never read back
+        row = torch.where(keep, expert * cap + slot, E * cap)
+        token = torch.arange(n * k, device=x.device) // k
+        owner = torch.full((E * cap + 1,), n, dtype=torch.long, device=x.device)
+        owner[row] = token
+        expert_in = F.pad(flat, (0, 0, 0, 1))[owner[: E * cap]].view(E, cap, d)
+    elif dispatch == "einsum":
+        pos_oh = F.one_hot(slot.clamp_max(cap - 1), cap).float() * keep[:, None]
+        disp = (F.one_hot(expert, E).float()[:, :, None] * pos_oh[:, None, :]).view(n, k, E, cap)
+        expert_in = torch.einsum("nec,nd->ecd", disp.sum(1).to(dt), flat)
+    else:
+        raise ValueError(f"moe dispatch must be one of {MOE_DISPATCH}, got {dispatch!r}")
+    h = F.gelu(torch.bmm(expert_in, layer.moe_in.to(dt)), approximate="tanh")
+    expert_out = torch.bmm(h, layer.moe_out.to(dt))              # (E, cap, d)
+    if dispatch == "index":
+        rows = torch.cat([expert_out.reshape(E * cap, d), expert_out.new_zeros(1, d)])
+        gates = gate_w.to(dt).float().reshape(n * k, 1) * keep[:, None]
+        out = (rows[row].float() * gates).view(n, k, d).sum(1).to(dt)
+    else:
+        combine = (disp * gate_w[:, :, None, None]).sum(1)      # (n, E, cap)
+        out = torch.einsum("nec,ecd->nd", combine.to(dt), expert_out)
+    return out.reshape(b, s, d), aux
+
+
+def _block(cfg: GPTConfig, x, layer: GPTBlock, moe_dispatch: str = "index"):
+    """One block: (output, MoE aux loss, 0 for a dense block)."""
     q, k, v = _attn_in(cfg, x, layer)
-    att = causal_attention(q, k, v, impl=cfg.attn_impl)
-    return _attn_out_mlp(cfg, x, att, layer)
+    x = _attn_out(x, causal_attention(q, k, v, impl=cfg.attn_impl), layer)
+    if cfg.n_experts > 0:
+        out, aux = _moe_mlp(cfg, layer.ln2(x), layer, moe_dispatch)
+        return x + out, aux
+    return _mlp(x, layer), x.new_zeros((), dtype=torch.float32)
 
 
-def gpt_hidden(cfg: GPTConfig, params: GPT, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (batch, seq) int → final hidden (batch, seq, d_model) in the
-    activation dtype. The lm head is applied by the caller."""
+def gpt_hidden(cfg: GPTConfig, params: GPT, tokens: torch.Tensor, *,
+               moe_dispatch: str = "index"):
+    """tokens (batch, seq) int → (final hidden (batch, seq, d_model) in the
+    activation dtype, the MoE aux loss averaged over the layers, fp32; 0
+    for a dense model). The lm head is applied by the caller.
+    ``moe_dispatch`` picks ``_moe_mlp``'s form."""
     _check_supported(cfg)
     dt = cfg.torch_dtype
     s = tokens.shape[1]
     # gather fp32 rows, then cast
     x = F.embedding(tokens, params.embed.weight).to(dt)
     x = x + params.pos_embed.weight[:s].to(dt)
+    auxes = []
     for layer in params.blocks:
-        x = remat_block(
-            cfg,
-            x,
-            partial(_block, cfg, layer=layer),
-            partial(_attn_in, cfg, layer=layer),
-            partial(_attn_out_mlp, cfg, layer=layer),
-        )
-    return params.ln_f(x)
+        x, aux = remat_block(cfg, x, partial(_block, cfg, layer=layer, moe_dispatch=moe_dispatch))
+        auxes.append(aux)
+    return params.ln_f(x), torch.stack(auxes).mean()
 
 
-def gpt_forward(cfg: GPTConfig, params: GPT, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (batch, seq) int → logits (batch, seq, vocab) fp32."""
-    return gpt_hidden(cfg, params, tokens).float() @ params.lm_head.weight.t()
+def gpt_forward(cfg: GPTConfig, params: GPT, tokens: torch.Tensor, *,
+                return_aux: bool = False, moe_dispatch: str = "index"):
+    """tokens (batch, seq) int → logits (batch, seq, vocab) fp32;
+    ``return_aux=True`` also returns the mean MoE aux loss."""
+    hidden, aux = gpt_hidden(cfg, params, tokens, moe_dispatch=moe_dispatch)
+    logits = hidden.float() @ params.lm_head.weight.t()
+    return (logits, aux) if return_aux else logits
 
 
-def gpt_loss(cfg: GPTConfig, params: GPT, tokens: torch.Tensor) -> torch.Tensor:
-    """Next-token cross-entropy, mean over (batch, seq - 1). With
+def gpt_loss(cfg: GPTConfig, params: GPT, tokens: torch.Tensor, *,
+             moe_dispatch: str = "index") -> torch.Tensor:
+    """Next-token cross-entropy, mean over (batch, seq - 1), plus
+    ``cfg.moe_aux_weight`` x the aux loss for a mixture of experts. With
     ``cfg.fused_loss`` the (tokens, vocab) logits go through the fused
     cross-entropy in ``cfg.ce_chunks`` vocab chunks."""
-    hidden = gpt_hidden(cfg, params, tokens[:, :-1])
+    hidden, aux = gpt_hidden(cfg, params, tokens[:, :-1], moe_dispatch=moe_dispatch)
     targets = tokens[:, 1:]
     if cfg.fused_loss:
         b, s, d = hidden.shape
         losses = fused_softmax_cross_entropy(
             hidden.reshape(b * s, d), params.lm_head.weight.t(), targets.reshape(-1), cfg.ce_chunks
         )
-        return losses.mean()
-    logits = hidden.float() @ params.lm_head.weight.t()
-    logp = torch.log_softmax(logits, dim=-1)
-    return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
+        loss = losses.mean()
+    else:
+        logits = hidden.float() @ params.lm_head.weight.t()
+        logp = torch.log_softmax(logits, dim=-1)
+        loss = -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
+    if cfg.n_experts > 0:
+        loss = loss + cfg.moe_aux_weight * aux
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -344,7 +441,7 @@ def gpt_decode(cfg: GPTConfig, params: GPT, prompt: torch.Tensor, n_new: int, *,
     caches = []
     for layer in params.blocks:
         q, k, v = _attn_in(cfg, x, layer)
-        x = _attn_out_mlp(cfg, x, causal_attention(q, k, v, impl="xla"), layer)
+        x = _mlp(_attn_out(x, causal_attention(q, k, v, impl="xla"), layer), layer)
         kc = torch.zeros(b, cfg.n_heads, max_len, cfg.head_dim, dtype=dt, device=dev)
         vc = torch.zeros_like(kc)
         kc[:, :, :s0] = k
@@ -365,6 +462,6 @@ def gpt_decode(cfg: GPTConfig, params: GPT, prompt: torch.Tensor, n_new: int, *,
             kc[:, :, pos] = k[:, :, 0]
             vc[:, :, pos] = v[:, :, 0]
             att = _attend_cached(q[:, :, 0], kc, vc, pos + 1).to(dt)[:, :, None]
-            x1 = _attn_out_mlp(cfg, x1, att, layer)
+            x1 = _mlp(_attn_out(x1, att, layer), layer)
         tokens[:, pos + 1] = pick_tokens(logits(x1[:, 0]), key, i + 1, temperature, top_k, top_p)
     return tokens

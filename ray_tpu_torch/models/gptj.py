@@ -19,8 +19,8 @@ einsum. ``gptj_hidden`` and ``gptj_loss`` are the training path: attention
 through ``ops.attention.causal_attention`` with ``cfg.attn_impl`` (on the
 card ``auto`` takes the flash kernels K3-K5, which take head dims 64 and
 128, so GPT-J-6B's 256 raises there as the kernels do), per-block
-rematerialization through ``models._remat`` as ``models.gpt`` does it
-(``"full"`` and ``"attn"``; the reference's ``"dots"`` raises), and the
+rematerialization through ``models._remat`` under the reference's three
+policies (``"full"``, ``"dots"``, ``"attn"``), and the
 fused cross-entropy with the lm head's bias (``ops.fused_ce``) when
 ``cfg.fused_loss``.
 """
@@ -37,7 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ray_tpu_torch.device import resolve_device
-from ray_tpu_torch.models._remat import remat_block
+from ray_tpu_torch.models._remat import check_policy, remat_block
 from ray_tpu_torch.models.sampling import pick_tokens
 from ray_tpu_torch.ops.attention import causal_attention
 from ray_tpu_torch.ops.fused_ce import fused_softmax_cross_entropy_bias
@@ -259,49 +259,23 @@ def gptj_forward(cfg: GPTJConfig, params: GPTJ, tokens: torch.Tensor) -> torch.T
 # training path
 # ---------------------------------------------------------------------------
 
-_PORTED_POLICIES = ("full", "attn")
-
-
-def _check_remat(cfg: GPTJConfig) -> None:
-    if cfg.remat and cfg.remat_policy not in _PORTED_POLICIES:
-        if cfg.remat_policy == "dots":
-            raise NotImplementedError(
-                "remat_policy='dots' is not ported yet (ported: "
-                f"{_PORTED_POLICIES}): ROADMAP.md, queue A"
-            )
-        raise ValueError(f"remat_policy must be 'full', 'attn' or 'dots', got {cfg.remat_policy!r}")
+#: the reference's GPT-J policies (``ray_tpu/models/gptj.py:168-174``)
+REMAT_POLICIES = ("full", "dots", "attn")
 
 
 def _train_block(cfg: GPTJConfig, x, layer: GPTJBlock, positions):
     return _block(cfg, x, layer, positions, cfg.attn_impl)[0]
 
 
-def _attn_in(cfg: GPTJConfig, x, layer: GPTJBlock, positions):
-    return _project_qkv(cfg, layer.ln1(x), layer, positions)
-
-
-def _attn_out_mlp(cfg: GPTJConfig, x, att, layer: GPTJBlock):
-    b, s, d = x.shape
-    return x + layer.attn_out(att.transpose(1, 2).reshape(b, s, d)) + layer.mlp(layer.ln1(x))
-
-
 def gptj_hidden(cfg: GPTJConfig, params: GPTJ, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (b, s) int → final hidden (b, s, d) in the activation dtype,
-    differentiable. Under remat ``"attn"`` the pre-attention segment (ln1,
-    q/k/v, rotary) and the post-attention segment (out-projection, MLP) are
-    recomputed apart, and the attention op's saved tensors stand between
-    them, so the forward kernel never runs again."""
-    _check_remat(cfg)
+    differentiable, each block checkpointed under ``cfg.remat_policy``
+    (``models._remat``)."""
+    check_policy(cfg, REMAT_POLICIES)
     x = params.embed(tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     for layer in params.blocks:
-        x = remat_block(
-            cfg,
-            x,
-            partial(_train_block, cfg, layer=layer, positions=positions),
-            partial(_attn_in, cfg, layer=layer, positions=positions),
-            partial(_attn_out_mlp, cfg, layer=layer),
-        )
+        x = remat_block(cfg, x, partial(_train_block, cfg, layer=layer, positions=positions))
     return params.ln_f(x)
 
 

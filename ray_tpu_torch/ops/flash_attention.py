@@ -24,8 +24,10 @@ the TPU grid and are not ported (ROADMAP.md).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -215,17 +217,76 @@ flash_bwd_dkv_cuda.launches = 0
 # ---------------------------------------------------------------------------
 
 
+class KeptOutputs:
+    """What one checkpointed segment keeps from its forward for its
+    recompute (``models._remat``): while it is current (``keep_outputs``),
+    a producer whose name is in ``names`` (the flash forward is "flash")
+    keeps what it computes on the segment's first run and, on the
+    recompute, hands the kept values back in call order instead of
+    computing again."""
+
+    def __init__(self, names):
+        self.names = frozenset(names)
+        self._outputs: dict = {}
+        self._calls: dict = {}
+
+    def get(self, name: str, compute):
+        """``(value, replayed)``: ``compute()``'s value, kept, on the first
+        run; the kept value on the recompute."""
+        outputs = self._outputs.setdefault(name, [])
+        i = self._calls.get(name, 0)
+        self._calls[name] = i + 1
+        if i < len(outputs):
+            return outputs[i], True
+        outputs.append(compute())
+        return outputs[-1], False
+
+
+# the current segment's KeptOutputs, per thread: a backward's recompute runs
+# the segment again on the autograd engine's thread
+_keeping = threading.local()
+
+
+@contextlib.contextmanager
+def keep_outputs(store: KeptOutputs):
+    """Make ``store`` current for one run of a segment (its forward or its
+    recompute), counting its producers' calls from the first."""
+    before = getattr(_keeping, "store", None)
+    store._calls.clear()
+    _keeping.store = store
+    try:
+        yield
+    finally:
+        _keeping.store = before
+
+
+def keeps(name: str) -> bool:
+    """Whether the current segment keeps ``name``."""
+    store = getattr(_keeping, "store", None)
+    return store is not None and name in store.names
+
+
+def kept(name: str, compute):
+    """``(value, replayed)`` through the current segment's store when it
+    keeps ``name``, else ``(compute(), False)``."""
+    if not keeps(name):
+        return compute(), False
+    return _keeping.store.get(name, compute)
+
+
 class FlashAttention(torch.autograd.Function):
     """Causal attention on (bh, seq, d) with the flash backward. Saves
     ``(q, k, v, out, lse)``; the backward runs K4 then K5 (the plain
-    ``flash_bwd_reference`` for CPU tensors)."""
+    ``flash_bwd_reference`` for CPU tensors). In a checkpointed segment
+    that keeps "flash", the recompute takes the kept out and lse and does
+    not launch K3 again."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        if q.is_cuda:
-            out, lse = flash_fwd_cuda(q, k, v)
-        else:
-            out, lse = flash_fwd_reference(q, k, v)
+        fwd = flash_fwd_cuda if q.is_cuda else flash_fwd_reference
+        (out, lse), replayed = kept("flash", lambda: fwd(q, k, v))
+        if replayed:
+            out = out.detach()  # a new output; the kept one belongs to the first run's graph
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 

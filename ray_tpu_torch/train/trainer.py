@@ -226,11 +226,32 @@ class DataParallelTrainer:
 
     def as_trainable(self):
         """Adapter so a trainer runs as a Tune trainable (reference:
-        ``ray_tpu/train/trainer.py:221``). ``tune`` is not ported yet."""
-        raise NotImplementedError(
-            "DataParallelTrainer.as_trainable needs ray_tpu_torch.tune, which is not "
-            "ported yet (ROADMAP.md, queue A7)"
-        )
+        ``ray_tpu/train/trainer.py:221``; BaseTrainer.fit wraps itself in a
+        1-trial Tune run, ``base_trainer.py:581-645``; we invert — Tune wraps
+        the trainer). The trial's config is merged over
+        ``train_loop_config``, the trainer runs inside the trial, and its
+        final metrics are the trial's one report. The trial takes no GPU of
+        its own: the trainer's workers hold theirs."""
+        trainer = self
+
+        def trainable(config):
+            from ray_tpu_torch import tune
+
+            merged = dict(trainer.train_loop_config or {})
+            merged.update(config or {})
+            t = type(trainer)(
+                trainer.train_loop_per_worker,
+                train_loop_config=merged,
+                scaling_config=trainer.scaling_config,
+                run_config=trainer.run_config,
+                datasets=trainer.datasets,
+                backend_config=trainer.backend_config,
+            )
+            result = t.fit()
+            if result.metrics:
+                tune.report(result.metrics)
+
+        return trainable
 
 
 class _IterShard:

@@ -6,8 +6,8 @@ with ``params_from_jax``; the same numpy tokens go through both forwards
 absolute plus 1e-4 relative: the frameworks sum matmuls in different
 orders), with the einsum and the flash attention paths (the reference's
 Pallas kernels in interpret mode, the port's plain flash functions) and
-with and without the fused loss. Rematerialization must not change the
-loss or the gradients.
+with and without the fused loss. Rematerialization, under each of the five
+policies, must not change the loss or the gradients.
 """
 
 import dataclasses
@@ -107,7 +107,7 @@ def test_loss_and_grads_match_reference(tree, reference, attn_impl, fused_loss):
         np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-4, err_msg=jax.tree_util.keystr(path))
 
 
-@pytest.mark.parametrize("policy", ["full", "attn"])
+@pytest.mark.parametrize("policy", ["full", "dots", "attn", "attn_qkv", "big"])
 def test_remat_equals_no_remat(tree, policy):
     results = []
     for remat in (False, True):
@@ -130,8 +130,9 @@ def test_bf16_activations_keep_fp32_master_weights():
         assert torch.equal(a, b)  # seeded: reproducible
     std = model.blocks[0].mlp_out.weight.std().item()
     assert abs(std - cfg.d_ff**-0.5) < 0.2 * cfg.d_ff**-0.5
-    hidden = port.gpt_hidden(cfg, model, torch.from_numpy(TOKENS[:, :-1]))
+    hidden, aux = port.gpt_hidden(cfg, model, torch.from_numpy(TOKENS[:, :-1]))
     assert hidden.dtype == torch.bfloat16 and hidden.shape == (*TOKENS[:, :-1].shape, cfg.d_model)
+    assert aux.dtype == torch.float32 and aux.item() == 0.0  # dense: no MoE aux loss
     loss = port.gpt_loss(cfg, model, torch.from_numpy(TOKENS))
     loss.backward()
     assert torch.isfinite(loss)
@@ -139,11 +140,7 @@ def test_bf16_activations_keep_fp32_master_weights():
 
 
 @pytest.mark.parametrize("change,error", [
-    (dict(n_experts=4), NotImplementedError),
     (dict(attn_impl="ring"), NotImplementedError),
-    (dict(remat=True, remat_policy="dots"), NotImplementedError),
-    (dict(remat=True, remat_policy="attn_qkv"), NotImplementedError),
-    (dict(remat=True, remat_policy="big"), NotImplementedError),
     (dict(remat=True, remat_policy="nope"), ValueError),
 ])
 def test_unported_configurations_raise(tree, change, error):

@@ -125,17 +125,86 @@ def test_data_loads_no_jax_torch_or_pyarrow_until_asked():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_tune_loads_no_jax_and_no_torch_until_asked():
+    """``tune`` loads neither JAX, the JAX package nor torch — not on import,
+    not while a Tuner runs its trials, and not in the trial workers — until
+    a trainable imports torch, which then loads in its worker only."""
+    code = (
+        "import sys, tempfile\n"
+        "import ray_tpu_torch, ray_tpu_torch.tune\n"
+        "from ray_tpu_torch.tune import controller, optuna_adapter, pb2, registry, schedulers, search, searcher\n"
+        "from ray_tpu_torch import tune\n"
+        "heavy = ('jax', 'jaxlib', 'ray_tpu', 'torch')\n"
+        "loaded = lambda: sorted(m for m in sys.modules if m.split('.')[0] in heavy)\n"
+        "after_import = loaded()\n"
+        "ray_tpu_torch.init(num_cpus=2, num_gpus=0)\n"
+        "def light(config):\n"
+        "    tune.report({'mods': ','.join(loaded()), 'x': config['x']})\n"
+        "def heavy_trainable(config):\n"
+        "    import torch\n"
+        "    tune.report({'mods': ','.join(loaded()), 'x': config['x']})\n"
+        "runs = {}\n"
+        "for fn in (light, heavy_trainable):\n"
+        "    grid = tune.Tuner(fn, param_space={'x': tune.grid_search([1, 2])},\n"
+        "                      run_config=tune.RunConfig(storage_path=tempfile.mkdtemp())).fit()\n"
+        "    runs[fn.__name__] = sorted({r.metrics['mods'] for r in grid})\n"
+        "after_run = loaded()\n"
+        "ray_tpu_torch.shutdown()\n"
+        "print(after_import, runs, after_run)\n"
+        "sys.exit(1 if after_import or after_run or runs['light'] != ['']\n"
+        "         or 'torch' not in runs['heavy_trainable'][0].split(',') else 0)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_gpu_trial_without_a_gpu_raises_at_once():
+    """A trial that asks for a GPU share on a cluster with no GPU makes the
+    Tuner raise at once: no trial is left pending, none runs on the CPU."""
+    code = (
+        "import sys, tempfile, time\n"
+        "import ray_tpu_torch\n"
+        "from ray_tpu_torch import tune\n"
+        "ray_tpu_torch.init(num_cpus=2, num_gpus=0)\n"
+        "ran = tempfile.mkdtemp()\n"
+        "def trainable(config):\n"
+        "    open(ran + '/ran', 'w').close()\n"
+        "    tune.report({'x': 1})\n"
+        "t0 = time.monotonic()\n"
+        "try:\n"
+        "    tune.Tuner(tune.with_resources(trainable, {'CPU': 1, 'GPU': 0.5}),\n"
+        "               run_config=tune.RunConfig(storage_path=tempfile.mkdtemp())).fit()\n"
+        "    err = None\n"
+        "except RuntimeError as e:\n"
+        "    err = str(e)\n"
+        "took = time.monotonic() - t0\n"
+        "import os\n"
+        "ran_any = os.path.exists(ran + '/ran')\n"
+        "ray_tpu_torch.shutdown()\n"
+        "print(err, took, ran_any)\n"
+        "sys.exit(0 if err and 'no node of this cluster has a GPU' in err and took < 10 and not ran_any else 1)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_chip_smoke_sends_its_runtime_code_by_value():
     """On the card ``chip_smoke.py`` runs as ``__main__``, so the functions
     and classes it hands the runtime's workers (phase 23's GPU task, phase
-    25's train loop and collective member) travel by cloudpickle's value
-    path, which must be able to carry every global they name."""
+    25's train loop and collective member, phase 28's trainable and train
+    loop) travel by cloudpickle's value path, which must be able to carry
+    every global they name."""
     code = (
         "import sys, cloudpickle\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke as cs\n"
         "cloudpickle.register_pickle_by_value(cs)\n"
-        "for obj in (cs.train_loop_406m, cs.CollectiveMember, cs.k1_in_a_gpu_task, cs.GPTEngineHost):\n"
+        "for obj in (cs.train_loop_406m, cs.CollectiveMember, cs.k1_in_a_gpu_task, cs.GPTEngineHost,\n"
+        "            cs.gpt_124m_trainable, cs.gpt_124m_train_loop):\n"
         "    cloudpickle.dumps(obj)\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}

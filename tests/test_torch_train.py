@@ -252,6 +252,22 @@ def test_gpu_workers_on_a_cluster_without_a_gpu_fail_at_once(ray_start_regular, 
         ).fit()
 
 
-def test_as_trainable_waits_for_tune():
-    with pytest.raises(NotImplementedError, match="A7"):
-        TorchTrainer(lambda: None).as_trainable()
+def test_as_trainable_waits_for_tune(ray_start_regular, storage):
+    """``as_trainable`` is what Tune runs as a trial: the trial's config
+    merged over ``train_loop_config``, the trainer's final metrics its one
+    report (it raised before ``tune`` was ported)."""
+    from ray_tpu_torch import tune
+
+    def loop(config):
+        train.report({"a": config["a"], "b": config["b"]})
+
+    trainable = TorchTrainer(
+        loop,
+        train_loop_config={"a": 1, "b": 2},
+        scaling_config=ScalingConfig(num_workers=1),
+        run_config=RunConfig(name="inner", storage_path=storage),
+    ).as_trainable()
+    grid = tune.Tuner(trainable, param_space={"b": 5},
+                      run_config=RunConfig(name="outer", storage_path=storage)).fit()
+    assert grid.errors == []
+    assert (grid[0].metrics["a"], grid[0].metrics["b"]) == (1, 5)

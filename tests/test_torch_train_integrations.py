@@ -212,13 +212,14 @@ def test_gptj_loss_matches_reference(ref_tree, fused):
 
 
 def test_gptj_loss_is_the_same_under_every_remat_policy(ref_tree):
-    """remat off, "full" and "attn" give the same loss and gradients (the
-    flash op's plain version on the CPU in the "attn" run), and "dots"
-    raises until it is ported."""
+    """remat off, "full", "attn" and "dots" give the same loss and gradients
+    (the flash op's plain version on the CPU in the "attn" and "dots"
+    runs), and a policy GPT-J does not have raises."""
     tokens = torch.from_numpy(_tokens(4, (2, 13)))
     runs = []
     for over in (dict(remat=False, attn_impl="xla"), dict(remat_policy="full", attn_impl="xla"),
-                 dict(remat_policy="attn", attn_impl="flash")):
+                 dict(remat_policy="attn", attn_impl="flash"),
+                 dict(remat_policy="dots", attn_impl="flash")):
         cfg, model, _ = _gptj_pair(ref_tree, **over)
         loss = gptj.gptj_loss(cfg, model, tokens)
         loss.backward()
@@ -227,8 +228,8 @@ def test_gptj_loss_is_the_same_under_every_remat_policy(ref_tree):
         np.testing.assert_allclose(loss, runs[0][0], rtol=1e-6)
         for g, g0 in zip(grads, runs[0][1]):
             torch.testing.assert_close(g, g0, atol=1e-5, rtol=1e-5)
-    cfg, model, _ = _gptj_pair(ref_tree, remat_policy="dots")
-    with pytest.raises(NotImplementedError, match="dots"):
+    cfg, model, _ = _gptj_pair(ref_tree, remat_policy="big")
+    with pytest.raises(ValueError, match="remat_policy"):
         gptj.gptj_loss(cfg, model, tokens)
 
 
