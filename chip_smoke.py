@@ -19,8 +19,10 @@ its checkpoint after the worker dies, and fed from a ``ray_tpu_torch.data``
 Dataset through ``iter_torch_batches``, beside a global shuffle of a 1.07 GB
 token corpus to the card; GPT-124M trained under each remat policy and as
 a mixture of experts, and tuned by ``Tuner`` over trial actors sharing the
-card (ASHA, PBT) and over a ``TorchTrainer``. Phases, each of which raises
-on failure:
+card (ASHA, PBT) and over a ``TorchTrainer``; GPT-124M trained by async
+RLHF (rollout engines in GPU-share actors, the learner in this process,
+each version pushed over the object plane), and PPO on CartPole. Phases,
+each of which raises on failure:
 
 1. device: name, compute capability, power limit;
 2. build: the three kernel sources, in parallel, and their ``-Xptxas -v`` register /
@@ -217,6 +219,31 @@ on failure:
     over two lrs, 2 steps each (``as_trainable``): the best result has the
     lower loss, the inner worker holds the card (the cluster's GPU is all
     taken while it trains), its launches reported.
+29. RL and RLHF on the card (``ray_tpu_torch.rlhf``, ``ray_tpu_torch.rl``),
+    GPT-124M, traffic from numpy seed 29: 32 prompts of 64-128 ids over the
+    whole vocabulary, 128 new tokens each at temperature 1.0, top_k 0,
+    top_p 1.0. (a) one in-process ``RolloutWorker`` (phase 19's engine
+    config, weights from a CUDA generator seeded 0) generates the 32
+    trajectories at version 0 through K1, a learner in this process holds
+    the same weights (checked equal), and the batch is built as
+    ``rlhf.Algorithm`` builds it (T 256, O 128): |learner logprob -
+    behavior logprob| over the unmasked tokens within ``LOGP_GAP_MAX``
+    and ``LOGP_GAP_MEAN``, the same read one position late (prompt_len +
+    j) beyond the mean bound; then one update: step ms, peak memory,
+    ``mean_ratio`` within ``RATIO_GAP`` of 1, K3/K4/K5 at 24/12/12; (b)
+    ``rlhf.Algorithm`` with two rollout workers in actors at ``GPU`` 0.25
+    and the learner in this process, 8 iterations (train_batch 32,
+    rollout_inflight 16, max_staleness 4, reward the share of generated
+    ids below 1024): per iteration the learner step, the publish time and
+    bytes, consumed versions and staleness, rollout tokens/s and reward,
+    each worker's applies; every worker's version advances, every consumed
+    trajectory within max_staleness, a rollout finishes between two
+    learner steps, losses finite, K1 at 12 launches a decode step in each
+    worker (read through the actor), the learner's K3/K4/K5 at 24/12/12 an
+    update; (c) ``PPOConfig`` on CartPole with the learner and env runner
+    on the card, 3 iterations, then one ``Learner.update`` on the card
+    against the same update on the CPU from the same weights and
+    minibatch within ``PPO_TOL``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it has
 the card's name and power limit, the one before that the kernels' record.
@@ -288,6 +315,15 @@ from ray_tpu_torch.ops.paged_attention import (
     verify_partials_torch,
 )
 from ray_tpu_torch.parallel import adamw, build_train_step
+from ray_tpu_torch.rl import PPOConfig, SampleBatch
+from ray_tpu_torch.rl.algorithms.ppo import ppo_loss
+from ray_tpu_torch.rl.learner import Learner, host_weights
+from ray_tpu_torch.rl.rl_module import ActorCriticModule, RLModuleSpec
+from ray_tpu_torch.rlhf import Algorithm as RLHFAlgorithm
+from ray_tpu_torch.rlhf import RLHFConfig, RolloutWorker, group_advantages
+from ray_tpu_torch.rlhf import rollout as rollout_mod
+from ray_tpu_torch.rlhf.algorithm import build_batch
+from ray_tpu_torch.rlhf.learner import make_learner_group, policy_logprobs
 from ray_tpu_torch.serve.llm import LLMDeployment, build_llm_app
 from ray_tpu_torch.util import metrics, phases, tracing
 
@@ -4539,6 +4575,301 @@ def tune_over_train(card: str) -> dict:
     return dict(asha=asha, pbt=pbt, inner=inner, seconds=(asha_s, pbt_s, inner_s))
 
 
+# ---------------------------------------------------------------------------
+# phase 29: RL and RLHF on the card
+# ---------------------------------------------------------------------------
+
+RLHF_PROMPTS = 32  # (a)'s trajectories at version 0; (b)'s prompts cycle these
+RLHF_SAMPLING = dict(max_tokens=128, temperature=1.0, top_k=0, top_p=1.0)
+RLHF_T, RLHF_O = 256, 128  # the learner's padded shapes: longest prompt + max_tokens, max_tokens
+#: (a): |learner logprob - behavior logprob| over the unmasked tokens at
+#: version 0 — the engine's bf16 paged decode through K1 against the
+#: learner's bf16 forward through K3, both scoring fp32 logits — and
+#: |mean_ratio - 1|. The max bound is 4x the max measured on the H100
+#: (0.0378); an off-by-one index must exceed both the max and the mean bound.
+LOGP_GAP_MAX = 0.15
+LOGP_GAP_MEAN = 0.05
+RATIO_GAP = 0.02
+RLHF_LR = 1e-4
+RLHF_ITERS = 8  # (b)
+PPO_ITERS = 3  # (c)
+PPO_TOL = 1e-5  # (c): one fp32 update on the card against the CPU's
+
+
+def rlhf_prompts() -> list:
+    """32 prompts of 64-128 ids over the whole vocabulary (numpy seed 29)."""
+    rng = np.random.default_rng(29)
+    return [rng.integers(0, GPT_124M.vocab_size, int(n)).tolist()
+            for n in rng.integers(64, 129, RLHF_PROMPTS)]
+
+
+def low_id_reward(prompt, tokens) -> float:
+    """Phase 29's reward: the share of generated ids below 1024."""
+    return sum(1 for t in tokens if t < 1024) / max(len(tokens), 1)
+
+
+def harvest(worker, n: int, timeout_s: float = 300.0) -> list:
+    deadline = time.monotonic() + timeout_s
+    trajs = []
+    while len(trajs) < n:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{len(trajs)} of {n} trajectories within {timeout_s} s")
+        trajs += worker.poll()["trajs"]
+        time.sleep(0.01)
+    return trajs
+
+
+def rlhf_on_policy(card: str) -> dict:
+    """Phase 29 (a): one update at full width, on policy."""
+    cfg = GPT_124M
+    worker = RolloutWorker(model="gpt", model_cfg=cfg, engine_config=GPT_ENGINE, seed=0)
+    group = make_learner_group(cfg, lr=RLHF_LR, seed=0)
+    learner = group._local
+    eng = worker._engine
+    served = eng.runner.params.state_dict()
+    for name, value in learner.params.state_dict().items():
+        if not torch.equal(value, served[name]):
+            raise AssertionError(f"(a): version 0 differs between the learner and the engine at {name}")
+    reset_counts(eng)
+    before = eng.stats()
+    t0 = time.perf_counter()
+    worker.submit(rlhf_prompts(), **RLHF_SAMPLING)
+    trajs = harvest(worker, RLHF_PROMPTS)
+    gen_s = time.perf_counter() - t0
+    worker.stop()
+    k1, _ = check_counts("(a) rollouts", eng)
+    after = eng.stats()
+    decode_ms = (after["decode_s"] - before["decode_s"]) / (after["decode_steps"] - before["decode_steps"]) * 1e3
+    tokens = sum(len(t["tokens"]) for t in trajs)
+    print(f"(a) [{card}]: {len(trajs)} trajectories, {tokens} tokens in {gen_s:.3f} s "
+          f"({tokens / gen_s:.1f} tokens/s), decode steps of {decode_ms:.3f} ms (wall, mean), "
+          f"K1 {k1} launches")
+    rewards = np.asarray([low_id_reward(t["prompt"], t["tokens"]) for t in trajs], np.float32)
+    batch = build_batch([(t, 1.0, 0) for t in trajs], group_advantages(rewards), RLHF_T, RLHF_O,
+                        RLHF_SAMPLING["temperature"], RLHF_SAMPLING["top_k"], RLHF_SAMPLING["top_p"])
+    dev = {k: torch.from_numpy(v).to(learner.device) for k, v in batch.items()}
+    mask = (torch.arange(RLHF_O, device=learner.device)[None, :] < dev["out_len"][:, None]) & (dev["token_mask"] > 0)
+    with torch.no_grad():
+        gap = (policy_logprobs(cfg, learner.params, dev) - dev["behavior_logp"]).abs()[mask]
+        late_batch = dict(dev, prompt_len=dev["prompt_len"] + 1)  # read at prompt_len + j
+        late = (policy_logprobs(cfg, learner.params, late_batch) - dev["behavior_logp"]).abs()[mask]
+    gap_max, gap_mean = gap.max().item(), gap.mean().item()
+    late_max, late_mean = late.max().item(), late.mean().item()
+    print(f"(a) [{card}]: |learner - behavior logprob| over {int(mask.sum())} tokens: max {gap_max:.6f} "
+          f"(bound {LOGP_GAP_MAX}), mean {gap_mean:.6f} (bound {LOGP_GAP_MEAN}); read at prompt_len + j "
+          f"(off by one): max {late_max:.6f}, mean {late_mean:.6f}")
+    if not (gap_max <= LOGP_GAP_MAX and gap_mean <= LOGP_GAP_MEAN):
+        raise AssertionError("(a): the learner's logprobs are off the engine's behavior logprobs")
+    if not (late_max > LOGP_GAP_MAX and late_mean > LOGP_GAP_MEAN):
+        raise AssertionError("(a): an off-by-one index stays within a bound: the check cannot see it")
+    del dev, gap, late
+    gc.collect()
+    torch.cuda.empty_cache()
+    # K3-K5 against their plain versions at the learner's own shape: bf16,
+    # (trajectories x heads, T, head_dim), before the launches are counted
+    g = torch.Generator(device="cuda").manual_seed(29)
+    flash_err = flash_errors(*(torch.randn(RLHF_PROMPTS * cfg.n_heads, RLHF_T, cfg.head_dim, device="cuda",
+                                           generator=g, dtype=torch.bfloat16) for _ in range(4)))
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_launches()
+    t0 = time.perf_counter()
+    metrics = group.update(SampleBatch(batch))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    flash = flash_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"(a) [{card}]: one update {step_ms:.3f} ms, peak {peak:.3f} GB, K3/K4/K5 {flash}, "
+          f"mean_ratio {metrics['mean_ratio']:.6f} (bound 1 +- {RATIO_GAP}), loss {metrics['loss']:.6f}, "
+          f"grad_norm {metrics['grad_norm']:.4f}, clip_frac {metrics['clip_frac']:.4f}")
+    if flash != expected_flash_launches(cfg, 1):
+        raise AssertionError(f"(a): K3/K4/K5 {flash} launches in one update")
+    if not (abs(metrics["mean_ratio"] - 1.0) <= RATIO_GAP and np.isfinite(metrics["loss"])):
+        raise AssertionError(f"(a): update metrics {metrics}")
+    del worker, group, learner, eng, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(k1=k1, flash=flash, flash_err=flash_err, step_ms=step_ms, gen_s=gen_s)
+
+
+class CardRolloutWorker(RolloutWorker):
+    """Phase 29 (b): the port's ``RolloutWorker`` in a GPU-share actor,
+    reporting what its process alone sees: K1's launch count (zeroed when
+    ``__init__``'s warm-up is done), the engine's decode steps and the
+    weight applies from its flight recorder."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        from ray_tpu_torch.ops import paged_attention as pa
+
+        pa.paged_attention_cuda.launches = 0
+        self._engine.runner.launches = dict.fromkeys(self._engine.runner.launches, 0)
+
+    def launches(self) -> tuple:
+        """(K1 launches, decode steps, ms a decode step, the cards its
+        process was bound to), read once the step loop has stopped (a
+        running loop could step between the reads)."""
+        from ray_tpu_torch.ops import paged_attention as pa
+
+        self._stop.set()
+        self._loop.join(timeout=60)
+        stats = self._engine.stats()
+        return (pa.paged_attention_cuda.launches, self._engine.runner.launches["decode"],
+                stats["decode_s"] / max(stats["decode_steps"], 1) * 1e3,
+                os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+    def applies(self) -> list:
+        from ray_tpu_torch._private import events as ev
+
+        return [(e["version"], e["apply_s"]) for e in ev.snapshot() if e["type"] == "rlhf.sync.apply"]
+
+
+def rlhf_async_loop(card: str) -> dict:
+    """Phase 29 (b): ``rlhf.Algorithm`` with two rollout workers on GPU
+    shares and the learner in this process."""
+    cfg = GPT_124M
+    ray_tpu_torch.init()
+    rollout_mod.RolloutWorker = CardRolloutWorker
+    algo = None
+    try:
+        t0 = time.perf_counter()
+        algo = RLHFAlgorithm(RLHFConfig(
+            model_cfg=cfg, engine_config=GPT_ENGINE, prompts=rlhf_prompts(), reward_fn=low_id_reward,
+            num_rollout_workers=2, rollout_inflight=16, train_batch=32, max_staleness=4,
+            lr=RLHF_LR, seed=0, **RLHF_SAMPLING,
+        ))
+        start_s = time.perf_counter() - t0
+        step_ms = []
+        update = algo.learner_group.update
+
+        def timed_update(batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = update(batch)  # ends in the metrics' copy to the host
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        algo.learner_group.update = timed_update
+        reset_flash_launches()
+        iters, ends = [], [time.time()]
+        t0 = time.perf_counter()
+        for _ in range(RLHF_ITERS):
+            out = algo.train_step()
+            if out.get("skipped"):
+                raise AssertionError(f"(b): an iteration was skipped: {out}")
+            ends.append(time.time())
+            out["versions"] = list(algo.stats()["last_batch_versions"])
+            iters.append(out)
+        loop_s = time.perf_counter() - t0
+        flash = flash_launches()
+        deadline = time.monotonic() + 60
+        while min(algo.rollouts.versions()) < RLHF_ITERS and time.monotonic() < deadline:
+            time.sleep(0.1)
+        versions = algo.rollouts.versions()
+        workers = algo.rollouts._workers
+        launches = ray_tpu_torch.get([w.launches.remote() for w in workers], timeout=60)
+        applies = ray_tpu_torch.get([w.applies.remote() for w in workers], timeout=60)
+        evs = events.snapshot()
+    finally:
+        if algo is not None:
+            algo.shutdown()
+        rollout_mod.RolloutWorker = RolloutWorker
+        ray_tpu_torch.shutdown()
+    pushes = {e["version"]: e for e in evs if e["type"] == "rlhf.sync.push"}
+    finishes = [e for e in evs if e["type"] == "rlhf.rollout.finish"]
+    steps = sorted(e["ts"] for e in evs if e["type"] == "rlhf.learner.step")
+    print(f"(b) [{card}]: Algorithm up in {start_s:.3f} s (2 workers at GPU 0.25, version 0 pushed); "
+          f"{RLHF_ITERS} iterations in {loop_s:.3f} s")
+    for i, out in enumerate(iters):
+        v = out["weights_version"]
+        window = [e for e in finishes if ends[i] < e["ts"] <= ends[i + 1]]
+        tok_s = sum(e["tokens"] for e in window) / (ends[i + 1] - ends[i])
+        push = pushes.get(v, {})
+        ages = [v - 1 - x for x in out["versions"]]
+        print(f"(b) it {i}: version {v}, learner step {step_ms[i]:.3f} ms, publish "
+              f"{push.get('push_s', float('nan')) * 1e3:.3f} ms / {push.get('bytes', 0)} bytes in "
+              f"{push.get('chunks', 0)} chunks, consumed versions {sorted(set(out['versions']))} "
+              f"(staleness max {max(ages)}, mean {out['mean_staleness']:.3f}, dropped "
+              f"{out['dropped_stale']}), rollout {tok_s:.1f} tokens/s, reward {out['mean_reward']:.5f}, "
+              f"loss {out['learner/loss']:.6f}")
+        if max(ages) > 4 or not np.isfinite(out["learner/loss"]):
+            raise AssertionError(f"(b) iteration {i}: {out}")
+    for w, (apps, (k1, decode, step_ms_w, cards)) in enumerate(zip(applies, launches)):
+        ms = [f"v{v} {s * 1e3:.1f}" for v, s in apps]
+        print(f"(b) worker {w}: bound to card {cards}, weights_version {versions[w]}, applies (ms) "
+              f"{', '.join(ms)}; K1 {k1} launches over {decode} decode steps of {step_ms_w:.3f} ms (wall, mean)")
+        if k1 <= 0 or k1 != cfg.n_layers * decode:
+            raise AssertionError(f"(b) worker {w}: K1 {k1} launches over {decode} decode steps")
+        if not cards or "," in cards:
+            raise AssertionError(f"(b) worker {w}: bound to cards {cards!r}, not to one card")
+    print(f"(b) [{card}]: reward by iteration {[round(o['mean_reward'], 5) for o in iters]}; "
+          f"learner K3/K4/K5 {flash}")
+    if min(versions) < 1:
+        raise AssertionError(f"(b): worker weights versions {versions}")
+    if not (len(steps) >= 2 and any(steps[0] < e["ts"] < steps[-1] for e in finishes)):
+        raise AssertionError("(b): no rollout finished between two learner steps")
+    if flash != expected_flash_launches(cfg, RLHF_ITERS):
+        raise AssertionError(f"(b): learner K3/K4/K5 {flash} over {RLHF_ITERS} updates")
+    return dict(k1=sum(k for k, *_ in launches), flash=flash, loop_s=loop_s, start_s=start_s)
+
+
+def ppo_on_card(card: str) -> float:
+    """Phase 29 (c): PPO on CartPole with the learner (and the local env
+    runner) on the card; then one ``Learner.update`` on the card against the
+    same update on the CPU."""
+    algo = (PPOConfig().environment("CartPole-v1")
+            .env_runners(num_env_runners=0, num_envs_per_env_runner=8, rollout_fragment_length=128)
+            .training(train_batch_size=1024, minibatch_size=128, num_epochs=4)
+            .debugging(seed=0).build())
+    try:
+        for i in range(PPO_ITERS):
+            t0 = time.perf_counter()
+            r = algo.train()
+            print(f"(c) [{card}]: iteration {i} {time.perf_counter() - t0:.3f} s, episode return "
+                  f"{r['episode_return_mean']}, loss {r['learner/loss']:.6f}")
+        cfg, runner = algo.config, algo._local_runner
+        weights = host_weights(algo.get_weights())
+        batch = runner.sample(16)
+        obs_space, act_space = runner.get_spaces()
+    finally:
+        algo.stop()
+    kw = dict(module_factory=lambda: ActorCriticModule(RLModuleSpec(obs_space, act_space, tuple(cfg.hidden))),
+              loss_fn=ppo_loss(cfg.clip_param, cfg.vf_clip_param, cfg.vf_loss_coeff, cfg.entropy_coeff),
+              lr=cfg.lr, grad_clip=cfg.grad_clip)
+    on_card, on_cpu = Learner(**kw), Learner(**kw, device="cpu")
+    on_card.set_weights(weights)
+    on_cpu.set_weights(weights)
+    got, want = on_card.update(batch), on_cpu.update(batch)
+    gap = max(abs(got[k] - want[k]) for k in want)
+    cpu_weights = on_cpu.get_weights()
+    for name, value in on_card.get_weights().items():
+        gap = max(gap, (value.cpu() - cpu_weights[name]).abs().max().item())
+    print(f"(c) [{card}]: one update on the card against the CPU: max gap {gap:.3e} (bound {PPO_TOL})")
+    if not gap <= PPO_TOL:
+        raise AssertionError("(c): the card's PPO update differs from the CPU's")
+    return gap
+
+
+def rl_on_card(card: str) -> dict:
+    """Phase 29: (a) ``rlhf_on_policy``, (b) ``rlhf_async_loop``, (c)
+    ``ppo_on_card``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = [time.perf_counter()]
+    a = rlhf_on_policy(card)
+    t.append(time.perf_counter())
+    b = rlhf_async_loop(card)
+    t.append(time.perf_counter())
+    ppo_on_card(card)
+    t.append(time.perf_counter())
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(k1=a["k1"] + b["k1"], flash=tuple(x + y for x, y in zip(a["flash"], b["flash"])),
+                flash_err=a["flash_err"],
+                seconds=[t1 - t0 for t0, t1 in zip(t, t[1:])])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4671,6 +5002,12 @@ def main() -> int:
     print(f"phase 28 [{card}]: {time.perf_counter() - t_phase:.1f} s ((a) {tuned['seconds'][0]:.1f}, "
           f"(b) {tuned['seconds'][1]:.1f}, (c) {tuned['seconds'][2]:.1f} s of Tuner runs)")
 
+    phase("29 RL and RLHF on the card")
+    t_phase = time.perf_counter()
+    rl = rl_on_card(card)
+    print(f"phase 29 [{card}]: {time.perf_counter() - t_phase:.1f} s ((a) {rl['seconds'][0]:.1f}, "
+          f"(b) {rl['seconds'][1]:.1f}, (c) {rl['seconds'][2]:.1f} s)")
+
     kernels = [
         dict(
             name="paged_decode_attention",
@@ -4678,7 +5015,7 @@ def main() -> int:
             source="ray_tpu_torch/ops/csrc/paged_attention.cu",
             replaces="ray_tpu/ops/paged_attention.py:203",
             launches=(served["launches"] + gpt_served["k1"] + swapped["launches"] + production["k1"]
-                      + runtime["k1"] + served24["k1_gptj"] + served24["k1_gpt"]),
+                      + runtime["k1"] + served24["k1_gptj"] + served24["k1_gpt"] + rl["k1"]),
             max_abs_err=err,
             ms=timing["ms"],
             plain_ms=timing["plain_ms"],
@@ -4690,7 +5027,8 @@ def main() -> int:
                               "gpt_124m_hot_swap": swapped["launches"],
                               "gpt_124m_production": production["k1"], "gpt_124m_actor": runtime["k1"],
                               "gptj_6b_serve_replica": served24["k1_gptj"],
-                              "gpt_124m_serve_failover": served24["k1_gpt"]},
+                              "gpt_124m_serve_failover": served24["k1_gpt"],
+                              "gpt_124m_rlhf_rollouts": rl["k1"]},
             at_head_dim_64=dict(timing64, bound_by="bytes"),
         ),
         dict(
@@ -4720,7 +5058,8 @@ def main() -> int:
                    "gpt_124m_moe_train": moe["launches"][i],
                    "gpt_124m_tune_asha": tuned["asha"][i],
                    "gpt_124m_tune_pbt": tuned["pbt"][i],
-                   "gpt_124m_tuner_over_trainer": tuned["inner"][i]}
+                   "gpt_124m_tuner_over_trainer": tuned["inner"][i],
+                   "gpt_124m_rlhf_learner": rl["flash"][i]}
         kernels.append(dict(
             name=kernel_name,
             route="cuda",
@@ -4729,6 +5068,7 @@ def main() -> int:
             launches=sum(by_path.values()),
             launches_by_path=by_path,
             **flash_timing[kernel],
+            max_abs_err_at_rlhf_learner_shape=rl["flash_err"][kernel],
         ))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

@@ -50,6 +50,10 @@ Ported so far:
   — search spaces, searchers (TPE, Optuna), ASHA, the median rule, PBT and
   PB2, checkpoints and experiment state — with trials holding fractional
   GPU shares, and a trainer run as a trial (``as_trainable``).
+- RL and RLHF: ``rl``'s core (envs, connectors, RL modules, env runners,
+  learners, the ``Algorithm`` driver) with PPO, and all of ``rlhf`` —
+  rollout engines in actors holding GPU shares, versioned weight pushes
+  over the object plane, the GPT learner and the async driver.
 
 ROADMAP.md lists what is still to port.
 
@@ -87,7 +91,7 @@ __version__ = "0.1.0"
 _LAZY_SUBMODULES = {
     "llm", "models", "ops", "parallel", "util", "accelerators",
     "cluster_utils", "dag", "experimental", "serve", "obs", "train", "collective", "data",
-    "tune",
+    "tune", "rl", "rlhf",
 }
 
 #: names exported from the heavy subpackages, loaded on first access

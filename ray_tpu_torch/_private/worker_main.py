@@ -1241,6 +1241,7 @@ def _cli_main():
 
 def _run_actor_create(state: WorkerState, spec: dict):
     from ray_tpu_torch._private import runtime_env as renv
+    from ray_tpu_torch.accelerators import gpu
 
     try:
         cls = _resolve_function(state, spec["func_id"])
@@ -1248,6 +1249,7 @@ def _run_actor_create(state: WorkerState, spec: dict):
         # permanent: the actor owns this worker process for life, so its
         # runtime env applies to every subsequent method call too
         with renv.applied(spec.get("runtime_env"), state.ctx, permanent=True):
+            gpu.bind_from_env()  # an actor's card share, before it touches CUDA
             state.actor_instance = cls(*args, **kwargs)
         state.actor_id = spec["actor_id"]
         # detached actors outlive the head: on conn loss they retry the

@@ -56,6 +56,7 @@ import dataclasses
 import math
 import threading
 import time
+from collections.abc import Mapping
 from typing import Iterator, Optional
 
 import numpy as np
@@ -556,7 +557,9 @@ class LLMEngine:
         sync of RLHF rollouts).
 
         ``params`` is a module like the engine's (``GPT`` or ``GPTJ``, on
-        any device): the same parameter names, shapes and dtypes, or
+        any device), or its ``state_dict`` as a ``{name: tensor}`` mapping
+        (what ``rlhf.sync.apply_weight_update`` rebuilds from a pushed
+        manifest): the same parameter names, shapes and dtypes, or
         ``ValueError``. Each new value is written INTO the existing
         parameter storage with ``copy_``, under the engine lock, on the
         current stream (the steps' stream: the engine never switches
@@ -568,7 +571,7 @@ class LLMEngine:
 
         ``version`` must not go backwards (default: current + 1). Returns
         the installed version."""
-        new = params.state_dict()
+        new = params if isinstance(params, Mapping) else params.state_dict()
         t0 = time.perf_counter()
         with self._caller_lock():
             old = self.runner.params.state_dict(keep_vars=True)

@@ -225,33 +225,37 @@ class LLMDeployment:
     # -- control plane -----------------------------------------------------
 
     def update_weights(self, update, version=None, timeout: float = 120.0) -> int:
-        """Versioned weight hot-swap between engine steps, WITHOUT draining
-        in-flight streams: ``update`` is a port parameter module of the
-        serving model's structure (on any device; the engine copies it into
-        its own storage), ``version`` the new version (default: current +
-        1, bumped under the engine lock, so two concurrent pushes never
-        share one). Routes like any other handle call (one replica per
-        call):
+        """Versioned weight hot-swap — the SAME push path raw actor
+        engines use (``rlhf.sync.apply_weight_update`` →
+        ``LLMEngine.update_weights``): accepts a published
+        ``rlhf.sync.WeightUpdate`` manifest (chunked object-plane refs) or a
+        port parameter module of the serving model's structure (on any
+        device) + ``version``, and applies it between engine steps WITHOUT
+        draining in-flight streams. An RLHF learner can therefore push to
+        serve-hosted inference replicas and dedicated rollout actors with
+        one code path:
 
-            handle.update_weights.remote(new_params, 7).result()
+            handle.update_weights.remote(weight_update).result()
 
-        The reference also takes an ``rlhf.sync.WeightUpdate`` manifest
-        (chunked object-plane refs of a JAX pytree); ``rlhf`` is not ported
-        (ROADMAP.md, A9), so a manifest raises ``NotImplementedError``.
-        ``timeout`` bounds a manifest's chunk fetches in the reference and
-        is unused here."""
-        import torch
+        ``timeout`` bounds a manifest's chunk fetches. Routes like any other
+        handle call (one replica per call); push once per replica — or use
+        ``num_replicas=1`` engines for rollout duty — when every replica
+        must advance."""
+        from ray_tpu_torch.rlhf.sync import WeightUpdate, apply_weight_update
 
-        if not isinstance(update, torch.nn.Module):
-            if type(update).__name__ == "WeightUpdate":
-                raise NotImplementedError(
-                    "rlhf.sync WeightUpdate manifests are not ported yet "
-                    "(ROADMAP.md, queue A9): pass a parameter module and a version"
+        if not isinstance(update, WeightUpdate):
+            import torch
+
+            if not isinstance(update, torch.nn.Module):
+                raise TypeError(
+                    "update_weights takes a WeightUpdate or a parameter module, got "
+                    f"{type(update).__name__}"
                 )
-            raise TypeError(
-                f"update_weights takes a parameter module, got {type(update).__name__}"
-            )
-        return self._engine.update_weights(update, version)
+            # version=None lets LLMEngine.update_weights bump UNDER its
+            # lock — computing current+1 here would race a concurrent
+            # push into two different param sets sharing one version
+            update = (update, version)
+        return apply_weight_update(self._engine, update, timeout=timeout)
 
     def weights_version(self) -> int:
         return self._engine.weights_version

@@ -48,34 +48,10 @@ class RayTrainWorker:
 
     def bind_cards(self, local_rank: int, gpus: float) -> Optional[str]:
         """Narrow ``CUDA_VISIBLE_DEVICES`` to this worker's share of the
-        node's cards: ``ceil(gpus)`` of them from index
-        ``floor(local_rank * gpus)`` (a fractional share packs workers onto
-        one card). Returns the ids bound, or None when the node lists no
-        cards. Raises if CUDA is already up in this process, since it would
-        not see the change."""
-        import math
-        import sys
-
+        node's cards, by local rank (``accelerators.gpu.bind_cards``)."""
         from ray_tpu_torch.accelerators import gpu
 
-        torch = sys.modules.get("torch")
-        if torch is not None and torch.cuda.is_initialized():
-            raise RuntimeError("train worker initialised CUDA before its card was bound")
-        ids = gpu.visible_devices()
-        if ids is None:
-            cards = gpu.nvidia_smi_cards()
-            ids = None if cards is None else [str(i) for i in range(len(cards))]
-        if ids is None:
-            return None
-        start = math.floor(local_rank * gpus)
-        share = ids[start : start + max(1, math.ceil(gpus))]
-        if start + len(share) > len(ids) or not share:
-            raise RuntimeError(
-                f"train worker at local rank {local_rank} needs {gpus} GPU from card index "
-                f"{start}, but this node shows {len(ids)} card(s): {ids}"
-            )
-        os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(share)
-        return os.environ["CUDA_VISIBLE_DEVICES"]
+        return gpu.bind_cards(local_rank, gpus, "train worker")
 
     def execute(self, fn: Callable, *args, **kwargs) -> Any:
         """Run an arbitrary function in the worker process (reference:

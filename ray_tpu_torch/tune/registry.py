@@ -2,10 +2,11 @@
 of ``ray_tpu/tune/registry.py``).
 
 Reference: ``python/ray/tune/registry.py`` (``register_trainable``, RLlib
-algorithms resolvable by name, e.g. ``tune.run("PPO")``). The port has no
-``rl`` package yet (ROADMAP.md, queue A9), so a name the reference resolves
-as an RL algorithm raises ``NotImplementedError``; the port keeps its own
-copy of those names.
+algorithms resolvable by name, e.g. ``tune.run("PPO")``). A name the port's
+``rl`` registers (PPO) resolves to its ``as_trainable``; the other names
+the reference resolves as RL algorithms raise ``NotImplementedError``
+(ROADMAP.md, queue A9.2). ``rl`` is imported on first use, and loads no
+torch.
 """
 
 from __future__ import annotations
@@ -30,11 +31,19 @@ def resolve_trainable(trainable: Union[str, Callable]) -> Callable:
         return trainable
     if trainable in _TRAINABLES:
         return _TRAINABLES[trainable]
-    if trainable in RL_ALGORITHMS:
-        raise NotImplementedError(
-            f"trainable {trainable!r} is an RL algorithm, and rl/ is not ported yet "
-            "(ROADMAP.md, queue A9)"
-        )
+    # RL algorithms are resolvable by name, reference-style.
+    from ray_tpu_torch.rl import get_algorithm_class
+
+    try:
+        cls = get_algorithm_class(trainable)
+    except KeyError:
+        if trainable in RL_ALGORITHMS:
+            raise NotImplementedError(
+                f"trainable {trainable!r} is an RL algorithm the port has not ported yet "
+                "(ROADMAP.md, queue A9.2)"
+            ) from None
+    else:
+        return cls.as_trainable(cls.get_default_config())
     raise KeyError(
         f"Unknown trainable {trainable!r}; registered: {sorted(_TRAINABLES)} "
         "plus RL algorithm names"

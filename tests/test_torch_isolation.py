@@ -160,6 +160,66 @@ def test_tune_loads_no_jax_and_no_torch_until_asked():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_rl_and_rlhf_load_no_jax_and_no_torch_until_asked():
+    """``rl`` and ``rlhf`` load neither JAX, the JAX package nor torch — not
+    on import of any of their modules but ``rl.rl_module``, not when
+    ``tune`` resolves "PPO" through them, and not in a runtime worker that
+    receives the rollout worker, env runner and learner classes (as the
+    runtime does before an actor's ``__init__`` opens torch and the card);
+    ``rl.ActorCriticModule`` brings torch, and still no JAX."""
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch, ray_tpu_torch.rl, ray_tpu_torch.rlhf\n"
+        "from ray_tpu_torch.rl import (algorithm, connectors, env, env_runner, learner, sample_batch,\n"
+        "                              spaces)\n"
+        "from ray_tpu_torch.rl.algorithms import ppo\n"
+        "from ray_tpu_torch.rlhf import algorithm, buffer, learner, metrics, rollout, smoke, sync\n"
+        "from ray_tpu_torch import tune\n"
+        "heavy = ('jax', 'jaxlib', 'ray_tpu', 'torch')\n"
+        "loaded = lambda: sorted(m for m in sys.modules if m.split('.')[0] in heavy)\n"
+        "ppo_trainable = tune.resolve_trainable('PPO')\n"
+        "after_import = loaded()\n"
+        "ray_tpu_torch.init(num_cpus=2, num_gpus=0)\n"
+        "@ray_tpu_torch.remote\n"
+        "def receive(*classes):\n"
+        "    return ','.join(loaded())\n"
+        "in_worker = ray_tpu_torch.get(receive.remote(rollout.RolloutWorker, env_runner.EnvRunner,\n"
+        "                                             learner.LearnerGroup, ppo.PPO), timeout=60)\n"
+        "ray_tpu_torch.shutdown()\n"
+        "module = ray_tpu_torch.rl.ActorCriticModule\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu'))\n"
+        "print(after_import, repr(in_worker), bad)\n"
+        "sys.exit(1 if after_import or in_worker or bad or 'torch' not in sys.modules\n"
+        "         or ppo_trainable.__name__ != 'PPO' else 0)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_rl_and_rlhf_entry_points_without_device_need_cuda(monkeypatch):
+    """A learner, an env runner, an RL module and a rollout worker with no
+    device mean the card: without a GPU they raise, never sampling or
+    learning on the CPU quietly."""
+    from ray_tpu_torch.models.gpt import GPTConfig
+    from ray_tpu_torch.rl import EnvRunner, Learner
+    from ray_tpu_torch.rl.algorithms.ppo import ppo_loss
+    from ray_tpu_torch.rl.rl_module import ActorCriticModule, RLModuleSpec
+    from ray_tpu_torch.rl.spaces import Box, Discrete
+    from ray_tpu_torch.rlhf import RolloutWorker
+
+    spec = RLModuleSpec(Box(-1, 1, shape=(4,)), Discrete(2))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: Learner(lambda: ActorCriticModule(spec), ppo_loss(0.2, 10.0, 0.5, 0.0)),
+                 lambda: EnvRunner("CartPole-v1"),
+                 lambda: ActorCriticModule(spec).init(torch.Generator()),
+                 lambda: RolloutWorker(model_cfg=GPTConfig(vocab_size=16, seq_len=8, d_model=8,
+                                                           n_layers=1, n_heads=2), warmup=False)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
 def test_gpu_trial_without_a_gpu_raises_at_once():
     """A trial that asks for a GPU share on a cluster with no GPU makes the
     Tuner raise at once: no trial is left pending, none runs on the CPU."""
@@ -196,7 +256,7 @@ def test_chip_smoke_sends_its_runtime_code_by_value():
     """On the card ``chip_smoke.py`` runs as ``__main__``, so the functions
     and classes it hands the runtime's workers (phase 23's GPU task, phase
     25's train loop and collective member, phase 28's trainable and train
-    loop) travel by cloudpickle's value path, which must be able to carry
+    loop, phase 29's rollout worker and reward) travel by cloudpickle's value path, which must be able to carry
     every global they name."""
     code = (
         "import sys, cloudpickle\n"
@@ -204,7 +264,7 @@ def test_chip_smoke_sends_its_runtime_code_by_value():
         "import chip_smoke as cs\n"
         "cloudpickle.register_pickle_by_value(cs)\n"
         "for obj in (cs.train_loop_406m, cs.CollectiveMember, cs.k1_in_a_gpu_task, cs.GPTEngineHost,\n"
-        "            cs.gpt_124m_trainable, cs.gpt_124m_train_loop):\n"
+        "            cs.gpt_124m_trainable, cs.gpt_124m_train_loop, cs.CardRolloutWorker, cs.low_id_reward):\n"
         "    cloudpickle.dumps(obj)\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}

@@ -11,8 +11,9 @@ for GPT-J and GPT, plain and at ``spec_k=3``, also across the SIGKILL of
 the replica serving a stream. Around that: dict payloads,
 ``resume_tokens``, the deadline shed as 429, ``update_weights`` with a
 module and a version (tokens then equal a reference engine born on seed
-1), the refusals (an ``rlhf`` ``WeightUpdate`` manifest, ``tp=2``, a
-GPU-asking app on a cluster without a GPU), a control plane that never
+1) and with a port ``rlhf`` ``WeightUpdate`` manifest, the refusals (the
+reference's manifest, ``tp=2``, a GPU-asking app on a cluster without a
+GPU), a control plane that never
 loads torch, an open-loop ``loadgen.run_curve`` through the proxy with its
 latency attribution, and the Serve parts of ``tests/test_llm_engine.py``
 (the streaming deployment, ``@serve.batch``'s gauges) and of
@@ -297,22 +298,30 @@ def test_update_weights_with_a_module_and_version(serve_instance, weights, arch)
     assert after != before
 
 
-def test_weight_update_manifest_and_tp_raise(weights):
-    """An ``rlhf.sync.WeightUpdate`` manifest (rlhf is not ported) and
-    tensor parallelism raise; neither is half-done."""
-    from ray_tpu.rlhf.sync import WeightUpdate
+def test_weight_update_manifest_and_tp_raise(weights, cluster):
+    """A port ``rlhf.sync.WeightUpdate`` manifest applies through
+    ``rlhf.sync.apply_weight_update`` (the replica's weights become the
+    pushed ones); the reference package's manifest, a dict and tensor
+    parallelism raise, and none is half-done."""
+    from ray_tpu.rlhf.sync import WeightUpdate as RefWeightUpdate
+    from ray_tpu_torch.rlhf.sync import publish_weights
 
     dep = LLMDeployment(model="gptj", model_cfg=GPTJConfig(**ARCHS["gptj"]),
                         params=_port_params(weights, "gptj"), engine_config=EngineConfig(**GEOMETRY),
                         warmup=False, device="cpu")
     try:
-        manifest = WeightUpdate(version=1, treedef=None, chunk_refs=[], chunk_sizes=[], nbytes=0,
-                                created_t=0.0)
-        with pytest.raises(NotImplementedError, match="A9"):
-            dep.update_weights(manifest)
+        foreign = RefWeightUpdate(version=1, treedef=None, chunk_refs=[], chunk_sizes=[], nbytes=0,
+                                  created_t=0.0)
+        with pytest.raises(TypeError):
+            dep.update_weights(foreign)
         with pytest.raises(TypeError):
             dep.update_weights({"embed": np.zeros(3)})
         assert dep.weights_version() == 0
+        pushed = _port_params(weights, "gptj", seed=1)
+        assert dep.update_weights(publish_weights(pushed, 3, chunk_bytes=64 << 10), timeout=30) == 3
+        assert dep.weights_version() == 3
+        for name, value in pushed.state_dict().items():
+            assert torch.equal(dep._engine.runner.params.state_dict()[name], value), name
     finally:
         dep._stop.set()
         dep._engine._watchdog.stop()
