@@ -21,7 +21,9 @@ token corpus to the card; GPT-124M trained under each remat policy and as
 a mixture of experts, and tuned by ``Tuner`` over trial actors sharing the
 card (ASHA, PBT) and over a ``TorchTrainer``; GPT-124M trained by async
 RLHF (rollout engines in GPU-share actors, the learner in this process,
-each version pushed over the object plane), and PPO on CartPole. Phases,
+each version pushed over the object plane), and PPO on CartPole; and DQN,
+SAC, TD3, DDPG, BC, CQL, IMPALA, APPO, ES, Dreamer and multi-agent PPO at
+their defaults on the reference's envs. Phases,
 each of which raises on failure:
 
 1. device: name, compute capability, power limit;
@@ -205,15 +207,18 @@ each of which raises on failure:
     memory;
 28. Tune over Train (``ray_tpu_torch.tune``), ``init()`` with the card as
     one ``GPU``, dense GPT-124M (remat "attn", batch 8) as the trainable:
-    (a) ``Tuner`` with ``ASHAScheduler(max_t=6, grace_period=2,
+    (a) ``Tuner`` with ``ASHAScheduler(max_t=4, grace_period=2,
     reduction_factor=2)``, 4 trials of lr from ``loguniform(1e-5, 1e-3)``
     (seed 28) at ``with_resources({"CPU": 1, "GPU": 0.5})``, two at a time
     on the card: every trial ``TERMINATED``, ASHA stops one before max_t,
     the best trial's losses equal a ``build_train_step`` run in this process bit
     for bit, the trials' K3/K4/K5 launches add up to 12 a step each; (b)
-    ``PopulationBasedTraining`` over 2 trials, interval 2, 6 iterations,
-    each report carrying a checkpoint of the train state: an exploit
-    happens, the exploiting trial's restored parameters hash equal to the
+    ``PopulationBasedTraining(synch=True)`` over 2 trials, interval 2, 4
+    iterations, the reports at steps 2 and 4 carrying a checkpoint of the
+    train state (``TUNE_STEPS`` and ``PBT_INTERVAL``, cut from 6 steps and a
+    checkpoint with every report when phase 30 came): at step 2 the trial
+    behind waits for the other, so the worse one exploits whichever reports
+    first; an exploit happens, the exploiting trial's restored parameters hash equal to the
     donor's checkpoint, its lr is the donor's times 0.8 or 1.2; (c)
     ``Tuner(TorchTrainer(..., ScalingConfig(num_workers=1, use_gpu=True)))``
     over two lrs, 2 steps each (``as_trainable``): the best result has the
@@ -232,7 +237,8 @@ each of which raises on failure:
     j) beyond the mean bound; then one update: step ms, peak memory,
     ``mean_ratio`` within ``RATIO_GAP`` of 1, K3/K4/K5 at 24/12/12; (b)
     ``rlhf.Algorithm`` with two rollout workers in actors at ``GPU`` 0.25
-    and the learner in this process, 8 iterations (train_batch 32,
+    and the learner in this process, 4 iterations (``RLHF_ITERS``, cut from
+    8 when phase 30 came; train_batch 32,
     rollout_inflight 16, max_staleness 4, reward the share of generated
     ids below 1024): per iteration the learner step, the publish time and
     bytes, consumed versions and staleness, rollout tokens/s and reward,
@@ -243,7 +249,28 @@ each of which raises on failure:
     update; (c) ``PPOConfig`` on CartPole with the learner and env runner
     on the card, 3 iterations, then one ``Learner.update`` on the card
     against the same update on the CPU from the same weights and
-    minibatch within ``PPO_TOL``.
+    minibatch within ``PPO_TOL``;
+30. the rest of RL on the card (``ray_tpu_torch.rl``), every algorithm at
+    its config's defaults (hidden 64 x 64) on the reference's envs, only
+    the iterations cut, seed 30: (a) DQN on CartPole with prioritized
+    replay, 3 iterations (past ``learning_starts`` and a target sync);
+    (b) SAC, (c) TD3 and DDPG on Pendulum, 4 iterations each (the last
+    makes 200 updates, each followed by the Polyak average); (d) BC on
+    4000 scripted-expert CartPole transitions and CQL on 4000 random
+    Pendulum transitions, each recorded here and read back from ``.npz``;
+    (e) IMPALA and APPO with two env-runner actors at ``ENV_RUNNER_GPUS``
+    of the card, the learner in this process, 2 iterations; (f) ES over
+    two env-runner actors, 2 iterations; (g) Dreamer on MinAtar Breakout
+    (latent 128, batch 128, horizon 8), 3 iterations, and an update's time;
+    (h) shared-policy PPO on ``EchoCoopEnv`` (4 envs x 2 agents), 2
+    iterations. Each part checks its metrics finite and its mechanism
+    (per-sample priorities and the synced target, Polyak targets lagging,
+    BC's falling NLL, the async steps consumed, ES's update), prints its
+    iteration seconds, a learner update's median ms and env steps/s, and
+    for every learner (DQN, SAC, TD3, DDPG, BC, CQL, IMPALA, APPO, Dreamer)
+    holds one update on the card against the same update on the CPU from
+    the same weights, batch and draws (its Polyak or target sync after it)
+    within ``RL_TOL`` relative to max(1, |cpu|).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it has
 the card's name and power limit, the one before that the kernels' record.
@@ -265,6 +292,7 @@ import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -316,7 +344,9 @@ from ray_tpu_torch.ops.paged_attention import (
 )
 from ray_tpu_torch.parallel import adamw, build_train_step
 from ray_tpu_torch.rl import PPOConfig, SampleBatch
+from ray_tpu_torch.rl.algorithm import ENV_RUNNER_GPUS
 from ray_tpu_torch.rl.algorithms.ppo import ppo_loss
+from ray_tpu_torch.rl.algorithms.sac import polyak_update
 from ray_tpu_torch.rl.learner import Learner, host_weights
 from ray_tpu_torch.rl.rl_module import ActorCriticModule, RLModuleSpec
 from ray_tpu_torch.rlhf import Algorithm as RLHFAlgorithm
@@ -4286,7 +4316,8 @@ def moe_train(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 TUNE_CFG = dataclasses.replace(GPT_124M, remat_policy="attn")  # dense GPT-124M, batch 8
-TUNE_STEPS = 6  # every trial's steps (ASHA's max_t, PBT's iterations)
+TUNE_STEPS = 4  # every trial's steps (ASHA's max_t, PBT's iterations); 6 until phase 30 came
+PBT_INTERVAL = 2  # (b)'s perturbation interval: a trial checkpoints at its multiples only
 TUNE_INNER_STEPS = 2  # (c): the steps of each trainer run inside a trial
 TUNE_TIMEOUT_S = 600  # a Tuner run taking longer fails the phase
 
@@ -4316,9 +4347,9 @@ def gpt_124m_trainable(config: dict) -> None:
     seeded 0, ``build_train_step(gpt_loss, adamw(config["lr"]))``, step i on
     ``tune_batches()[i]`` up to ``TUNE_STEPS``, ``tune.report`` after each
     step with the loss, the lr, the process's K3/K4/K5 launches counted from
-    0 and its card; with ``config["stage"]`` each report carries the train
-    state (``save_state``: the model and AdamW's moments) and its params'
-    hash. From a checkpoint (PBT's exploit) it resumes at the saved step
+    0 and its card; with ``config["stage"]`` each report at a multiple of
+    ``PBT_INTERVAL`` steps carries the train state (``save_state``: the
+    model and AdamW's moments) and its params' hash. From a checkpoint (PBT's exploit) it resumes at the saved step
     with the saved moments and ``config["lr"]``, and reports the restored
     params' hash."""
     from ray_tpu_torch import train, tune
@@ -4344,7 +4375,7 @@ def gpt_124m_trainable(config: dict) -> None:
                        state_step=state.step, launches=list(flash_launches()), pid=os.getpid(),
                        cards=os.environ.get("CUDA_VISIBLE_DEVICES"), **restored)
         saved = stage = None
-        if config.get("stage"):
+        if config.get("stage") and state.step % PBT_INTERVAL == 0:
             stage = tempfile.mkdtemp(dir=config["stage"])
             saved = train.save_state(state, stage)
             metrics["saved_hash"] = params_hash(state.params)
@@ -4395,7 +4426,7 @@ def fit_in_time(tuner, label: str):
 
 def tune_asha(card: str, storage: str) -> tuple:
     """(a): 4 trials, lr from ``loguniform(1e-5, 1e-3)`` (seed 28), under
-    ``ASHAScheduler(max_t=6, grace_period=2, reduction_factor=2)``, two at a
+    ``ASHAScheduler(max_t=TUNE_STEPS, grace_period=2, reduction_factor=2)``, two at a
     time at half a GPU each."""
     from ray_tpu_torch import tune
 
@@ -4440,19 +4471,22 @@ def tune_asha(card: str, storage: str) -> tuple:
 
 
 def tune_pbt(card: str, storage: str) -> tuple:
-    """(b): 2 trials (lr 1e-5 and 1e-3) under ``PopulationBasedTraining``
-    (``perturbation_interval=2``, lr perturbed by 0.8 or 1.2, never
-    resampled), ``TUNE_STEPS`` iterations, every report checkpointing the
-    train state."""
+    """(b): 2 trials (lr 1e-5 and 1e-3) under synchronous
+    ``PopulationBasedTraining`` (``perturbation_interval=PBT_INTERVAL``, lr
+    perturbed by 0.8 or 1.2, never resampled; asynchronous PBT exploits at
+    step 2 only when the worse trial happens to report it second),
+    ``TUNE_STEPS`` iterations, the reports at the perturbation steps
+    checkpointing the train state."""
     from ray_tpu_torch import tune
 
     stage = tempfile.mkdtemp(dir=storage, prefix="stage_")
     # every checkpoint is kept: with keep-N a donor's newer commits could
     # delete the one an exploiting trial is about to load
-    need = 2 * TUNE_STEPS * 12 * sum(p.numel() for p in GPT(TUNE_CFG, device="meta").parameters())
+    n_ckpt = 2 * (TUNE_STEPS // PBT_INTERVAL)
+    need = n_ckpt * 12 * sum(p.numel() for p in GPT(TUNE_CFG, device="meta").parameters())
     free = shutil.disk_usage(storage).free
-    print(f"(b) storage {storage}: {free / 1e9:.1f} GB free; the run keeps {2 * TUNE_STEPS} checkpoints of "
-          f"~{need / 2 / TUNE_STEPS / 1e9:.2f} GB (12 bytes a parameter)")
+    print(f"(b) storage {storage}: {free / 1e9:.1f} GB free; the run keeps {n_ckpt} checkpoints of "
+          f"~{need / n_ckpt / 1e9:.2f} GB (12 bytes a parameter)")
     if free < 1.2 * need:
         raise AssertionError(f"(b) {free / 1e9:.1f} GB free: too little for {need / 1e9:.1f} GB of checkpoints")
     t0 = time.perf_counter()
@@ -4462,7 +4496,8 @@ def tune_pbt(card: str, storage: str) -> tuple:
         tune_config=tune.TuneConfig(
             metric="loss", mode="min", max_concurrent_trials=2,
             scheduler=tune.PopulationBasedTraining(
-                metric="loss", mode="min", perturbation_interval=2, seed=28, resample_probability=0.0,
+                metric="loss", mode="min", perturbation_interval=PBT_INTERVAL, seed=28,
+                resample_probability=0.0, synch=True,
                 hyperparam_mutations={"lr": tune.loguniform(1e-6, 1e-2)})),
         run_config=tune.RunConfig(name="pbt", storage_path=storage),
     ), "(b)")
@@ -4474,7 +4509,7 @@ def tune_pbt(card: str, storage: str) -> tuple:
         donor = histories[1 - i]
         for prev, m in zip(h, h[1:]):
             if m.get("restored_hash") is not None and m["pid"] != prev["pid"]:
-                saved = {d["saved_hash"] for d in donor if d["state_step"] == m["restored_step"]}
+                saved = {d.get("saved_hash") for d in donor if d["state_step"] == m["restored_step"]}
                 exploits.append(dict(
                     trial=i, step=m["restored_step"], hash_ok=m["restored_hash"] in saved, lr=m["lr"],
                     perturbed=any(m["lr"] in (d["lr"] * 0.8, d["lr"] * 1.2) for d in donor)))
@@ -4482,8 +4517,8 @@ def tune_pbt(card: str, storage: str) -> tuple:
     steps = sum(1 for h in histories for _ in h)
     want = tuple(n * steps for n in expected_flash_launches(TUNE_CFG, 1))
     finals = [f"{h[-1]['loss']:.6f}" for h in histories]
-    print(f"(b) PBT over 2 trials of GPT-124M, perturbation interval 2, {TUNE_STEPS} iterations, a checkpoint of "
-          f"the train state with every report [{card}]: {took:.1f} s; states {[t['state'] for t in trials]}; "
+    print(f"(b) synchronous PBT over 2 trials of GPT-124M, perturbation interval {PBT_INTERVAL}, {TUNE_STEPS} iterations, "
+          f"a checkpoint of the train state every {PBT_INTERVAL} steps [{card}]: {took:.1f} s; states {[t['state'] for t in trials]}; "
           f"exploits {exploits}; final losses {finals}; K3/K4/K5 launches {launches} = {want} expected over "
           f"{steps} steps")
     if set(t["state"] for t in trials) != {"TERMINATED"} or grid.errors:
@@ -4591,7 +4626,7 @@ LOGP_GAP_MAX = 0.15
 LOGP_GAP_MEAN = 0.05
 RATIO_GAP = 0.02
 RLHF_LR = 1e-4
-RLHF_ITERS = 8  # (b)
+RLHF_ITERS = 4  # (b); 8 until phase 30 came
 PPO_ITERS = 3  # (c)
 PPO_TOL = 1e-5  # (c): one fp32 update on the card against the CPU's
 
@@ -4870,6 +4905,396 @@ def rl_on_card(card: str) -> dict:
                 seconds=[t1 - t0 for t0, t1 in zip(t, t[1:])])
 
 
+# ---------------------------------------------------------------------------
+# phase 30: the rest of RL on the card
+# ---------------------------------------------------------------------------
+
+RL_TOL = 1e-5  # a learner update on the card against the CPU's: |card - cpu| / max(1, |cpu|)
+RL_SEED = 30
+
+
+def timed_updates(algo) -> list:
+    """Wrap ``algo.learner_group.update`` to record each update's wall ms
+    (from a synced card to the metrics' copy to the host, which ends it)."""
+    times = []
+    update = algo.learner_group.update
+
+    def timed(batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = update(batch)
+        times.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    algo.learner_group.update = timed
+    return times
+
+
+def train_iterations(algo, n: int, label: str, card: str, unit: str) -> tuple:
+    """``n`` iterations of ``algo.train()``: (results, seconds each, the
+    algorithm's timesteps per second over the run — env steps, or the
+    dataset rows an offline algorithm trains on)."""
+    results, secs = [], []
+    steps0 = algo._timesteps_total
+    t0 = time.perf_counter()
+    for _ in range(n):
+        t = time.perf_counter()
+        results.append(algo.train())
+        secs.append(time.perf_counter() - t)
+    rate = (algo._timesteps_total - steps0) / (time.perf_counter() - t0)
+    print(f"{label} [{card}]: iterations {[f'{s:.3f}' for s in secs]} s, {rate:.1f} {unit}/s, "
+          f"episode return {results[-1].get('episode_return_mean')}")
+    return results, secs, rate
+
+
+def rel_gap(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.maximum(1.0, np.abs(want)))) if want.size else 0.0
+
+
+def learner_gate(algo, batch, label: str, card: str, apply=None, step: int = 0) -> float:
+    """The card's update from given weights, batch and draws against the
+    CPU's: two ``Learner``s with the algorithm's module, loss (its call
+    count set to ``step``), lr and clip, both holding the algorithm's
+    learner weights; one update each on ``batch`` (its ``"draw/..."`` keys
+    the loss's draws), then ``apply`` (a Polyak or target sync) on each.
+    Returns the largest relative gap over the metrics and the weights."""
+    src = algo.learner_group._local
+    weights = host_weights(src.params)
+    twins = []
+    for device in (None, "cpu"):
+        loss = copy.deepcopy(src._loss_fn)
+        if hasattr(loss, "step"):
+            loss.step = step
+        twin = Learner(lambda: copy.deepcopy(src.module), loss, lr=src.opt.param_groups[0]["lr"],
+                       grad_clip=src._grad_clip, device=device)
+        twin.set_weights(weights)
+        twins.append(twin)
+    got, want = (t.update(batch) for t in twins)
+    if apply is not None:
+        for t in twins:
+            t.apply(apply)
+    gap = max(rel_gap(got[k], want[k]) for k in want)
+    cpu_weights = twins[1].get_weights()
+    for name, value in twins[0].get_weights().items():
+        gap = max(gap, rel_gap(value.cpu().numpy(), cpu_weights[name].numpy()))
+    print(f"{label} [{card}]: one update on the card against the CPU from the same weights, batch and "
+          f"draws: largest gap {gap:.3e} over {len(want)} metrics and {len(cpu_weights)} tensors "
+          f"(bound {RL_TOL}, relative to max(1, |cpu|))")
+    if not gap <= RL_TOL:
+        raise AssertionError(f"{label}: the card's update differs from the CPU's by {gap:.3e}")
+    return gap
+
+
+def check_finite(label: str, result: dict, keys) -> None:
+    bad = [k for k in keys if k not in result or not np.all(np.isfinite(result[k]))]
+    if bad:
+        raise AssertionError(f"{label}: missing or non-finite {bad} in {result}")
+
+
+def normal_draws(rng, **shapes) -> dict:
+    return {f"draw/{k}": rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+
+
+def rl_part(label: str, card: str, build, iters: int, check, gate=None, unit="env steps") -> dict:
+    """One part of phase 30: build the algorithm (on the card: ``device``
+    left None), time its learner's updates over ``iters`` iterations,
+    ``check(algo, results)``, then ``gate(algo)``, the card-versus-CPU
+    update check."""
+    t0 = time.perf_counter()
+    algo = build()
+    try:
+        times = timed_updates(algo) if hasattr(algo, "learner_group") else []
+        results, secs, rate = train_iterations(algo, iters, label, card, unit)
+        check(algo, results)
+        ms = float(np.median(times)) if times else float("nan")
+        if times:
+            print(f"{label} [{card}]: {len(times)} learner updates, median {ms:.3f} ms "
+                  f"(min {min(times):.3f}, max {max(times):.3f})")
+        gap = gate(algo) if gate is not None else None
+    finally:
+        algo.stop()
+    return dict(seconds=time.perf_counter() - t0, iter_s=secs, update_ms=ms, steps_per_s=rate, gap=gap,
+                unit=unit)
+
+
+def dqn_part(card: str) -> dict:
+    """(a) DQN on CartPole at ``DQNConfig``'s defaults with prioritized
+    replay: 3 iterations of 512 steps (learning starts at 1000, the target
+    syncs after 500 steps), then the card-versus-CPU update with a target
+    sync."""
+    from ray_tpu_torch.rl import DQNConfig
+    from ray_tpu_torch.rl.algorithms.dqn import _sync_target
+
+    def check(algo, results):
+        r = results[-1]
+        check_finite("(a)", r, ("learner/loss", "learner/td_error_mean", "learner/q_mean"))
+        w = algo.get_weights()
+        synced = all(torch.equal(w[n], w["target_" + n]) for n in w if n.startswith("q."))
+        prio = algo.buffer._prio[:len(algo.buffer)]
+        print(f"(a) buffer {len(algo.buffer)}, epsilon {r['epsilon']:.4f}, distinct priorities "
+              f"{len(np.unique(prio))}, target equal to the online net after the last sync {synced}")
+        if len(np.unique(prio)) < 32 or not synced:
+            raise AssertionError("(a): no per-sample priorities, or no target sync")
+
+    def gate(algo):
+        batch = algo.buffer.sample(algo.config.train_batch_size)
+        return learner_gate(algo, batch, "(a) DQN", card, apply=_sync_target)
+
+    return rl_part("(a) DQN, CartPole", card, lambda: DQNConfig().environment("CartPole-v1").training(
+        prioritized_replay=True).debugging(seed=RL_SEED).build(), 3, check, gate)
+
+
+def continuous_part(card: str, label: str, config, draws) -> dict:
+    """(b), (c): an off-policy learner on Pendulum at its config's defaults,
+    4 iterations of 400 steps (learning starts at 1500: the last iteration
+    makes 200 updates, each followed by the Polyak average), then the
+    card-versus-CPU update with the Polyak average."""
+    def check(algo, results):
+        r = results[-1]
+        check_finite(label, r, ("learner/loss", "learner/q_loss", "learner/pi_loss"))
+        w = algo.get_weights()
+        lag = max(float((w[n] - w["target_" + n]).abs().max()) for n in w if n.startswith("q1."))
+        print(f"{label}: buffer {r['buffer_size']}, the targets' largest lag behind q1 {lag:.4f}")
+        if r["buffer_size"] < 1600 or not 0 < lag < 10:
+            raise AssertionError(f"{label}: no learning iteration, or Polyak targets off ({lag})")
+
+    def gate(algo):
+        cfg = algo.config
+        batch = algo.buffer.sample(cfg.train_batch_size)
+        batch.update(draws(np.random.default_rng(RL_SEED), cfg.train_batch_size))
+        pairs = (("pi", "target_pi"), ("q1", "target_q1"), ("q2", "target_q2"))
+        return learner_gate(algo, batch, label, card, step=1,
+                            apply=partial(polyak_update, tau=cfg.tau, pairs=pairs))
+
+    return rl_part(label, card, lambda: config.environment("Pendulum-v1").debugging(seed=RL_SEED).build(),
+                   4, check, gate)
+
+
+def offline_part(card: str, storage: str) -> tuple:
+    """(d) BC on scripted-expert CartPole data and CQL on random Pendulum
+    data, each recorded here and written to ``.npz``; their configs'
+    defaults, 2 iterations and 1; the card-versus-CPU update of each."""
+    from ray_tpu_torch.rl.algorithms.bc import BCConfig
+    from ray_tpu_torch.rl.algorithms.cql import CQLConfig
+    from ray_tpu_torch.rl.offline import OfflineDataset, record_experience
+
+    def expert(obs):
+        return 1 if obs[2] + 0.5 * obs[3] > 0 else 0
+
+    t0 = time.perf_counter()
+    bc_path = record_experience("CartPole-v1", 4000, policy=expert, seed=RL_SEED).save_npz(
+        os.path.join(storage, "cartpole_expert.npz"))
+    cql_path = record_experience("Pendulum-v1", 4000, seed=RL_SEED).save_npz(
+        os.path.join(storage, "pendulum_random.npz"))
+    print(f"(d) recorded 4000 expert CartPole and 4000 random Pendulum transitions to .npz in "
+          f"{time.perf_counter() - t0:.2f} s ({os.path.getsize(bc_path)} and {os.path.getsize(cql_path)} bytes)")
+
+    def bc_check(algo, results):
+        nll = [r["learner/nll"] for r in results]
+        print(f"(d) BC nll by iteration {[f'{x:.4f}' for x in nll]}")
+        check_finite("(d) BC", results[-1], ("learner/loss", "learner/nll"))
+        if not nll[-1] < nll[0]:
+            raise AssertionError(f"(d): BC's nll did not fall: {nll}")
+
+    def bc_gate(algo):
+        return learner_gate(algo, OfflineDataset.from_npz(bc_path, seed=1).sample(256), "(d) BC", card)
+
+    def cql_check(algo, results):
+        check_finite("(d) CQL", results[-1], ("learner/loss", "learner/q_loss", "learner/cql_penalty"))
+        print(f"(d) CQL penalty {results[-1]['learner/cql_penalty']:.4f}")
+
+    def cql_gate(algo):
+        cfg, n = algo.config, algo.config.cql_n_actions
+        batch = OfflineDataset.from_npz(cql_path, seed=1).sample(cfg.train_batch_size)
+        rng = np.random.default_rng(RL_SEED)
+        batch.update(normal_draws(rng, next=(256, 1), pi=(256, 1), cql_policy=(n, 256, 1)))
+        batch["draw/cql_random"] = rng.uniform(-2, 2, (n, 256, 1)).astype(np.float32)
+        pairs = (("q1", "target_q1"), ("q2", "target_q2"))
+        return learner_gate(algo, batch, "(d) CQL", card, apply=partial(polyak_update, tau=cfg.tau, pairs=pairs))
+
+    bc = rl_part("(d) BC from .npz", card, lambda: BCConfig().environment("CartPole-v1").training(
+        offline_data=bc_path).debugging(seed=RL_SEED).build(), 2, bc_check, bc_gate, unit="dataset rows")
+    cql = rl_part("(d) CQL from .npz", card, lambda: CQLConfig().environment("Pendulum-v1").training(
+        offline_data=cql_path).debugging(seed=RL_SEED).build(), 1, cql_check, cql_gate, unit="dataset rows")
+    return bc, cql
+
+
+def async_part(card: str, label: str, config) -> dict:
+    """(e) IMPALA or APPO at its defaults with two env-runner actors at
+    ``ENV_RUNNER_GPUS`` of the card and the learner in this process on the
+    card: 2 iterations; then the card-versus-CPU update on a sequence batch
+    from a runner."""
+    def check(algo, results):
+        check_finite(label, results[-1], ("learner/loss", "learner/policy_loss", "learner/vf_loss"))
+        steps = [r["num_env_steps_sampled"] for r in results]
+        print(f"{label}: env steps consumed by iteration {steps}, two runners at GPU {ENV_RUNNER_GPUS}")
+        if min(steps) < algo.config.train_batch_size:
+            raise AssertionError(f"{label}: an iteration consumed {steps} env steps")
+
+    def gate(algo):
+        batch = ray_tpu_torch.get(algo._runner_actors[0].sample_sequences.remote(
+            algo.config.rollout_fragment_length, algo.config.gamma))
+        return learner_gate(algo, batch, label, card)
+
+    return rl_part(label, card, lambda: config.environment("CartPole-v1").env_runners(
+        num_env_runners=2).debugging(seed=RL_SEED).build(), 2, check, gate)
+
+
+def es_part(card: str) -> dict:
+    """(f) ES at ``ESConfig``'s defaults over two env-runner actors on the
+    card: 2 iterations of 8 antithetic pairs."""
+    from ray_tpu_torch.rl.algorithms.es import ES, ESConfig
+
+    def build():
+        cfg = ESConfig()
+        cfg.env, cfg.num_env_runners, cfg.seed = "CartPole-v1", 2, RL_SEED
+        return ES(cfg)
+
+    def check(algo, results):
+        r = results[-1]
+        check_finite("(f)", r, ("es_reward_pos_mean", "es_reward_neg_mean", "es_update_norm"))
+        print(f"(f) theta of {algo._theta.size} float64 values, update norm {r['es_update_norm']:.4f}, "
+              f"central return {r['episode_return_central']}")
+        if not r["es_update_norm"] > 0 or not np.isfinite(algo._theta).all():
+            raise AssertionError(f"(f): no update: {r}")
+
+    return rl_part("(f) ES, two runners", card, build, 2, check)
+
+
+def dreamer_part(card: str) -> dict:
+    """(g) Dreamer on MinAtar Breakout at ``DreamerConfig``'s defaults
+    (latent 128, batch 128, horizon 8, 16 updates an iteration): 3
+    iterations of 400 steps (learning starts at 500); an update's time on
+    the card (world model + actor-critic, between two syncs); then one
+    ``wm_update`` + ``ac_update`` on the card against the CPU's from the same
+    weights, batch and imagination draws, all fixed by the seed: the card
+    twin's initial weights and rows sampled before the first update (the
+    algorithm's replay draws are unseeded, as the reference's are). Adam's
+    first step turns fp32 rounding in small gradients into weight gaps
+    that vary with the inputs, up to the bound's order on some batches, so
+    the gate's inputs must not vary between runs."""
+    from ray_tpu_torch.rl.algorithms.dreamer import DreamerConfig
+
+    def config(device=None):
+        return (DreamerConfig().environment("MinAtarBreakout-v0").debugging(seed=RL_SEED)
+                .resources(device=device))
+
+    def check(algo, results):
+        r = results[-1]
+        check_finite("(g)", r, ("world_model_loss", "actor_loss", "critic_loss", "imagined_return_mean"))
+        print(f"(g) world model loss by iteration {[round(x.get('world_model_loss', float('nan')), 5) for x in results]}, "
+              f"dyn {r['dyn_loss']:.5f}, recon {r['recon_loss']:.5f}")
+
+    def gate(algo):
+        from ray_tpu_torch.rl.algorithms.dreamer import _BATCH_KEYS
+
+        cfg = algo.config
+        rng = np.random.default_rng(RL_SEED)
+        before_learning = -(-cfg.learning_starts // cfg.sample_steps_per_iter) * cfg.sample_steps_per_iter
+        idx = rng.integers(0, before_learning, cfg.train_batch_size)
+        batch = {k: torch.from_numpy(algo.buffer._store[k][idx]) for k in _BATCH_KEYS}
+        u = rng.random((cfg.imagination_horizon, cfg.train_batch_size, 3))
+        gumbel = torch.from_numpy(-np.log(-np.log(u)).astype(np.float32))
+        ms = timing["ms"] = []
+        for _ in range(20):  # an update's time on the card: both halves between two syncs
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            algo.wm_update({k: v.cuda() for k, v in batch.items()})
+            algo.ac_update({k: v.cuda() for k, v in batch.items()}, gumbel.cuda())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        print(f"(g) [{card}]: an update (world model + actor-critic, batch {cfg.train_batch_size}) "
+              f"median {np.median(ms):.3f} ms over 20")
+        outs, mods, weights = [], [], None
+        for device in (None, "cpu"):
+            twin = config(device).build()
+            try:
+                if weights is None:  # the card twin's initial weights, from its seeded generator
+                    weights = host_weights(twin.module)
+                twin.set_weights(weights)
+                dev = twin.device
+                wl, parts = twin.wm_update({k: v.to(dev) for k, v in batch.items()})
+                al, vl, ret = twin.ac_update({k: v.to(dev) for k, v in batch.items()}, gumbel.to(dev))
+                outs.append([wl.item(), al.item(), vl.item(), ret.item()] + [v.item() for v in parts.values()])
+                mods.append(host_weights(twin.module))
+            finally:
+                twin.stop()
+        gap = rel_gap(outs[0], outs[1])
+        for name in mods[1]:
+            gap = max(gap, rel_gap(mods[0][name], mods[1][name]))
+        print(f"(g) [{card}]: one wm_update + ac_update on the card against the CPU from the same weights, "
+              f"batch and draws: largest gap {gap:.3e} over 8 losses and {len(mods[1])} tensors (bound {RL_TOL})")
+        if not gap <= RL_TOL:
+            raise AssertionError(f"(g): the card's Dreamer update differs from the CPU's by {gap:.3e}")
+        return gap
+
+    timing = {}
+    out = rl_part("(g) Dreamer, MinAtar Breakout", card, lambda: config().build(), 3, check, gate)
+    out["update_ms"] = float(np.median(timing["ms"]))
+    return out
+
+
+def multi_agent_part(card: str) -> dict:
+    """(h) shared-policy PPO on ``EchoCoopEnv`` (2 agents, 32-step
+    episodes) at 4 envs x 2 agents, 2 iterations."""
+    from ray_tpu_torch.rl.multi_agent import EchoCoopEnv
+
+    def check(algo, results):
+        r = results[-1]
+        check_finite("(h)", r, ("learner/loss", "learner/policy_loss"))
+        print(f"(h) {algo._local_runner.vec.n} slots (4 envs x 2 agents), per-slot episode return "
+              f"{[x['episode_return_mean'] for x in results]} (random play 20, the optimum 48)")
+
+    return rl_part("(h) shared-policy PPO, EchoCoopEnv", card, lambda: PPOConfig().environment(
+        lambda: EchoCoopEnv(episode_len=32)).env_runners(num_envs_per_env_runner=4, rollout_fragment_length=128)
+        .training(train_batch_size=1024, minibatch_size=256, num_epochs=4).debugging(seed=RL_SEED).build(),
+        2, check)
+
+
+def rl_rest_on_card(card: str) -> dict:
+    """Phase 30: (a) ``dqn_part``, (b)-(c) ``continuous_part`` for SAC, TD3
+    and DDPG, (d) ``offline_part``, (e) ``async_part`` for IMPALA and APPO,
+    (f) ``es_part``, (g) ``dreamer_part``, (h) ``multi_agent_part``."""
+    from ray_tpu_torch.rl.algorithms.appo import APPOConfig
+    from ray_tpu_torch.rl.algorithms.ddpg import DDPGConfig
+    from ray_tpu_torch.rl.algorithms.impala import IMPALAConfig
+    from ray_tpu_torch.rl.algorithms.sac import SACConfig
+    from ray_tpu_torch.rl.algorithms.td3 import TD3Config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts = {"DQN": dqn_part(card)}
+    parts["SAC"] = continuous_part(card, "(b) SAC, Pendulum", SACConfig(),
+                                   lambda rng, b: normal_draws(rng, next=(b, 1), pi=(b, 1)))
+    for name, config in (("TD3", TD3Config()), ("DDPG", DDPGConfig())):
+        parts[name] = continuous_part(card, f"(c) {name}, Pendulum", config,
+                                      lambda rng, b: normal_draws(rng, target=(b, 1)))
+    storage = tempfile.mkdtemp(prefix="phase30_")
+    try:
+        parts["BC"], parts["CQL"] = offline_part(card, storage)
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    ray_tpu_torch.init()
+    try:
+        parts["IMPALA"] = async_part(card, "(e) IMPALA, two runners", IMPALAConfig())
+        parts["APPO"] = async_part(card, "(e) APPO, two runners", APPOConfig())
+        parts["ES"] = es_part(card)
+    finally:
+        ray_tpu_torch.shutdown()
+    parts["Dreamer"] = dreamer_part(card)
+    parts["PPO multi-agent"] = multi_agent_part(card)
+    for name, p in parts.items():
+        gap = "-" if p["gap"] is None else f"{p['gap']:.3e}"
+        ms = "-" if np.isnan(p["update_ms"]) else f"{p['update_ms']:.3f} ms"
+        print(f"phase 30 {name} [{card}]: {p['seconds']:.1f} s; iterations "
+              f"{[round(s, 3) for s in p['iter_s']]} s; learner update median {ms}; "
+              f"{p['steps_per_s']:.1f} {p['unit']}/s; card vs CPU {gap}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -5007,6 +5432,12 @@ def main() -> int:
     rl = rl_on_card(card)
     print(f"phase 29 [{card}]: {time.perf_counter() - t_phase:.1f} s ((a) {rl['seconds'][0]:.1f}, "
           f"(b) {rl['seconds'][1]:.1f}, (c) {rl['seconds'][2]:.1f} s)")
+
+    phase("30 the rest of RL on the card")
+    t_phase = time.perf_counter()
+    rl_rest = rl_rest_on_card(card)
+    print(f"phase 30 [{card}]: {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in rl_rest.items()) + " s)")
 
     kernels = [
         dict(

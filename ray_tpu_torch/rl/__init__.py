@@ -2,18 +2,18 @@
 (port of ``ray_tpu/rl/__init__.py``).
 
 Reference: ``rllib/`` — Algorithm/AlgorithmConfig driver, EnvRunner sampling
-actors, Learner/LearnerGroup updates, spaces, env registry. Policies and
-learners are ``nn.Module``s on their ``device`` (the card unless the caller
-asks for the CPU); envs, connectors and sample batches are numpy.
+actors, Learner/LearnerGroup updates, replay buffers, spaces, env registry.
+Policies and learners are ``nn.Module``s on their ``device`` (the card
+unless the caller asks for the CPU); envs, connectors, replay buffers,
+offline data and sample batches are numpy.
 
-Ported: the core (spaces, sample batches and GAE, envs, connectors, RL
-modules, env runners, learners, the algorithm driver) and PPO. The replay
-buffers, multi-agent envs, offline data and the other algorithms (DQN,
-SAC, TD3, DDPG, CQL, BC, IMPALA, APPO, ES, Dreamer) are not ported yet
-(ROADMAP.md, queue A9.2): their names raise ``NotImplementedError``.
+Every module and algorithm of the reference is ported: PPO, DQN, IMPALA,
+APPO, SAC, CQL, TD3, DDPG, BC, ES (also registered as ARS) and Dreamer, the
+replay buffers, multi-agent envs and offline data.
 
-Importing this package loads no torch: the names of ``rl_module`` load on
-first use, so the runtime's control plane and forked workers can import it.
+Importing this package loads no torch: the torch modules (``rl_module``'s)
+load on first use of their names, so the runtime's control plane and forked
+workers can import it.
 """
 
 from ray_tpu_torch.rl.algorithm import (  # noqa: F401
@@ -22,7 +22,15 @@ from ray_tpu_torch.rl.algorithm import (  # noqa: F401
     get_algorithm_class,
     register_algorithm,
 )
+from ray_tpu_torch.rl.algorithms.dqn import DQN, DQNConfig  # noqa: F401
+from ray_tpu_torch.rl.algorithms.impala import IMPALA, IMPALAConfig  # noqa: F401
 from ray_tpu_torch.rl.algorithms.ppo import PPO, PPOConfig  # noqa: F401
+from ray_tpu_torch.rl.algorithms.es import ES, ESConfig  # noqa: F401
+from ray_tpu_torch.rl.algorithms.sac import SAC, SACConfig  # noqa: F401
+from ray_tpu_torch.rl.multi_agent import (  # noqa: F401
+    MultiAgentEnv,
+    MultiAgentVectorEnv,
+)
 from ray_tpu_torch.rl.env import (  # noqa: F401
     CartPoleEnv,
     Env,
@@ -34,17 +42,18 @@ from ray_tpu_torch.rl.env import (  # noqa: F401
 )
 from ray_tpu_torch.rl.env_runner import EnvRunner  # noqa: F401
 from ray_tpu_torch.rl.learner import Learner, LearnerGroup  # noqa: F401
+from ray_tpu_torch.rl.replay_buffer import PrioritizedReplayBuffer, ReplayBuffer  # noqa: F401
 from ray_tpu_torch.rl.sample_batch import SampleBatch, compute_gae  # noqa: F401
 from ray_tpu_torch.rl import spaces  # noqa: F401
+from ray_tpu_torch.rl.algorithms.bc import BC, BCConfig  # noqa: F401
+from ray_tpu_torch.rl.algorithms.cql import CQL, CQLConfig  # noqa: F401
+from ray_tpu_torch.rl.algorithms.td3 import TD3, TD3Config  # noqa: F401
+from ray_tpu_torch.rl.algorithms.ddpg import DDPG, DDPGConfig  # noqa: F401
+from ray_tpu_torch.rl.algorithms.appo import APPO, APPOConfig  # noqa: F401
+from ray_tpu_torch.rl.algorithms.dreamer import Dreamer, DreamerConfig  # noqa: F401
 
 _LAZY = {name: "ray_tpu_torch.rl.rl_module"
          for name in ("ActorCriticModule", "QModule", "RLModuleSpec")}
-
-#: names ``ray_tpu.rl`` exports whose modules are not ported yet
-_NOT_PORTED = frozenset({
-    "DQN", "DQNConfig", "IMPALA", "IMPALAConfig", "ES", "ESConfig", "SAC", "SACConfig",
-    "ReplayBuffer", "PrioritizedReplayBuffer", "MultiAgentEnv", "MultiAgentVectorEnv",
-})
 
 
 def __getattr__(name):
@@ -54,9 +63,4 @@ def __getattr__(name):
         value = getattr(importlib.import_module(_LAZY[name]), name)
         globals()[name] = value
         return value
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"ray_tpu_torch.rl.{name} is not ported yet (ROADMAP.md, queue A9.2): the port "
-            "has PPO and the rl core"
-        )
     raise AttributeError(f"module 'ray_tpu_torch.rl' has no attribute {name!r}")

@@ -293,16 +293,14 @@ def register_env(name: str, creator: Callable[[], Env]) -> None:
 
 
 def make_vector_env(spec, n_envs: int, seed: Optional[int] = None):
-    """SyncVectorEnv for single-agent envs. A multi-agent env (one with the
-    reference's ``MultiAgentEnv`` surface: per-agent dicts over a fixed
-    ``agents`` list) raises: ``multi_agent`` is not ported yet (ROADMAP.md,
-    queue A9.2)."""
+    """SyncVectorEnv for single-agent envs; MultiAgentVectorEnv (same
+    interface, slots = env x agent) when the creator builds a MultiAgentEnv
+    — shared-policy multi-agent training with unchanged algorithms."""
+    from ray_tpu_torch.rl.multi_agent import MultiAgentEnv, MultiAgentVectorEnv
+
     probe = make_env(spec)
-    if not isinstance(probe, Env) and hasattr(probe, "agents"):
-        raise NotImplementedError(
-            f"{type(probe).__name__} is a multi-agent env, and rl/multi_agent.py is not "
-            "ported yet (ROADMAP.md, queue A9.2)"
-        )
+    if isinstance(probe, MultiAgentEnv):
+        return MultiAgentVectorEnv(spec, n_envs, seed=seed)
     return SyncVectorEnv(spec, n_envs, seed=seed, _first=probe)
 
 

@@ -10,6 +10,11 @@ reference's ``data_parallel`` mesh over several local devices is not
 ported (ROADMAP.md, queue A8): with more than one card visible a
 ``data_parallel`` learner raises.
 
+Batches reach the learner's device with float64 columns as float32, as
+``jnp.asarray`` makes them. A loss that draws random numbers takes them
+from ``UpdateDraws`` (one place, so a test or a card-versus-CPU check can
+hand it the draws), and a ``CountingLoss`` knows its update step.
+
 The optimizer is ``torch.optim.Adam`` with ``optax.adam``'s defaults (β
 0.9/0.999, ε 1e-8), behind a global-norm clip computed as
 ``optax.clip_by_global_norm`` does: the gradients are scaled by ``max_norm
@@ -72,14 +77,96 @@ def host_weights(state) -> dict:
 
 
 def _to_tensor(v, device):
+    """A tensor on ``device``; float64 arrays arrive as float32, as
+    ``jnp.asarray`` makes them with x64 off (Pendulum's rewards, JSONL
+    columns)."""
     import torch
 
     if isinstance(v, torch.Tensor):
         return v.to(device)
     a = np.asarray(v)
-    if not a.flags.writeable:  # views of the object store are read-only
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    elif not a.flags.writeable:  # views of the object store are read-only
         a = a.copy()
     return torch.from_numpy(a).to(device)
+
+
+def tree_path(name: str) -> tuple:
+    """The reference tree's path of a parameter name: ``"pi.w.0"`` →
+    ``("pi", 0, "w")``, ``"log_std"`` → ``("log_std",)``."""
+    parts = name.split(".")
+    if len(parts) == 3:
+        return parts[0], int(parts[2]), parts[1]
+    return tuple(parts)
+
+
+def tree_leaf(tree, name: str):
+    """The reference tree's leaf under a parameter name."""
+    for key in tree_path(name):
+        tree = tree[key]
+    return tree
+
+
+def ravel_names(names) -> list:
+    """Parameter names in ``jax.flatten_util.ravel_pytree``'s order of the
+    reference's tree: dict keys sorted, list items in order (so each
+    layer's ``"b"`` before its ``"w"``)."""
+    return sorted(names, key=tree_path)
+
+
+class UpdateDraws:
+    """The random draws of one update, taken in one place. A batch that
+    carries a draw under ``"draw/<name>"`` hands it over (a test gives the
+    reference's ``jax.random`` draws so; a card-versus-CPU check gives both
+    sides the same); otherwise it comes from a ``torch.Generator`` on the
+    batch's device seeded from ``(base, step)``, as the reference folds the
+    step into ``PRNGKey(base)``."""
+
+    def __init__(self, base: int, step: int, batch: dict):
+        self._batch = batch
+        self._seed = (base << 32) + step
+        self._gen = None
+
+    def _generator(self, device):
+        import torch
+
+        if self._gen is None:
+            self._gen = torch.Generator(device=device).manual_seed(self._seed)
+        return self._gen
+
+    def normal(self, name: str, shape: tuple, device):
+        import torch
+
+        got = self._batch.get(f"draw/{name}")
+        if got is not None:
+            return got
+        return torch.randn(shape, generator=self._generator(device), device=device)
+
+    def uniform(self, name: str, shape: tuple, low, high):
+        """Uniform in [low, high) (tensors broadcasting against ``shape``)."""
+        import torch
+
+        got = self._batch.get(f"draw/{name}")
+        if got is not None:
+            return got
+        u = torch.rand(shape, generator=self._generator(low.device), device=low.device)
+        return low + (high - low) * u
+
+
+class CountingLoss:
+    """A loss that counts its calls: call n is update step n, the
+    reference's ``batch["step"]`` (each update calls its learner's loss
+    once), which seeds its ``UpdateDraws``."""
+
+    step = 0
+
+    def __call__(self, module, params, batch):
+        self.step += 1
+        return self.loss(params, batch, self.step)
+
+    def loss(self, params, batch: dict, step: int):
+        raise NotImplementedError
 
 
 def load_weights(module, weights) -> None:

@@ -4,7 +4,10 @@
 Reference: ``python/ray/tune/execution/tune_controller.py:72`` (``step``
 :709): launch trial actors up to the concurrency budget, consume reported
 results, route them through the scheduler (CONTINUE/STOP/EXPLOIT), commit
-checkpoints, checkpoint experiment state, finalize.
+checkpoints, checkpoint experiment state, finalize. Under synchronous PBT
+(``PopulationBasedTraining(synch=True)``) a trial at a perturbation point is
+held, unacknowledged, until every running trial is held, and then each gets
+its decision.
 
 Trial execution reuses the train worker machinery: a trial is one
 ``RayTrainWorker`` actor running the trainable in a ``_TrainSession`` whose
@@ -118,6 +121,7 @@ class TuneController:
         ]
         for t in self.trials:
             t.retries_left = self.failure_config.max_failures
+        self._held: list[Trial] = []  # synchronous PBT: trials waiting at a perturbation point
 
     # ------------------------------------------------------------------ loop
 
@@ -243,6 +247,7 @@ class TuneController:
                 self._stop_actor(trial)
                 self._notify_searcher_complete(trial, error=False)
                 self._save_experiment_state()
+                self._release_held()
             elif kind == "error":
                 self._on_trial_failure(trial, ev[1])
         return progressed
@@ -272,15 +277,32 @@ class TuneController:
             self._notify_searcher_complete(trial, error=False)
             if self.verbose:
                 print(f"[tune] trial {trial.id} early-stopped at iter {trial.iteration}")
+            self._release_held()
+        elif decision == sched_mod.EXPLOIT and getattr(self.scheduler, "synch", False):
+            self._held.append(trial)
+            self._release_held()
         elif decision == sched_mod.EXPLOIT:
-            donor = self.scheduler.choose_exploit_source(trial, self.trials)
-            if donor is not None and donor.checkpoint is not None:
-                self._exploit(trial, donor)
-            else:
-                self._ack(trial)
+            self._exploit_or_ack(trial)
         else:
             self._ack(trial)
         self._save_experiment_state()
+
+    def _exploit_or_ack(self, trial: Trial):
+        donor = self.scheduler.choose_exploit_source(trial, self.trials)
+        if donor is not None and donor.checkpoint is not None:
+            self._exploit(trial, donor)
+        else:
+            self._ack(trial)
+
+    def _release_held(self):
+        """Synchronous PBT: once every running trial is held at the
+        perturbation point, decide for each (ranked on that point's scores)."""
+        if not self._held or any(t.state == RUNNING and t not in self._held for t in self.trials):
+            return
+        held, self._held = self._held, []
+        for t in held:
+            if t.state == RUNNING:
+                self._exploit_or_ack(t)
 
     def _ack(self, trial: Trial):
         if trial.actor is not None:
@@ -314,7 +336,10 @@ class TuneController:
             trial.state = ERROR
             trial.error = error
             self._notify_searcher_complete(trial, error=True)
+        if trial in self._held:
+            self._held.remove(trial)
         self._save_experiment_state()
+        self._release_held()
 
     # ------------------------------------------------------- state snapshot
 

@@ -2,11 +2,9 @@
 of ``ray_tpu/tune/registry.py``).
 
 Reference: ``python/ray/tune/registry.py`` (``register_trainable``, RLlib
-algorithms resolvable by name, e.g. ``tune.run("PPO")``). A name the port's
-``rl`` registers (PPO) resolves to its ``as_trainable``; the other names
-the reference resolves as RL algorithms raise ``NotImplementedError``
-(ROADMAP.md, queue A9.2). ``rl`` is imported on first use, and loads no
-torch.
+algorithms resolvable by name, e.g. ``tune.run("PPO")``). Every name in
+``RL_ALGORITHMS`` resolves to its algorithm's ``as_trainable``. ``rl`` is
+imported on first use, and loads no torch.
 """
 
 from __future__ import annotations
@@ -37,11 +35,7 @@ def resolve_trainable(trainable: Union[str, Callable]) -> Callable:
     try:
         cls = get_algorithm_class(trainable)
     except KeyError:
-        if trainable in RL_ALGORITHMS:
-            raise NotImplementedError(
-                f"trainable {trainable!r} is an RL algorithm the port has not ported yet "
-                "(ROADMAP.md, queue A9.2)"
-            ) from None
+        pass
     else:
         return cls.as_trainable(cls.get_default_config())
     raise KeyError(

@@ -137,7 +137,14 @@ class MedianStoppingRule:
 class PopulationBasedTraining:
     """PBT (reference ``schedulers/pbt.py:221``): every
     ``perturbation_interval`` steps, bottom-quantile trials clone a top-
-    quantile trial's checkpoint and continue with a perturbed config."""
+    quantile trial's checkpoint and continue with a perturbed config.
+
+    With ``synch=True`` (reference ``pbt.py`` ``synch``) a trial that reaches
+    a perturbation point waits there, its report unacknowledged, until every
+    running trial has reached it; the controller then decides for each of
+    them on the scores of that point. Asynchronous PBT decides at once, on
+    whatever the other trials reported last, so whether it exploits depends
+    on which trial reports first."""
 
     def __init__(
         self,
@@ -149,9 +156,11 @@ class PopulationBasedTraining:
         quantile_fraction: float = 0.25,
         resample_probability: float = 0.25,
         seed: Optional[int] = None,
+        synch: bool = False,
     ):
         self.metric, self.mode, self.time_attr = metric, mode, time_attr
         self.interval = perturbation_interval
+        self.synch = synch
         self.mutations = hyperparam_mutations or {}
         self.quantile = quantile_fraction
         self.resample_p = resample_probability

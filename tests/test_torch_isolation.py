@@ -163,34 +163,38 @@ def test_tune_loads_no_jax_and_no_torch_until_asked():
 def test_rl_and_rlhf_load_no_jax_and_no_torch_until_asked():
     """``rl`` and ``rlhf`` load neither JAX, the JAX package nor torch — not
     on import of any of their modules but ``rl.rl_module``, not when
-    ``tune`` resolves "PPO" through them, and not in a runtime worker that
-    receives the rollout worker, env runner and learner classes (as the
+    ``tune`` resolves every RL algorithm name through them, and not in a
+    runtime worker that receives the rollout worker, env runner, learner and
+    algorithm classes (as the
     runtime does before an actor's ``__init__`` opens torch and the card);
     ``rl.ActorCriticModule`` brings torch, and still no JAX."""
     code = (
         "import sys\n"
         "import ray_tpu_torch, ray_tpu_torch.rl, ray_tpu_torch.rlhf\n"
-        "from ray_tpu_torch.rl import (algorithm, connectors, env, env_runner, learner, sample_batch,\n"
-        "                              spaces)\n"
-        "from ray_tpu_torch.rl.algorithms import ppo\n"
+        "from ray_tpu_torch.rl import (algorithm, connectors, env, env_runner, learner, multi_agent,\n"
+        "                              offline, replay_buffer, sample_batch, spaces)\n"
+        "from ray_tpu_torch.rl.algorithms import appo, bc, cql, ddpg, dqn, dreamer, es, impala, ppo\n"
+        "from ray_tpu_torch.rl.algorithms import sac, td3\n"
         "from ray_tpu_torch.rlhf import algorithm, buffer, learner, metrics, rollout, smoke, sync\n"
         "from ray_tpu_torch import tune\n"
         "heavy = ('jax', 'jaxlib', 'ray_tpu', 'torch')\n"
         "loaded = lambda: sorted(m for m in sys.modules if m.split('.')[0] in heavy)\n"
         "ppo_trainable = tune.resolve_trainable('PPO')\n"
+        "trainables = [tune.resolve_trainable(n).__name__ for n in sorted(tune.registry.RL_ALGORITHMS)]\n"
         "after_import = loaded()\n"
         "ray_tpu_torch.init(num_cpus=2, num_gpus=0)\n"
         "@ray_tpu_torch.remote\n"
         "def receive(*classes):\n"
         "    return ','.join(loaded())\n"
         "in_worker = ray_tpu_torch.get(receive.remote(rollout.RolloutWorker, env_runner.EnvRunner,\n"
-        "                                             learner.LearnerGroup, ppo.PPO), timeout=60)\n"
+        "                                             learner.LearnerGroup, ppo.PPO, dqn.DQN, sac.SAC,\n"
+        "                                             impala.IMPALA, es.ES, dreamer.Dreamer), timeout=60)\n"
         "ray_tpu_torch.shutdown()\n"
         "module = ray_tpu_torch.rl.ActorCriticModule\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu'))\n"
         "print(after_import, repr(in_worker), bad)\n"
         "sys.exit(1 if after_import or in_worker or bad or 'torch' not in sys.modules\n"
-        "         or ppo_trainable.__name__ != 'PPO' else 0)\n"
+        "         or ppo_trainable.__name__ != 'PPO' or len(trainables) != 12 else 0)\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

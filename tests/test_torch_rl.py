@@ -7,11 +7,12 @@ CartPole trajectories under the same seed and actions, ``ActorCriticModule``
 logp/entropy/value (MLP discrete and continuous, CNN on pixels), the PPO
 loss and its gradients, and three ``Learner.update`` steps against the
 reference's ``optax`` chain with the clip active and inactive (fp32, 1e-5).
-Mirrors: the non-slow tests of ``tests/test_rl.py`` for the ported modules,
+Mirrors: the non-slow tests of ``tests/test_rl.py`` for the core and PPO,
 the connector tests of ``tests/test_rl_connectors_td3.py`` and
 ``tests/test_rl_scale.py``, the learner-group DDP test (slow, as in the
-reference), the RL names that are not ported raising, and ``tune.run("PPO")``
-resolving and running one iteration.
+reference), every name the reference's ``rl`` exports and every RL
+algorithm name resolving to the port's, and ``tune.run("PPO")`` resolving
+and running one iteration.
 """
 
 import numpy as np
@@ -442,16 +443,45 @@ def test_tune_run_resolves_ppo_and_runs_it(cluster, tmp_path):
     assert result.checkpoint is not None
 
 
-@pytest.mark.parametrize("name", ["DQN", "SAC", "IMPALA", "ES", "ReplayBuffer", "MultiAgentEnv"])
-def test_unported_rl_names_raise_citing_the_queue(name):
-    import ray_tpu_torch.rl as rl
-    from ray_tpu_torch import tune
+def _exported_names(package: str) -> list:
+    """The names a reference ``__init__.py`` imports (its exports)."""
+    import ast
+    import importlib
 
-    with pytest.raises(NotImplementedError, match="A9.2"):
-        getattr(rl, name)
-    if name in ("DQN", "SAC", "IMPALA", "ES"):
-        with pytest.raises(NotImplementedError, match="A9.2"):
-            tune.resolve_trainable(name)
+    tree = ast.parse(open(importlib.import_module(package).__file__).read())
+    return sorted({alias.asname or alias.name for node in ast.walk(tree)
+                   if isinstance(node, ast.ImportFrom) for alias in node.names})
+
+
+@pytest.mark.parametrize("package,name", [(p, n) for p in ("rl", "rl.algorithms")
+                                          for n in _exported_names(f"ray_tpu.{p}")])
+def test_every_reference_rl_export_resolves_to_the_ports(package, name):
+    """Each name ``ray_tpu.rl`` and ``ray_tpu.rl.algorithms`` export is
+    there in the port's package, as the same kind of thing under the same
+    name, and comes from the port."""
+    import importlib
+
+    ref_pkg = importlib.import_module(f"ray_tpu.{package}")
+    port, ref = getattr(importlib.import_module(f"ray_tpu_torch.{package}"), name), getattr(ref_pkg, name)
+    assert type(port) is type(ref) or (isinstance(port, type) and isinstance(ref, type))
+    leaf = lambda x: getattr(x, "__name__", name).rsplit(".", 1)[-1]  # noqa: E731  (modules too)
+    assert leaf(port) == leaf(ref)
+    assert getattr(port, "__module__", port.__name__).startswith("ray_tpu_torch.")
+
+
+@pytest.mark.parametrize("name", sorted(__import__("ray_tpu_torch.tune.registry", fromlist=["x"])
+                                        .RL_ALGORITHMS))
+def test_every_rl_algorithm_name_resolves_in_tune(name):
+    """``tune.resolve_trainable`` resolves each name the reference's rl
+    registers (ARS to ES, as the reference does) to the port's algorithm."""
+    from ray_tpu.rl import get_algorithm_class as ref_algorithm_class
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.rl import get_algorithm_class
+
+    cls = get_algorithm_class(name)
+    assert cls.__module__.startswith("ray_tpu_torch.rl.algorithms.")
+    assert cls.__name__ == ref_algorithm_class(name).__name__
+    assert tune.resolve_trainable(name).__name__ == cls.__name__
 
 
 def test_data_parallel_learner_over_several_cards_raises_citing_a8(monkeypatch):
@@ -470,15 +500,13 @@ def test_data_parallel_learner_over_several_cards_raises_citing_a8(monkeypatch):
     assert not isinstance(err.value, NotImplementedError)
 
 
-def test_multi_agent_env_raises_citing_the_queue():
-    from ray_tpu.rl.multi_agent import MultiAgentEnv
+def test_multi_agent_env_makes_a_multi_agent_vector_env():
+    from ray_tpu_torch.rl import MultiAgentVectorEnv
     from ray_tpu_torch.rl.env import make_vector_env
+    from ray_tpu_torch.rl.multi_agent import EchoCoopEnv
 
-    class TwoAgents(MultiAgentEnv):
-        agents = ["a", "b"]
-
-    with pytest.raises(NotImplementedError, match="A9.2"):
-        make_vector_env(TwoAgents, 2)
+    vec = make_vector_env(EchoCoopEnv, 2, seed=0)
+    assert isinstance(vec, MultiAgentVectorEnv) and vec.n == 4
 
 
 # ---------------------------------------------------------------------------
@@ -608,3 +636,30 @@ def test_pixel_runner_samples_through_the_frame_pipeline():
     batch = runner.sample()
     assert batch[sb.OBS].shape == (16, 21, 21, 2)
     assert np.isfinite(batch[sb.ADVANTAGES]).all()
+
+
+@pytest.mark.slow
+def test_pixel_catch_learns_with_frame_pipeline():
+    """Learning on raw pixels through the full frame pipeline, to a reward
+    threshold within a bounded budget (random play averages ~-1.8 on
+    3-ball Catch; solved is +3)."""
+    algo = (
+        PPOConfig()
+        .environment("CatchPixel-v0")
+        .env_runners(num_env_runners=0, num_envs_per_env_runner=16, rollout_fragment_length=64,
+                     env_to_module_connector=_frame_pipeline)
+        .training(train_batch_size=1024, lr=1e-3, gamma=0.97)
+        .resources(device="cpu")
+        .build()
+    )
+    try:
+        best = -3.0
+        for _ in range(40):
+            mean = algo.train().get("episode_reward_mean")
+            if mean is not None:
+                best = max(best, mean)
+            if best >= 1.0:
+                break
+        assert best >= 1.0, f"best episode_reward_mean {best}"
+    finally:
+        algo.stop()

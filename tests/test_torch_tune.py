@@ -150,6 +150,55 @@ def test_pbt_exploits_checkpoint(ray_start_regular, storage):
     assert best.metrics["reward"] > 2.0  # high-rate path dominates
 
 
+def test_synch_pbt_waits_for_the_slow_trial(ray_start_regular, storage):
+    """The low-rate trial is fast and checkpoints only at even steps: at its
+    step 2 the slow high-rate trial has no checkpoint yet, so asynchronous
+    PBT could not exploit there. Synchronous PBT holds it until the slow
+    trial reports step 2, then clones that trial's level at step 2."""
+    def trainable(config):
+        import tempfile
+        import time
+
+        ckpt = tune.get_checkpoint()
+        level, step, restored = 0.0, 0, None
+        if ckpt is not None:
+            with ckpt.as_directory() as d:
+                with open(os.path.join(d, "lvl")) as f:
+                    level, step = (float(x) for x in f.read().split())
+            step, restored = int(step), level
+        while step < 4:
+            if config["rate"] > 1.0:
+                time.sleep(0.5)
+            level += config["rate"]
+            step += 1
+            saved = None
+            if step % 2 == 0:
+                d = tempfile.mkdtemp()
+                with open(os.path.join(d, "lvl"), "w") as f:
+                    f.write(f"{level} {step}")
+                saved = Checkpoint.from_directory(d)
+            tune.report({"reward": level, "step": step, "restored": restored, "rate": config["rate"]},
+                        checkpoint=saved)
+
+    pbt = tune.PopulationBasedTraining(
+        metric="reward", mode="max", perturbation_interval=2,
+        hyperparam_mutations={"rate": tune.uniform(0.1, 4.0)}, resample_probability=0.0,
+        seed=0, synch=True,
+    )
+    grid = tune.run(
+        trainable, config={"rate": tune.grid_search([0.1, 2.0])}, metric="reward", mode="max",
+        scheduler=pbt, storage_path=storage, name="pbt_synch",
+    )
+    slow_fast = sorted((r.metrics_history for r in grid), key=lambda h: h[0]["rate"], reverse=True)
+    slow, fast = slow_fast
+    assert [m["step"] for m in slow] == [1, 2, 3, 4] and slow[1]["restored"] is None
+    assert [m["step"] for m in fast][:2] == [1, 2]
+    after = fast[2]  # the fast trial's first report after its exploit at step 2
+    assert after["step"] == 3 and after["restored"] == pytest.approx(4.0)
+    assert after["rate"] in (pytest.approx(1.6), pytest.approx(2.4))
+    assert after["reward"] == pytest.approx(4.0 + after["rate"])
+
+
 def test_trial_failure_retry(ray_start_regular, storage, tmp_path):
     marker = str(tmp_path / "crashed_once")
 
@@ -284,11 +333,10 @@ def test_registry_resolves_names_and_refuses_rl_algorithms():
     tune.register_trainable("mine", trainable)
     assert tune.resolve_trainable("mine") is trainable
     assert tune.resolve_trainable(trainable) is trainable
-    # the port's rl registers PPO (an as_trainable function); the RL names
-    # it has not ported raise citing their queue
+    # the port's rl registers every RL algorithm (an as_trainable function)
     assert tune.resolve_trainable("PPO").__name__ == "PPO"
-    with pytest.raises(NotImplementedError, match="A9.2"):
-        tune.Tuner("DQN")
+    assert tune.resolve_trainable("DQN").__name__ == "DQN"
+    assert tune.Tuner("DQN") is not None
     with pytest.raises(KeyError, match="Unknown trainable 'nope'"):
         tune.resolve_trainable("nope")
 
