@@ -23,7 +23,9 @@ card (ASHA, PBT) and over a ``TorchTrainer``; GPT-124M trained by async
 RLHF (rollout engines in GPU-share actors, the learner in this process,
 each version pushed over the object plane), and PPO on CartPole; and DQN,
 SAC, TD3, DDPG, BC, CQL, IMPALA, APPO, ES, Dreamer and multi-agent PPO at
-their defaults on the reference's envs. Phases,
+their defaults on the reference's envs; and the operator's tools (a job,
+the device-step profiler, the ``obs`` CLI, the dashboard, an OTLP export
+and an ``ActorPool``) over a GPT-124M serving job. Phases,
 each of which raises on failure:
 
 1. device: name, compute capability, power limit;
@@ -142,7 +144,7 @@ each of which raises on failure:
     submit-to-finish from its phase ledger); (c) the greedy prompts over
     loopback HTTP (chunked streams, the ``x-request-id`` echo, (b)'s
     tokens), then a ``deadline_s`` the backlog cannot meet answered 429
-    with ``Retry-After``; (d) one ``loadgen.run_curve`` arm: 32 Poisson
+    with ``Retry-After``; (d) one ``loadgen.run_curve`` arm: 16 Poisson
     arrivals at half (b)'s request rate, client TTFT and e2e percentiles,
     the share of requests attributed and of phase sums within 5% of e2e;
     (e) ``serve.delete`` returns the GPU resource and the replica's memory;
@@ -207,16 +209,17 @@ each of which raises on failure:
     memory;
 28. Tune over Train (``ray_tpu_torch.tune``), ``init()`` with the card as
     one ``GPU``, dense GPT-124M (remat "attn", batch 8) as the trainable:
-    (a) ``Tuner`` with ``ASHAScheduler(max_t=4, grace_period=2,
+    (a) ``Tuner`` with ``ASHAScheduler(max_t=3, grace_period=2,
     reduction_factor=2)``, 4 trials of lr from ``loguniform(1e-5, 1e-3)``
     (seed 28) at ``with_resources({"CPU": 1, "GPU": 0.5})``, two at a time
     on the card: every trial ``TERMINATED``, ASHA stops one before max_t,
     the best trial's losses equal a ``build_train_step`` run in this process bit
     for bit, the trials' K3/K4/K5 launches add up to 12 a step each; (b)
-    ``PopulationBasedTraining(synch=True)`` over 2 trials, interval 2, 4
-    iterations, the reports at steps 2 and 4 carrying a checkpoint of the
+    ``PopulationBasedTraining(synch=True)`` over 2 trials, interval 2, 3
+    iterations, the report at step 2 carrying a checkpoint of the
     train state (``TUNE_STEPS`` and ``PBT_INTERVAL``, cut from 6 steps and a
-    checkpoint with every report when phase 30 came): at step 2 the trial
+    checkpoint with every report when phase 30 came, and from 4 steps when
+    phase 31 came): at step 2 the trial
     behind waits for the other, so the worse one exploits whichever reports
     first; an exploit happens, the exploiting trial's restored parameters hash equal to the
     donor's checkpoint, its lr is the donor's times 0.8 or 1.2; (c)
@@ -237,8 +240,8 @@ each of which raises on failure:
     j) beyond the mean bound; then one update: step ms, peak memory,
     ``mean_ratio`` within ``RATIO_GAP`` of 1, K3/K4/K5 at 24/12/12; (b)
     ``rlhf.Algorithm`` with two rollout workers in actors at ``GPU`` 0.25
-    and the learner in this process, 4 iterations (``RLHF_ITERS``, cut from
-    8 when phase 30 came; train_batch 32,
+    and the learner in this process, 3 iterations (``RLHF_ITERS``, cut from
+    8 when phase 30 came and from 4 when phase 31 came; train_batch 32,
     rollout_inflight 16, max_staleness 4, reward the share of generated
     ids below 1024): per iteration the learner step, the publish time and
     bytes, consumed versions and staleness, rollout tokens/s and reward,
@@ -271,6 +274,36 @@ each of which raises on failure:
     holds one update on the card against the same update on the CPU from
     the same weights, batch and draws (its Polyak or target sync after it)
     within ``RL_TOL`` relative to max(1, |cpu|).
+
+31. operator tooling over a GPT-124M job, ``GPTConfig()`` in bf16 with
+    weights from a CUDA generator seeded 31 and phase 19's engine config:
+    ``init()`` with the card, a TCP listener and ``dashboard.start()`` on
+    127.0.0.1. (a) ``job.submit_job`` runs a script written to a temporary
+    directory, which attaches through ``RAY_TPU_ADDRESS``, builds the
+    engine in a ``num_gpus=1`` actor, calls ``warmup()`` and generates 16
+    greedy requests (prompts of 64-256 ids from numpy seed 31, 64 new
+    tokens each), and prints tokens/s and the engine's ``stats()``:
+    ``wait_job`` returns ``SUCCEEDED``, ``get_job_logs`` holds the line,
+    every token against the dense forward, K1 at 12 launches a decode
+    step; (b) the device-step profiler on the card: ``stats()["retraces"]``
+    is 0, and the cluster's ``device_step_seconds{site=decode|prefill}``
+    counts grew by the runner's decode and prefill calls; each site's p50
+    and p99; (c) ``python -m ray_tpu_torch.obs`` against the live cluster,
+    each command a subprocess: ``top --once``, ``series
+    llm_generated_tokens``, ``waterfall --probe 200``, ``alerts
+    --eval-once``, ``objects``, ``arena`` and ``export -o ... --post``
+    (``RAY_TPU_OTLP_ENDPOINT`` a stub collector on 127.0.0.1) exit 0; the
+    export holds the ``device_step_seconds`` histogram with a site=decode
+    point at the cluster's count, and the stub received the POSTs; (d) the
+    dashboard: ``/api/cluster_resources`` shows ``GPU`` 1.0, ``/api/jobs``
+    lists (a)'s job ``SUCCEEDED``, ``/metrics`` carries
+    ``core_resource_total{resource="GPU"}``, and ``/api/grafana`` has a
+    panel for every metric name the cluster collected; (e) an
+    ``ActorPool`` of two actors at ``num_gpus=0.5`` holding GPT-124M's
+    training-path forward (K3) scores 8 batches of 4 x 1024 ids
+    (``pool.map``): each batch's summed logprob equals an in-process
+    forward's within ``TOL[bf16]`` relative to max(1, |ref|), and a closure
+    over a CUDA tensor inspects as serializable (``check_serialize``).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it has
 the card's name and power limit, the one before that the kernels' record.
@@ -306,7 +339,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import ray_tpu_torch
-from ray_tpu_torch import _native, serve
+from ray_tpu_torch import _native, dashboard, job, serve
 from ray_tpu_torch._private import chaos, events, shm_store
 from ray_tpu_torch._private.shm_store import shm_mapping_of
 from ray_tpu_torch.exceptions import OverloadedError
@@ -356,6 +389,8 @@ from ray_tpu_torch.rlhf.algorithm import build_batch
 from ray_tpu_torch.rlhf.learner import make_learner_group, policy_logprobs
 from ray_tpu_torch.serve.llm import LLMDeployment, build_llm_app
 from ray_tpu_torch.util import metrics, phases, tracing
+from ray_tpu_torch.util.actor_pool import ActorPool
+from ray_tpu_torch.util.check_serialize import inspect_serializability
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and operations/s by input type
 HBM_BYTES_PER_S = 3.35e12
@@ -2682,7 +2717,7 @@ def runtime_on_card(card: str, in_process: dict) -> dict:
 
 FAILOVER_NEW = 256  # (f): the greedy stream's new tokens
 FAILOVER_CUT = 64  # (f): the tokens the client holds when the replica is killed
-LOADGEN_REQUESTS = 32  # (d)
+LOADGEN_REQUESTS = 16  # (d); 32 until phase 31 came
 ATTRIBUTION_EPS = 0.05  # (d): phases must sum to e2e within this share
 TORCH_LIBS = ("libtorch", "libc10", "libcuda", "libcudart", "libnvrtc", "libcublas")
 
@@ -4316,7 +4351,9 @@ def moe_train(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 TUNE_CFG = dataclasses.replace(GPT_124M, remat_policy="attn")  # dense GPT-124M, batch 8
-TUNE_STEPS = 4  # every trial's steps (ASHA's max_t, PBT's iterations); 6 until phase 30 came
+# every trial's steps (ASHA's max_t, PBT's iterations); 6 until phase 30
+# came, 4 until phase 31 came
+TUNE_STEPS = 3
 PBT_INTERVAL = 2  # (b)'s perturbation interval: a trial checkpoints at its multiples only
 TUNE_INNER_STEPS = 2  # (c): the steps of each trainer run inside a trial
 TUNE_TIMEOUT_S = 600  # a Tuner run taking longer fails the phase
@@ -4626,7 +4663,7 @@ LOGP_GAP_MAX = 0.15
 LOGP_GAP_MEAN = 0.05
 RATIO_GAP = 0.02
 RLHF_LR = 1e-4
-RLHF_ITERS = 4  # (b); 8 until phase 30 came
+RLHF_ITERS = 3  # (b); 8 until phase 30 came, 4 until phase 31 came
 PPO_ITERS = 3  # (c)
 PPO_TOL = 1e-5  # (c): one fp32 update on the card against the CPU's
 
@@ -5295,6 +5332,336 @@ def rl_rest_on_card(card: str) -> dict:
     return parts
 
 
+# ---------------------------------------------------------------------------
+# phase 31: operator tooling over a GPT-124M job
+# ---------------------------------------------------------------------------
+
+OPS_SEED = 31
+OPS_REQUESTS, OPS_NEW = 16, 64  # (a): greedy requests, new tokens each
+OPS_POOL_BATCHES, OPS_POOL_B = 8, 4  # (e): batches of OPS_POOL_B x seq_len ids
+OPS_CLI = (  # (c): each exits 0
+    ("top", "--once"), ("series", "llm_generated_tokens"), ("waterfall", "--probe", "200"),
+    ("alerts", "--eval-once"), ("objects",), ("arena",),
+)
+
+# (a): the job's script, run by the job's supervisor with the path of a JSON
+# file holding the seed, the engine config, the prompts and the new tokens.
+# It attaches to the cluster that runs it and serves from a GPU actor.
+OPS_JOB_SCRIPT = '''
+import json, os, sys, time
+
+import ray_tpu_torch
+
+conf = json.load(open(sys.argv[1]))
+ray_tpu_torch.init(address=os.environ["RAY_TPU_ADDRESS"])
+
+
+class EngineHost:
+    def serve(self, conf):
+        import torch
+
+        from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+        from ray_tpu_torch.models.gpt import GPTConfig, gpt_init
+        from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
+        from ray_tpu_torch.util import metrics
+
+        cfg = GPTConfig(**conf["model"])
+        params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(conf["seed"]), "cuda")
+        eng = LLMEngine(cfg, params, EngineConfig(**conf["engine"]))
+        eng.warmup()
+        sp = SamplingParams(max_tokens=conf["new"], temperature=0.0)
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, sp) for p in conf["prompts"]]
+        while not all(r.finished for r in reqs):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hist = next(m for m in metrics._registry if m.name == "device_step_seconds")._snapshot()
+        pcts = {}
+        for site in ("decode", "prefill"):
+            data = hist["data"][metrics._tag_key({"site": site})]
+            pcts[site] = metrics._percentile_summary(hist["boundaries"], data, (0.5, 0.99))
+        metrics.sample_series_now()
+        metrics.flush()
+        return dict(out=[list(r.out) for r in reqs], reasons=[r.finish_reason for r in reqs],
+                    wall_s=wall, tokens_per_s=sum(len(r.out) for r in reqs) / wall, stats=eng.stats(),
+                    launches=dict(eng.runner.launches), k1=paged_attention_cuda.launches,
+                    prof=eng.runner.prof.stats(), pcts=pcts, device=torch.cuda.get_device_name(0))
+
+
+host = ray_tpu_torch.remote(num_gpus=1)(EngineHost).remote()
+result = ray_tpu_torch.get(host.serve.remote(conf), timeout=900)
+print("PHASE31_JOB " + json.dumps(result), flush=True)
+print(f"tokens/s {result['tokens_per_s']:.2f}; stats {json.dumps(result['stats'])}", flush=True)
+ray_tpu_torch.kill(host)
+ray_tpu_torch.shutdown()
+'''
+
+
+def ops_prompts() -> list:
+    """(a)'s prompts: 16 of 64-256 ids over the whole vocabulary, numpy seed 31."""
+    rng = np.random.RandomState(OPS_SEED)
+    return [[int(t) for t in rng.randint(0, GPT_124M.vocab_size, n)]
+            for n in rng.randint(64, 257, OPS_REQUESTS)]
+
+
+def decode_prefill_counts() -> dict:
+    """The cluster's ``device_step_seconds`` observations by site."""
+    data = metrics.collect()["metrics"].get("device_step_seconds", {})
+    return {site: int(data.get(metrics._tag_key({"site": site}), [0])[-1]) for site in ("decode", "prefill")}
+
+
+class StubCollector:
+    """An OTLP/HTTP collector on 127.0.0.1 that keeps every POST's path and
+    JSON body (the export's HTTP sink, with no network)."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        posts = self.posts = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_POST(self):  # noqa: N802 (BaseHTTPRequestHandler API)
+                body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                posts.append((self.path, json.loads(body)))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        threading.Thread(target=self.server.serve_forever, daemon=True).start()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def http_json(url: str, timeout: float = 30):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read().decode()
+
+
+def ops_job(card: str, tmp: str, env: dict) -> dict:
+    """(a) the job, (b) the device-step profiler it fed."""
+    conf = dict(seed=OPS_SEED, model=dataclasses.asdict(GPT_124M), engine={k: getattr(GPT_ENGINE, k) for k in
+                                       ("max_slots", "block_size", "max_blocks_per_seq", "num_blocks",
+                                        "prefill_chunk")},
+                prompts=ops_prompts(), new=OPS_NEW)
+    script, conf_path = os.path.join(tmp, "serve_job.py"), os.path.join(tmp, "job.json")
+    Path(script).write_text(OPS_JOB_SCRIPT)
+    Path(conf_path).write_text(json.dumps(conf))
+    before = decode_prefill_counts()
+    t0 = time.perf_counter()
+    jid = job.submit_job(f"{sys.executable} {script} {conf_path}", env_vars={"PYTHONPATH": env["PYTHONPATH"]})
+    status = job.wait_job(jid, timeout=600)
+    job_s = time.perf_counter() - t0
+    logs = job.get_job_logs(jid)
+    line = next((ln for ln in logs.splitlines() if ln.startswith("PHASE31_JOB ")), None)
+    if status != job.SUCCEEDED or line is None:
+        raise AssertionError(f"(a) job {jid} ended {status}; its log:\n{logs[-4000:]}")
+    r = json.loads(line[len("PHASE31_JOB "):])
+    if "tokens/s" not in logs or r["reasons"] != ["length"] * OPS_REQUESTS:
+        raise AssertionError(f"(a) the job's log lacks its tokens/s line, or a request ended early: {r['reasons']}")
+    dec = r["launches"]["decode"]
+    print(f"(a) job {jid} [{card}]: SUCCEEDED in {job_s:.2f} s from submit_job (script attaching through "
+          f"RAY_TPU_ADDRESS, a num_gpus=1 actor on {r['device']}: GPT-124M from seed {OPS_SEED}, warmup, "
+          f"{OPS_REQUESTS} greedy requests of {OPS_NEW} tokens); {r['tokens_per_s']:.2f} tokens/s over "
+          f"{r['wall_s']:.3f} s; stats: steps {r['stats']['steps']}, decode steps {r['stats']['decode_steps']}, "
+          f"tokens {r['stats']['tokens_generated']}, preemptions {r['stats']['preemptions']}, retraces "
+          f"{r['stats']['retraces']}; K1 {r['k1']} = {GPT_124M.n_layers} x {dec} decode steps")
+    if r["k1"] != GPT_124M.n_layers * dec:
+        raise AssertionError(f"(a) K1 launched {r['k1']} times over {dec} decode steps")
+    params = gpt_init(GPT_124M, torch.Generator(device="cuda").manual_seed(OPS_SEED), "cuda")
+    sp = SamplingParams(max_tokens=OPS_NEW, temperature=0.0)
+    check_greedy(GPT_124M, params, {i: (p, sp, SimpleNamespace(out=o), o) for i, (p, o) in
+                                    enumerate(zip(conf["prompts"], r["out"]))}, "(a) the job's requests",
+                 gpt_forward_plain)
+    del params
+    torch.cuda.empty_cache()
+    # (b): every decode and prefill call noted once into the cluster's histogram
+    after = decode_prefill_counts()
+    grew = {site: after[site] - before[site] for site in after}
+    print(f"(b) device-step profiler [{card}]: retraces {r['stats']['retraces']} after warmup and traffic "
+          f"(per site {json.dumps({k: v['retraces'] for k, v in r['prof'].items()})}); the cluster's "
+          f"device_step_seconds grew by {grew} over the runner's {r['launches']}; "
+          + "; ".join(f"{site} p50 {p['p50'] * 1e3:.3f} ms, p99 {p['p99'] * 1e3:.3f} ms over {p['count']}"
+                      for site, p in r["pcts"].items()))
+    if r["stats"]["retraces"] != 0:
+        raise AssertionError(f"(b) retraces after warmup: {r['prof']}")
+    if grew != {site: r["launches"][site] for site in grew}:
+        raise AssertionError(f"(b) device_step_seconds grew by {grew}, the runner ran {r['launches']}")
+    return dict(job_id=jid, k1=r["k1"], decode=after["decode"], seconds=job_s)
+
+
+def ops_cli(card: str, tmp: str, env: dict, decode_count: int) -> None:
+    """(c): the obs CLI in subprocesses against the live cluster."""
+    stub = StubCollector()
+    out = os.path.join(tmp, "otlp.json")
+    cmds = [list(c) for c in OPS_CLI] + [["export", "-o", out, "--post"]]
+    t0 = time.perf_counter()
+    metrics.sample_series_now()
+    metrics.flush()
+    try:
+        procs = [subprocess.Popen([sys.executable, "-m", "ray_tpu_torch.obs", *c], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True,
+                                  env=dict(env, RAY_TPU_OTLP_ENDPOINT=stub.url) if c[0] == "export" else env)
+                 for c in cmds]
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        stub.close()
+    took = time.perf_counter() - t0
+    for c, p, text in zip(cmds, procs, outs):
+        head = " | ".join(text.strip().splitlines()[:3])
+        print(f"(c) obs {' '.join(c)}: exit {p.returncode}; {head[:300]}")
+        if p.returncode != 0:
+            raise AssertionError(f"(c) obs {' '.join(c)} exited {p.returncode}:\n{text[-3000:]}")
+    doc = json.loads(Path(out).read_text())
+    points = [dp for r in doc["resourceMetrics"] for sm in r["scopeMetrics"] for m in sm["metrics"]
+              if m["name"] == "ray_tpu_device_step_seconds" for dp in m["histogram"]["dataPoints"]
+              if {"key": "site", "value": {"stringValue": "decode"}} in dp["attributes"]]
+    got = max((int(dp["count"]) for dp in points), default=None)
+    paths = sorted({path for path, _ in stub.posts})
+    posted = [m["name"] for path, body in stub.posts if path == "/v1/metrics"
+              for r in body["resourceMetrics"] for sm in r["scopeMetrics"] for m in sm["metrics"]]
+    print(f"(c) [{card}]: {len(cmds)} commands in {took:.2f} s (side by side); the export's "
+          f"device_step_seconds{{site=decode}} reaches {got} = the cluster's {decode_count}; the stub collector "
+          f"received POSTs to {paths} ({len(posted)} metrics)")
+    if got != decode_count:
+        raise AssertionError(f"(c) the export's site=decode count {got}, the cluster's {decode_count}")
+    if paths != ["/v1/logs", "/v1/metrics", "/v1/traces"] or "ray_tpu_device_step_seconds" not in posted:
+        raise AssertionError(f"(c) the stub collector received {paths}, metrics {posted}")
+
+
+def ops_dashboard(card: str, url: str, job_id: str) -> None:
+    """(d): the dashboard's routes over this cluster."""
+    import re
+
+    res = json.loads(http_json(url + "/api/cluster_resources"))
+    jobs = json.loads(http_json(url + "/api/jobs"))
+    deadline = time.monotonic() + 30
+    while True:
+        metrics.flush()
+        text = http_json(url + "/metrics")
+        if 'ray_tpu_core_resource_total{resource="GPU"}' in text or time.monotonic() > deadline:
+            break
+        time.sleep(0.5)
+    gpu_line = next((ln for ln in text.splitlines() if ln.startswith('ray_tpu_core_resource_total{resource="GPU"}')),
+                    None)
+    board = json.loads(http_json(url + "/api/grafana"))
+    exprs = " ".join(p["targets"][0]["expr"] for p in board["panels"])
+    names = sorted(metrics.collect()["kinds"])
+    bare = [n for n in names if not re.search(rf"ray_tpu_{re.escape(n)}(?:_bucket|_sum|_count)?(?![a-z0-9_])", exprs)]
+    mine = next((j for j in jobs if j["job_id"] == job_id), None)
+    print(f"(d) dashboard {url} [{card}]: cluster_resources total GPU {res['total'].get('GPU')}; /api/jobs "
+          f"{job_id} {mine and mine['status']}; /metrics: {gpu_line}; /api/grafana: {len(board['panels'])} "
+          f"panels covering all {len(names) - len(bare)} of {len(names)} metric names the cluster collected")
+    if res["total"].get("GPU") != 1.0:
+        raise AssertionError(f"(d) /api/cluster_resources {res}")
+    if mine is None or mine["status"] != job.SUCCEEDED:
+        raise AssertionError(f"(d) /api/jobs {jobs}")
+    if gpu_line is None:
+        raise AssertionError("(d) /metrics carries no core_resource_total{resource=\"GPU\"}")
+    if bare:
+        raise AssertionError(f"(d) /api/grafana has no panel for {bare}")
+
+
+class PoolScorer:
+    """(e): GPT-124M's training-path forward (K3 attention) on a share of
+    the card, from the seed's weights; ``score`` sums each batch's token
+    logprobs."""
+
+    def __init__(self, seed: int):
+        self.params = gpt_init(GPT_124M, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+        flash_fwd_cuda.launches = 0
+
+    def score(self, tokens) -> float:
+        return summed_logprob(self.params, torch.tensor(tokens).cuda())
+
+    def launches(self) -> int:
+        return flash_fwd_cuda.launches
+
+
+def summed_logprob(params, tokens) -> float:
+    """The summed logprob of ``tokens[:, 1:]`` under the forward over
+    ``tokens`` (fp32 log-softmax of the fp32 logits)."""
+    with torch.no_grad():
+        logits = gpt_forward(GPT_124M, params, tokens)[:, :-1].float()
+        return float(torch.log_softmax(logits, -1).gather(-1, tokens[:, 1:, None]).sum())
+
+
+def ops_pool(card: str) -> dict:
+    """(e): ``ActorPool`` over two half-card actors."""
+    rng = np.random.RandomState(OPS_SEED)
+    batches = [rng.randint(0, GPT_124M.vocab_size, (OPS_POOL_B, GPT_124M.seq_len)) for _ in range(OPS_POOL_BATCHES)]
+    t0 = time.perf_counter()
+    actors = [ray_tpu_torch.remote(num_gpus=0.5)(PoolScorer).remote(OPS_SEED) for _ in range(2)]
+    pool = ActorPool(actors)
+    got = list(pool.map(lambda a, b: a.score.remote(b), batches))
+    took = time.perf_counter() - t0
+    k3 = ray_tpu_torch.get([a.launches.remote() for a in actors], timeout=120)
+    for a in actors:
+        ray_tpu_torch.kill(a)
+    params = gpt_init(GPT_124M, torch.Generator(device="cuda").manual_seed(OPS_SEED), "cuda")
+    flash_fwd_cuda.launches = 0
+    want = [summed_logprob(params, torch.from_numpy(b).cuda()) for b in batches]
+    here = flash_fwd_cuda.launches
+    x = params.lm_head.weight[:4]
+    closure_ok, failures = inspect_serializability(lambda: x.sum())
+    del params, x
+    torch.cuda.empty_cache()
+    gap = max(abs(g - w) / max(1.0, abs(w)) for g, w in zip(got, want))
+    print(f"(e) ActorPool of 2 actors at num_gpus=0.5 [{card}]: {OPS_POOL_BATCHES} batches of {OPS_POOL_B} x "
+          f"{GPT_124M.seq_len} ids scored in {took:.2f} s (actors' start included); summed logprobs "
+          f"{[round(g, 2) for g in got]}; largest gap to the in-process forward {gap:.3e} relative to max(1, |ref|) "
+          f"(limit {TOL[torch.bfloat16]}); K3 launches in the actors {k3} (in process {here}); a closure over a "
+          f"CUDA tensor serializable: {closure_ok}")
+    if not all(np.isfinite(got)) or gap > TOL[torch.bfloat16]:
+        raise AssertionError(f"(e) summed logprobs {got} against the in-process {want}")
+    if sum(k3) != GPT_124M.n_layers * OPS_POOL_BATCHES or min(k3) == 0:
+        raise AssertionError(f"(e) K3 launched {k3} times in the actors, expected {GPT_124M.n_layers} a batch "
+                             "in each")
+    if not closure_ok or failures:
+        raise AssertionError(f"(e) a closure over a CUDA tensor inspected as unserializable: {failures}")
+    return dict(k3=sum(k3), seconds=took)
+
+
+def operator_tooling(card: str) -> dict:
+    """Phase 31: ``ops_job`` ((a)-(b)), ``ops_cli`` ((c)), ``ops_dashboard``
+    ((d)) and ``ops_pool`` ((e)) over one runtime with the card."""
+    from ray_tpu_torch._private.runtime import get_ctx
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ray_tpu_torch.init()
+    tmp = tempfile.mkdtemp(prefix="phase31_")
+    try:
+        if ray_tpu_torch.cluster_resources().get("GPU") != 1.0:
+            raise AssertionError(f"init() offers {ray_tpu_torch.cluster_resources()}")
+        ctx = get_ctx()
+        host, port = ctx.head.listen_tcp("127.0.0.1", 0)
+        url = dashboard.start(host="127.0.0.1", port=0)
+        root = os.path.dirname(os.path.dirname(os.path.abspath(ray_tpu_torch.__file__)))
+        env = dict(os.environ, PYTHONPATH=root, RAY_TPU_ADDRESS=f"{host}:{port}",
+                   RAY_TPU_AUTHKEY=ctx.call("auth_info"))
+        env.pop("RAY_TPU_OTLP_ENDPOINT", None)
+        ran = ops_job(card, tmp, env)
+        ops_cli(card, tmp, env, ran["decode"])
+        ops_dashboard(card, url, ran["job_id"])
+        pooled = ops_pool(card)
+    finally:
+        dashboard.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        ray_tpu_torch.shutdown()
+    return dict(k1=ran["k1"], k3=pooled["k3"], seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -5439,6 +5806,10 @@ def main() -> int:
     print(f"phase 30 [{card}]: {time.perf_counter() - t_phase:.1f} s ("
           + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in rl_rest.items()) + " s)")
 
+    phase("31 operator tooling over a GPT-124M job")
+    ops = operator_tooling(card)
+    print(f"phase 31 [{card}]: {ops['seconds']:.1f} s")
+
     kernels = [
         dict(
             name="paged_decode_attention",
@@ -5446,7 +5817,7 @@ def main() -> int:
             source="ray_tpu_torch/ops/csrc/paged_attention.cu",
             replaces="ray_tpu/ops/paged_attention.py:203",
             launches=(served["launches"] + gpt_served["k1"] + swapped["launches"] + production["k1"]
-                      + runtime["k1"] + served24["k1_gptj"] + served24["k1_gpt"] + rl["k1"]),
+                      + runtime["k1"] + served24["k1_gptj"] + served24["k1_gpt"] + rl["k1"] + ops["k1"]),
             max_abs_err=err,
             ms=timing["ms"],
             plain_ms=timing["plain_ms"],
@@ -5459,7 +5830,7 @@ def main() -> int:
                               "gpt_124m_production": production["k1"], "gpt_124m_actor": runtime["k1"],
                               "gptj_6b_serve_replica": served24["k1_gptj"],
                               "gpt_124m_serve_failover": served24["k1_gpt"],
-                              "gpt_124m_rlhf_rollouts": rl["k1"]},
+                              "gpt_124m_rlhf_rollouts": rl["k1"], "gpt_124m_job": ops["k1"]},
             at_head_dim_64=dict(timing64, bound_by="bytes"),
         ),
         dict(
@@ -5490,7 +5861,8 @@ def main() -> int:
                    "gpt_124m_tune_asha": tuned["asha"][i],
                    "gpt_124m_tune_pbt": tuned["pbt"][i],
                    "gpt_124m_tuner_over_trainer": tuned["inner"][i],
-                   "gpt_124m_rlhf_learner": rl["flash"][i]}
+                   "gpt_124m_rlhf_learner": rl["flash"][i],
+                   "gpt_124m_actor_pool": (ops["k3"], 0, 0)[i]}
         kernels.append(dict(
             name=kernel_name,
             route="cuda",

@@ -25,9 +25,8 @@ Ported so far:
   power-of-two routing and mid-stream failover, ``@serve.batch``,
   multiplexing, the HTTP (asyncio + h11) and gRPC ingresses, and
   ``serve.llm``, which serves the paged engine from ``num_gpus=1``
-  replicas; ``_private.chaos`` (worker, replica and controller killers),
-  ``llm.loadgen`` (the open-loop HTTP load harness) and ``obs``'s request
-  latency attribution;
+  replicas; ``_private.chaos`` (worker, replica and controller killers)
+  and ``llm.loadgen`` (the open-loop HTTP load harness);
 - observability: ``util.metrics``, ``util.tracing``, ``util.phases``,
   ``util.waterfall``, ``util.slo``, ``util.state`` and ``_private.events``,
   their cluster halves included;
@@ -50,10 +49,19 @@ Ported so far:
   — search spaces, searchers (TPE, Optuna), ASHA, the median rule, PBT and
   PB2, checkpoints and experiment state — with trials holding fractional
   GPU shares, and a trainer run as a trial (``as_trainable``).
-- RL and RLHF: ``rl``'s core (envs, connectors, RL modules, env runners,
-  learners, the ``Algorithm`` driver) with PPO, and all of ``rlhf`` —
-  rollout engines in actors holding GPU shares, versioned weight pushes
-  over the object plane, the GPT learner and the async driver.
+- RL and RLHF: all of ``rl`` (envs, connectors, RL modules, env runners,
+  learners, replay buffers, offline data, multi-agent, and its twelve
+  algorithms) and all of ``rlhf`` — rollout engines in actors holding GPU
+  shares, versioned weight pushes over the object plane, the GPT learner
+  and the async driver;
+- operator tooling: ``util.actor_pool``, ``util.queue``, ``util.pubsub``,
+  ``util.multiprocessing`` and ``util.check_serialize`` on the runtime; the
+  device-step profiler (``util.device_prof``) in the serving runner and
+  ``parallel.profile_step_fn``; ``util.grafana`` and ``util.otlp``; the
+  ``python -m ray_tpu_torch.obs`` CLI (top, req, series, alerts,
+  waterfall, overhead, events, timeline, objects, arena, export,
+  attribute); job submission (``job``) and the dashboard (``dashboard``,
+  with its static pages). None of them imports torch.
 
 ROADMAP.md lists what is still to port.
 
@@ -91,7 +99,7 @@ __version__ = "0.1.0"
 _LAZY_SUBMODULES = {
     "llm", "models", "ops", "parallel", "util", "accelerators",
     "cluster_utils", "dag", "experimental", "serve", "obs", "train", "collective", "data",
-    "tune", "rl", "rlhf",
+    "tune", "rl", "rlhf", "job", "dashboard",
 }
 
 #: names exported from the heavy subpackages, loaded on first access

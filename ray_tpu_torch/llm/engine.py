@@ -685,7 +685,7 @@ class LLMEngine:
         reserved trash block — real pool contents are untouched."""
         self.generate([0], SamplingParams(max_tokens=2))
         with self._lock:
-            z = np.zeros(1, np.int64)
+            z = np.zeros(self.cfg.max_slots, np.int64)  # the fork's one shape (``_apply_cow``)
             self.runner.fork_blocks(self.pool.k, self.pool.v, z, z)
         if self._drafter is None:
             return
@@ -730,6 +730,7 @@ class LLMEngine:
                 "weights_version": self._weights_version,
                 "prefix_cache": self.prefix_cache.stats(),
                 "hbm": led,
+                "retraces": self.runner.prof.retraces,
             }
             if self._drafter is not None:
                 s["spec_proposed"] = self._spec_proposed
@@ -826,14 +827,21 @@ class LLMEngine:
     def _apply_cow(self) -> None:
         """Drain the scheduler's queued copy-on-write forks: one block copy
         duplicates each src block into the request's fresh dst block BEFORE
-        any prefill chunk attends through it."""
+        any prefill chunk attends through it. The copies go in batches of
+        ``max_slots`` lanes, the unused lanes copying the trash block onto
+        itself, as the reference pads them: the fork keeps one shape, so
+        the runner's step profiler never sees it retrace."""
         pend = self.scheduler.pending_cow
         if not pend:
             return
         self.scheduler.pending_cow = []
-        src = np.asarray([s for s, _, _ in pend], np.int64)
-        dst = np.asarray([d for _, d, _ in pend], np.int64)
-        self.runner.fork_blocks(self.pool.k, self.pool.v, src, dst)
+        F = self.cfg.max_slots
+        for start in range(0, len(pend), F):
+            src = np.zeros(F, np.int64)
+            dst = np.zeros(F, np.int64)
+            for j, (s_, d_, _rid) in enumerate(pend[start : start + F]):
+                src[j], dst[j] = s_, d_
+            self.runner.fork_blocks(self.pool.k, self.pool.v, src, dst)
         now = time.time()
         for _s, _d, rid in pend:
             req = self._requests.get(rid)

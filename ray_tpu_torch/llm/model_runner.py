@@ -52,10 +52,14 @@ one ``llm.compile`` flight-recorder event with its host time
 (``first_call_s``). Nothing is traced or compiled here, but that first
 call is where the one-time costs land — a kernel's ``nvcc`` build when no
 warm-up ran before it, library handle and workspace setup — and a
-postmortem wants to see them. The reference's ``llm.retrace`` event and
-its per-site step profiler (``JitProfiler``) count recompilations of a
-jitted function; eager PyTorch never recompiles, so they have no
-counterpart here.
+postmortem wants to see them. Every call of the four step functions is
+noted, as in the reference, by the runner's device-step profiler
+(``self.prof``, ``util.device_prof.JitProfiler``): its host time goes into
+``device_step_seconds{site=decode|prefill|verify|fork}``, and a site that
+meets a NEW shape after its first call emits ``llm.retrace`` and bumps
+``device_retraces`` (the ``retrace-storm`` SLO rule). Where the reference's
+profiler reads a jit cache, each step function here keeps its shape keys
+(``_StepKeys``), and their count is its ``_cache_size()``.
 """
 
 from __future__ import annotations
@@ -81,6 +85,7 @@ from ray_tpu_torch.ops.paged_attention import (
     paged_prefill_attention_torch,
     paged_verify_attention,
 )
+from ray_tpu_torch.util.device_prof import JitProfiler
 
 
 def _rotary_rows(x: torch.Tensor, positions: torch.Tensor, rotary_dim: int) -> torch.Tensor:
@@ -157,6 +162,20 @@ def _fork_impl(k_pool, v_pool, src, dst):
     v_pool[:, dst] = v_pool[:, src]
 
 
+class _StepKeys:
+    """The shapes one step function has run: eager PyTorch's counterpart of
+    a jitted function's executable cache. ``_cache_size()`` is what
+    ``JitProfiler`` reads."""
+
+    __slots__ = ("keys",)
+
+    def __init__(self):
+        self.keys: set = set()
+
+    def _cache_size(self) -> int:
+        return len(self.keys)
+
+
 class PagedModelRunner:
     """The step functions for one (config, params) pair: a ``GPTJConfig``
     with ``GPTJ`` parameters or a dense ``GPTConfig`` with ``GPT``
@@ -178,16 +197,23 @@ class PagedModelRunner:
         #: step calls per site; a decode step launches the paged decode
         #: kernel once per layer, a verify step the paged verify kernel
         self.launches = {"decode": 0, "prefill": 0, "fork": 0, "verify": 0}
-        self._compiled: set = set()  # (fn, shape-key)s already called
+        self._steps = {fn: _StepKeys() for fn in self.launches}  # shape keys already called
+        # device-step profiler: per-call host time into device_step_seconds
+        # {site=decode|prefill|verify|fork} + retrace detection against each
+        # step function's shape keys — a site meeting a new shape after its
+        # warmup baseline emits llm.retrace and trips the retrace-storm SLO
+        # (per-runner so two engines in one process never compare counts)
+        self.prof = JitProfiler(event="llm.retrace")
 
     def _note_compile(self, fn: str, key: Any, t0: float) -> None:
         """Flight-recorder marker for the first call per (fn, shape): that
         call pays the one-time costs (module doc), and its host time
         dominating an engine's start is what a postmortem needs to see.
         Later calls record nothing."""
-        if (fn, key) in self._compiled:
+        keys = self._steps[fn].keys
+        if key in keys:
             return
-        self._compiled.add((fn, key))
+        keys.add(key)
         _events.record(
             "llm.compile", fn=fn, shape=str(key), arch=self.arch,
             first_call_s=round(time.perf_counter() - t0, 3),
@@ -275,6 +301,7 @@ class PagedModelRunner:
             x = self._layer(layer, x, pos, attend)
         out = _sample_rows(self._logits(x), noise, temp, top_k, top_p)
         self._note_compile("decode", len(tokens), t0)
+        self.prof.note("decode", self._steps["decode"], time.perf_counter() - t0)
         return out
 
     # -- speculative verification step -------------------------------------
@@ -329,6 +356,7 @@ class PagedModelRunner:
         logits = self._logits(x).view(S, W, -1)
         out = _verify_rows(logits, tok[:, 1:], noise, temp, top_k, top_p)
         self._note_compile("verify", (S, W), t0)
+        self.prof.note("verify", self._steps["verify"], time.perf_counter() - t0)
         return out
 
     # -- copy-on-write block fork (llm.prefix_cache) -----------------------
@@ -342,6 +370,7 @@ class PagedModelRunner:
         self.launches["fork"] += 1
         _fork_impl(k_pool, v_pool, self._dev(src, torch.int64), self._dev(dst, torch.int64))
         self._note_compile("fork", len(src), t0)
+        self.prof.note("fork", self._steps["fork"], time.perf_counter() - t0)
 
     # -- prefill chunk -----------------------------------------------------
 
@@ -374,4 +403,5 @@ class PagedModelRunner:
             x = self._layer(layer, x, positions, attend)
         out = self._logits(x[max(n_valid - 1, 0)][None, :])[0]
         self._note_compile("prefill", chunk, t0)
+        self.prof.note("prefill", self._steps["prefill"], time.perf_counter() - t0)
         return out

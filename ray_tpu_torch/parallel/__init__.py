@@ -1,3 +1,8 @@
 """Training-step machinery of the port (one device; the mesh comes later)."""
 
-from ray_tpu_torch.parallel.train_step import TrainState, adamw, build_train_step  # noqa: F401
+from ray_tpu_torch.parallel.train_step import (  # noqa: F401
+    TrainState,
+    adamw,
+    build_train_step,
+    profile_step_fn,
+)

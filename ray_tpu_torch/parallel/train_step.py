@@ -4,9 +4,10 @@
 the reference does: ``init_fn`` places the parameters and builds the
 optimizer, ``step_fn(state, batch)`` runs the forward, the backward and the
 optimizer update. The reference donates its state to a jitted step; here
-the parameters and the optimizer's moments are updated in place. The mesh,
-sharding, ZeRO placement, ``global_put`` and ``profile_step_fn`` belong to
-the multichip slice (ROADMAP.md).
+the parameters and the optimizer's moments are updated in place.
+``profile_step_fn`` wraps a step with the device-step profiler, as the
+reference's does. The mesh, sharding, ZeRO placement and ``global_put``
+belong to the multichip slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -63,3 +64,31 @@ def build_train_step(
         return state._replace(step=state.step + 1), loss.detach()
 
     return init_fn, step_fn
+
+
+def profile_step_fn(step_fn, site: str = "train_step"):
+    """Opt-in device-step profiling for a train step: host time per call
+    into ``device_step_seconds{site=train_step}`` and runtime retrace
+    detection (``train.retrace`` events + the ``device_retraces`` counter
+    feeding the retrace-storm SLO — ``util.device_prof``).
+
+    A WRAPPER, as the reference's is: the wrapped callable exposes
+    ``.profiler`` (per-site stats) and ``.__wrapped__`` (the raw step). An
+    eager step keeps no shape cache, so the profiler times it and never
+    fires (``device_prof``'s plain-callable rule); a step that exposes
+    ``_cache_size()`` is watched for new shapes."""
+    import time
+
+    from ray_tpu_torch.util.device_prof import JitProfiler
+
+    prof = JitProfiler(event="train.retrace")
+
+    def profiled(state, batch):
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        prof.note(site, step_fn, time.perf_counter() - t0)
+        return out
+
+    profiled.profiler = prof
+    profiled.__wrapped__ = step_fn
+    return profiled

@@ -86,7 +86,7 @@ class BC(Algorithm):
             metrics = self.learner_group.update(self.dataset.sample(cfg.train_batch_size))
         out = {f"learner/{k}": v for k, v in metrics.items()}
         if cfg.evaluation_steps > 0:
-            self.sync_weights(self.learner_group.get_weights())
+            self.sync_weights(self.learner_group.weights_view())
             n_runners = max(1, len(self._runner_actors) or 1)
             n_envs = max(1, cfg.num_envs_per_env_runner)
             per = max(1, cfg.evaluation_steps // (n_runners * n_envs))

@@ -130,7 +130,7 @@ class CQL(Algorithm):
             self.learner_group.apply(polyak)
         out = {f"learner/{k}": v for k, v in metrics.items()}
         if cfg.evaluation_steps > 0:
-            self.sync_weights(self.learner_group.get_weights())
+            self.sync_weights(self.learner_group.weights_view())
             n_runners = max(1, len(self._runner_actors) or 1)
             per = max(1, cfg.evaluation_steps // n_runners)
             for b in self.foreach_runner("sample_transitions", per):

@@ -116,7 +116,7 @@ class DQN(Algorithm):
             else ReplayBuffer(cfg.buffer_size, seed=cfg.seed)
         )
         self._steps_since_target_sync = 0
-        self.sync_weights(self.learner_group.get_weights())
+        self.sync_weights(self.learner_group.weights_view())
         self._update_epsilon()
 
     def _update_epsilon(self):
@@ -162,7 +162,7 @@ class DQN(Algorithm):
             if self._steps_since_target_sync >= cfg.target_update_freq:
                 self.learner_group.apply(_sync_target)
                 self._steps_since_target_sync = 0
-            self.sync_weights(self.learner_group.get_weights())
+            self.sync_weights(self.learner_group.weights_view())
         self._update_epsilon()
         return {f"learner/{k}": v for k, v in metrics.items()} | {
             "epsilon": self._epsilon,

@@ -262,7 +262,8 @@ class Dreamer(Algorithm):
             ray_tpu_torch.get([a.set_weights.remote(weights) for a in self._runner_actors])
 
     def get_weights(self):
-        return {k: v.detach() for k, v in self.module.state_dict().items()}
+        """A snapshot (a clone): the updates write the module in place."""
+        return {k: v.detach().clone() for k, v in self.module.state_dict().items()}
 
     def set_weights(self, params):
         load_weights(self.module, params)

@@ -115,7 +115,7 @@ class IMPALA(Algorithm):
             ),
             remote=cfg.remote_learner,
         )
-        self.sync_weights(self.learner_group.get_weights())
+        self.sync_weights(self.learner_group.weights_view())
         # one in-flight (future, actor) per runner slot (async pipeline);
         # the actor is recorded so a future from a since-replaced actor is
         # never mistaken for a failure of the current one
@@ -155,7 +155,7 @@ class IMPALA(Algorithm):
                 )
                 steps += int(batch[sb.REWARDS].size)
                 metrics = self.learner_group.update(batch)
-                self._local_runner.set_weights(self.learner_group.get_weights())
+                self._local_runner.set_weights(self.learner_group.weights_view())
             self._timesteps_total += steps
             return {f"learner/{k}": v for k, v in metrics.items()}
 
@@ -188,7 +188,7 @@ class IMPALA(Algorithm):
             n = self._updates_since_broadcast.get(i, 0) + 1
             if n >= cfg.broadcast_interval:
                 self._runner_actors[i].set_weights.remote(
-                    host_weights(self.learner_group.get_weights())
+                    host_weights(self.learner_group.weights_view())
                 )
                 n = 0
             self._updates_since_broadcast[i] = n

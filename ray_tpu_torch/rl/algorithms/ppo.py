@@ -83,7 +83,7 @@ class PPO(Algorithm):
             ),
             remote=cfg.remote_learner,
         )
-        self.sync_weights(self.learner_group.get_weights())
+        self.sync_weights(self.learner_group.weights_view())
         self._mb_rng = np.random.default_rng(cfg.seed)
 
     def get_weights(self):
@@ -114,7 +114,7 @@ class PPO(Algorithm):
             for minibatch in batch.minibatches(mb, self._mb_rng):
                 metrics = self.learner_group.update(minibatch)
         # 4) broadcast new weights to runners
-        self.sync_weights(self.learner_group.get_weights())
+        self.sync_weights(self.learner_group.weights_view())
         return {f"learner/{k}": v for k, v in metrics.items()} | {
             "num_env_steps_sampled": batch.count
         }

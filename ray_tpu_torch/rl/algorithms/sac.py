@@ -158,7 +158,7 @@ class SAC(Algorithm):
             remote=cfg.remote_learner,
         )
         self.buffer = ReplayBuffer(cfg.buffer_size, seed=cfg.seed)
-        self.sync_weights(self.learner_group.get_weights())
+        self.sync_weights(self.learner_group.weights_view())
 
     def get_weights(self):
         return self.learner_group.get_weights()
@@ -183,7 +183,7 @@ class SAC(Algorithm):
                 batch = self.buffer.sample(cfg.train_batch_size)
                 metrics = self.learner_group.update(batch)
                 self.learner_group.apply(polyak)
-            self.sync_weights(self.learner_group.get_weights())
+            self.sync_weights(self.learner_group.weights_view())
         return {f"learner/{k}": v for k, v in metrics.items()} | {
             "buffer_size": len(self.buffer)
         }

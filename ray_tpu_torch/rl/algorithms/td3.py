@@ -136,7 +136,7 @@ class TD3(Algorithm):
             remote=cfg.remote_learner,
         )
         self.buffer = ReplayBuffer(cfg.buffer_size, seed=cfg.seed)
-        self.sync_weights(self.learner_group.get_weights())
+        self.sync_weights(self.learner_group.weights_view())
 
     def get_weights(self):
         return self.learner_group.get_weights()
@@ -160,7 +160,7 @@ class TD3(Algorithm):
                 # the loss counts its calls: the reference's batch["step"]
                 metrics = self.learner_group.update(self.buffer.sample(cfg.train_batch_size))
                 self.learner_group.apply(polyak)
-            self.sync_weights(self.learner_group.get_weights())
+            self.sync_weights(self.learner_group.weights_view())
         return {f"learner/{k}": v for k, v in metrics.items()} | {
             "buffer_size": len(self.buffer)
         }

@@ -291,7 +291,15 @@ class Learner:
         return self._host_metrics({"loss": loss, "grad_norm": norm, **metrics}, batch.count)
 
     def get_weights(self) -> dict:
-        """``{name: tensor}`` on the learner's device (no copy)."""
+        """``{name: tensor}`` on the learner's device: a snapshot, as the
+        reference's tree of immutable arrays is. The optimizer and the
+        target syncs write the parameters in place, so this is a clone."""
+        return {k: v.detach().clone() for k, v in self.params.state_dict().items()}
+
+    def weights_view(self) -> dict:
+        """The live ``{name: tensor}`` (no copy), for a caller that reads it
+        at once (a runner sync, a weight publish): held across an update it
+        follows the weights."""
         return {k: v.detach() for k, v in self.params.state_dict().items()}
 
     def get_host_weights(self) -> dict:
@@ -396,13 +404,22 @@ class LearnerGroup:
         return metrics
 
     def get_weights(self):
-        """The local learner's ``{name: tensor}`` on its device; a remote
-        learner's ``{name: np.ndarray}`` (one transfer in the actor)."""
+        """The local learner's ``{name: tensor}`` on its device, a snapshot
+        (``Learner.get_weights``); a remote learner's ``{name: np.ndarray}``
+        (one transfer in the actor)."""
         if self._local is not None:
             return self._local.get_weights()
         import ray_tpu_torch
 
         return ray_tpu_torch.get(self._actor.get_host_weights.remote())
+
+    def weights_view(self):
+        """``get_weights`` without the local learner's copy
+        (``Learner.weights_view``), for callers that read the weights at
+        once; a remote learner's weights come as host arrays either way."""
+        if self._local is not None:
+            return self._local.weights_view()
+        return self.get_weights()
 
     def set_weights(self, params):
         if self._local is not None:

@@ -260,7 +260,7 @@ class Algorithm:
             # ONCE before any trajectory exists (startup is the one moment
             # draining is free), then never block on a push again
             update0 = publish_weights(
-                self.learner_group.get_weights(), 0, chunk_bytes=cfg.chunk_bytes
+                self.learner_group.weights_view(), 0, chunk_bytes=cfg.chunk_bytes
             )
             self._await_acks(self.rollouts.push_weights(update0), 0)
             # prime every worker to its in-flight target, then keep it
@@ -396,7 +396,7 @@ class Algorithm:
         # acks are reaped non-blockingly, the backlog cap bounds the rest
         self._harvest_acks()
         update = publish_weights(
-            self.learner_group.get_weights(), self._version,
+            self.learner_group.weights_view(), self._version,
             chunk_bytes=cfg.chunk_bytes,
         )
         self._pending_acks.append(

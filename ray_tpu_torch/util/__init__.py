@@ -1,9 +1,10 @@
 """Utility APIs of the port (copy of ``ray_tpu/util/__init__.py``):
-placement groups and scheduling strategies, and the observability modules
-``metrics``, ``tracing``, ``phases``, ``waterfall``, ``slo`` and ``state``.
-``actor_pool``, ``queue``, ``multiprocessing``, ``pubsub``,
-``check_serialize``, ``grafana``, ``otlp`` and ``device_prof`` are still
-to port (ROADMAP.md, queue A)."""
+placement groups and scheduling strategies; ``actor_pool``, ``queue``,
+``multiprocessing`` (a ``Pool`` over actors), ``pubsub`` and
+``check_serialize`` on the runtime; and the observability modules
+``metrics``, ``tracing``, ``phases``, ``waterfall``, ``slo``, ``state``,
+``grafana``, ``otlp`` and ``device_prof``. ``ActorPool`` and ``Queue``
+resolve here, as the reference's names do."""
 
 from ray_tpu_torch.util.placement_group import (  # noqa: F401
     PlacementGroup,
@@ -15,23 +16,15 @@ from ray_tpu_torch.util.scheduling_strategies import (  # noqa: F401
     PlacementGroupSchedulingStrategy,
 )
 
-#: the reference's ``util`` modules not ported yet: reaching one raises
-#: instead of quietly finding nothing
-_NOT_PORTED = (
-    "actor_pool", "queue", "multiprocessing", "pubsub", "check_serialize",
-    "grafana", "otlp", "device_prof",
-)
-
 
 def __getattr__(name):
     import importlib
 
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"ray_tpu_torch.util.{name} is not ported yet (ROADMAP.md, queue A5)"
-        )
-    for mod in ("metrics", "state"):
-        m = importlib.import_module(f"ray_tpu_torch.util.{mod}")
+    for mod in ("actor_pool", "queue", "metrics", "state"):
+        try:
+            m = importlib.import_module(f"ray_tpu_torch.util.{mod}")
+        except ImportError:
+            continue
         if hasattr(m, name):
             return getattr(m, name)
         if mod == name:

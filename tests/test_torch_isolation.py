@@ -202,6 +202,32 @@ def test_rl_and_rlhf_load_no_jax_and_no_torch_until_asked():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_operator_tooling_loads_no_jax_and_no_torch():
+    """``obs``, ``job``, ``dashboard`` and the ``util`` modules of the
+    operator tooling load neither JAX, the JAX package nor torch — on
+    import, and when ``python -m ray_tpu_torch.obs`` parses its commands
+    and renders — so attaching an operator's tool costs no torch import."""
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch.obs, ray_tpu_torch.job, ray_tpu_torch.dashboard\n"
+        "from ray_tpu_torch.util import (actor_pool, check_serialize, device_prof, grafana,\n"
+        "                                multiprocessing, otlp, pubsub, queue)\n"
+        "import ray_tpu_torch.util as util\n"
+        "util.ActorPool, util.Queue, grafana.dashboard_json(), otlp.export(events=[{'ts': 1.0, 'type': 'x'}])\n"
+        "device_prof.JitProfiler().note('site', print, 1e-3)\n"
+        "ray_tpu_torch.obs.render_arena({}), ray_tpu_torch.obs.measure_overhead(n=10)\n"
+        "heavy = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu', 'torch'))\n"
+        "print(heavy); sys.exit(1 if heavy else 0)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    proc = subprocess.run([sys.executable, "-m", "ray_tpu_torch.obs", "--help"], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "waterfall" in proc.stdout, proc.stdout + proc.stderr
+
+
 def test_rl_and_rlhf_entry_points_without_device_need_cuda(monkeypatch):
     """A learner, an env runner, an RL module and a rollout worker with no
     device mean the card: without a GPU they raise, never sampling or
