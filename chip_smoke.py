@@ -25,7 +25,10 @@ each version pushed over the object plane), and PPO on CartPole; and DQN,
 SAC, TD3, DDPG, BC, CQL, IMPALA, APPO, ES, Dreamer and multi-agent PPO at
 their defaults on the reference's envs; and the operator's tools (a job,
 the device-step profiler, the ``obs`` CLI, the dashboard, an OTLP export
-and an ``ActorPool``) over a GPT-124M serving job. Phases,
+and an ``ActorPool``) over a GPT-124M serving job; and ``python -m
+ray_tpu_torch`` (``start``, ``up``, ``down``, ``status`` and the state
+commands) with a GPT-124M actor on the CLI's head and on a GPU node that
+the autoscaler buys on demand. Phases,
 each of which raises on failure:
 
 1. device: name, compute capability, power limit;
@@ -144,12 +147,12 @@ each of which raises on failure:
     submit-to-finish from its phase ledger); (c) the greedy prompts over
     loopback HTTP (chunked streams, the ``x-request-id`` echo, (b)'s
     tokens), then a ``deadline_s`` the backlog cannot meet answered 429
-    with ``Retry-After``; (d) one ``loadgen.run_curve`` arm: 16 Poisson
+    with ``Retry-After``; (d) one ``loadgen.run_curve`` arm: 3 Poisson
     arrivals at half (b)'s request rate, client TTFT and e2e percentiles,
     the share of requests attributed and of phase sums within 5% of e2e;
     (e) ``serve.delete`` returns the GPU resource and the replica's memory;
     (f) GPT-124M (full width and depth, fp32, spec_k=4, ``warmup=False``)
-    in one replica: a greedy 256-token stream cut after 64 tokens by SIGKILL
+    in one replica: a greedy 128-token stream cut after 64 tokens by SIGKILL
     of the replica resumes on the replacement (placed once the dead
     worker's GPU is released) and equals an uninterrupted stream and the
     dense forward; kill -> replacement ready -> first resumed token timed;
@@ -157,30 +160,30 @@ each of which raises on failure:
     ``serve.shutdown()`` and ``shutdown()`` leave no runtime process and no
     store segment;
 25. Train over the runtime (``ray_tpu_torch.train``): ``init()`` with the card
-    as one ``GPU``, then (a) ``TorchTrainer(ScalingConfig(num_workers=1,
-    use_gpu=True))`` trains phase 17's model (``TRAIN_406M``, batch 26,
-    weights from a CUDA generator seeded 0 built in the worker, phase 17's
-    tokens through ``get_dataset_shard("train")``) for 12 steps through
-    K3-K5, saving its train state after step 8 (``save_state``,
-    ``CheckpointConfig(num_to_keep=1)``): losses of steps 0-5 equal phase
-    17's bit for bit, the worker's K3/K4/K5 launches as expected; the median
-    step against phase 17's, the checkpoint's bytes and save time, fit() to
-    the first report, peak memory; (b) the same run with
-    ``FailureConfig(max_failures=1)``, whose first worker process ends by
-    ``os._exit(1)`` right after reporting step 9: the group restarts from
-    step 8's checkpoint and steps 9-11 equal (a)'s bit for bit; death to
-    the first resumed report split into the worker's start, the model's
-    build, the checkpoint's load and the first step; (c) after each
+    as one ``GPU``, then ``TorchTrainer(ScalingConfig(num_workers=1,
+    use_gpu=True), FailureConfig(max_failures=1))`` trains phase 17's model
+    (``TRAIN_406M``, batch 26, weights from a CUDA generator seeded 0 built
+    in the worker, phase 17's tokens through ``get_dataset_shard("train")``)
+    for its 6 steps through K3-K5, saving its train state after step 2
+    (``save_state``, ``CheckpointConfig(num_to_keep=1)``): (a) the first
+    worker's losses of steps 0-3 equal phase 17's bit for bit, its K3/K4/K5
+    launches as expected; the median step against phase 17's, fit() to the
+    first report, peak memory, the checkpoint's bytes, save and commit
+    times; it ends by ``os._exit(1)`` right after reporting step 3; (b) the
+    group restarts from step 2's checkpoint and steps 3-5 equal phase 17's
+    bit for bit; death to the first resumed report split into the worker's
+    start, the model's build, the checkpoint's load and the first step (an
+    uninterrupted 12-step run came first until phase 32 came); (c) after
     ``fit()`` the ``GPU`` resource and the card's memory are free again;
     (d) two CPU actors allreduce 64 MB fp32 torch tensors by fan-in and by
     the ring (``ray_tpu_torch.collective``), equal to numpy's sums;
-26. Data into Train (``ray_tpu_torch.data``): (a) phase 25 (a)'s run fed
-    from ``data.read_numpy`` over 13 ``.npy`` files of 24 rows (phase 17's
-    batch 12 times over, so batches straddle files) through
+26. Data into Train (``ray_tpu_torch.data``): (a) phase 25's run fed
+    from ``data.read_numpy`` over 13 ``.npy`` files of 12 rows (phase 17's
+    batch 6 times over, so batches straddle files) through
     ``TorchTrainer(datasets=...)``, ``get_dataset_shard`` and
     ``iter_torch_batches(batch_size=26, drop_last=True)``, whose batches
-    land on the card with no copy of the loop's own: 12 batches, losses equal
-    phase 25 (a)'s bit for bit, K3/K4/K5 at 288 launches each, the card
+    land on the card with no copy of the loop's own: 6 batches, losses equal
+    phase 25's bit for bit, K3/K4/K5 at 144 launches each, the card
     released after ``fit()``; the median step against phase 17's, the
     trainer between two steps against phase 25's, ``fit()`` to the first
     report; (b) 64 ``.npy`` files of 4096 rows x 1025 int32 tokens (numpy
@@ -303,7 +306,30 @@ each of which raises on failure:
     training-path forward (K3) scores 8 batches of 4 x 1024 ids
     (``pool.map``): each batch's summed logprob equals an in-process
     forward's within ``TOL[bf16]`` relative to max(1, |ref|), and a closure
-    over a CUDA tensor inspects as serializable (``check_serialize``).
+    over a CUDA tensor inspects as serializable (``check_serialize``);
+32. the CLI and the autoscaler on the card: every process is a ``python -m
+    ray_tpu_torch`` started here, the driver attached by address, and the
+    ``num_gpus=1`` actor holds GPT-124M (bf16, seed 32, phase 19's engine
+    config), warmed up, for 8 greedy requests (prompts of 64-256 ids from
+    numpy seed 32, 32 new tokens), whose tokens equal the same engine's in
+    this process (else within the bf16 top-2 margin of the dense forward)
+    with K1 at 12 launches a decode step. (a) ``start --head``: ``status``
+    shows ``GPU`` = ``detect_num_gpus()`` and the card's accelerator-type
+    key; ``start --address --labels`` joins a second node; the actor runs
+    on the head's node; ``summary``, ``list actors``, ``list nodes``,
+    ``node-stats``, ``stacks``, ``timeline``, ``grafana`` and ``job
+    submit`` side by side, then ``job status`` (``SUCCEEDED``) and ``job
+    logs``, all exit 0; SIGTERM: the head exits 0 within 10 s and the node
+    agent exits after its reconnect grace. (b) ``up`` over a ``.json``
+    config (the fake provider, a CPU head, ``gpu_worker`` at ``GPU`` 1,
+    ``max_workers`` 1, idle timeout 5 s, ticks of 0.5 s): no ``GPU`` before
+    demand; the actor's request makes the autoscaler buy exactly one GPU
+    node, where the actor runs, its tokens equal to (a)'s; after the kill
+    the node is terminated within the idle timeout plus two ticks (and 0.5
+    s) and ``GPU`` is gone; SIGTERM: ``up`` prints its instance counts
+    (``TERMINATED`` 1) and exits 0; ``down`` terminates 0 instances. The
+    cluster's ``GPU`` total, polled throughout, never exceeds the card
+    count.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it has
 the card's name and power limit, the one before that the kernels' record.
@@ -2715,9 +2741,9 @@ def runtime_on_card(card: str, in_process: dict) -> dict:
 # phase 24: Serve over the port's engine
 # ---------------------------------------------------------------------------
 
-FAILOVER_NEW = 256  # (f): the greedy stream's new tokens
+FAILOVER_NEW = 128  # (f): the greedy stream's new tokens; 256 until phase 32 came
 FAILOVER_CUT = 64  # (f): the tokens the client holds when the replica is killed
-LOADGEN_REQUESTS = 16  # (d); 32 until phase 31 came
+LOADGEN_REQUESTS = 3  # (d); 32 until phase 31 came, 16 until phase 32 came
 ATTRIBUTION_EPS = 0.05  # (d): phases must sum to e2e within this share
 TORCH_LIBS = ("libtorch", "libc10", "libcuda", "libcudart", "libnvrtc", "libcublas")
 
@@ -3665,9 +3691,9 @@ def train_406m(card: str) -> dict:
 # phase 25: Train over the runtime
 # ---------------------------------------------------------------------------
 
-TRAIN25_STEPS = 12  # (a): steps 0-11
-TRAIN25_CKPT_AT = 8  # the step after which the train state is checkpointed (9 steps in)
-TRAIN25_DIE_AFTER = 9  # (b): the first attempt's worker dies right after reporting this step
+TRAIN25_STEPS = 6  # steps 0-5, phase 17's six (0-11, over two runs, until phase 32 came)
+TRAIN25_CKPT_AT = 2  # the step after which the train state is checkpointed (3 steps in)
+TRAIN25_DIE_AFTER = 3  # the first worker dies right after reporting this step
 COLLECTIVE_BYTES = 64 << 20  # (d): each rank's fp32 tensor
 
 
@@ -3743,8 +3769,9 @@ def train_loop_406m(config: dict) -> None:
 def fit_406m(storage: str, name: str, die_after: int = -1, dataset=None) -> tuple:
     """One ``TorchTrainer`` run of ``train_loop_406m`` on one ``num_gpus=1``
     worker: (the ``Result``, the clock at ``fit()``, the death file). Fed
-    phase 17's batch 12 times as a list, or ``dataset`` (phase 26, which
-    saves no checkpoint)."""
+    phase 17's batch ``TRAIN25_STEPS`` times as a list, or ``dataset``
+    (phase 26). Only the run whose worker dies (``die_after``) saves a
+    checkpoint: it is the one that resumes from it."""
     from ray_tpu_torch import train
 
     stage = tempfile.mkdtemp(dir=storage, prefix="stage_")
@@ -3752,7 +3779,7 @@ def fit_406m(storage: str, name: str, die_after: int = -1, dataset=None) -> tupl
     batches = [train_406m_tokens()] * TRAIN25_STEPS if dataset is None else dataset
     trainer = train.TorchTrainer(
         train_loop_406m,
-        train_loop_config=dict(cfg=TRAIN_406M, ckpt_at=TRAIN25_CKPT_AT if dataset is None else -1,
+        train_loop_config=dict(cfg=TRAIN_406M, ckpt_at=TRAIN25_CKPT_AT if die_after >= 0 else -1,
                                die_after=die_after, stage=stage, death_file=death_file,
                                from_dataset=dataset is not None),
         scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
@@ -3837,17 +3864,20 @@ def collective_on_the_runtime() -> None:
 
 def train_over_runtime(card: str, phase17: dict) -> dict:
     """Phase 25: ``TorchTrainer`` over the port's runtime with the card as one
-    ``GPU``. (a) 12 steps of phase 17's model and batch on one
-    ``num_gpus=1`` worker, the train state checkpointed after step 8
-    (``CheckpointConfig(num_to_keep=1)``): losses of steps 0-5 equal phase
-    17's bit for bit, K3/K4/K5 launches as expected, finite losses; the
-    median step against phase 17's, the checkpoint's bytes and save and
-    load times, ``fit()`` to the first report, peak memory. (b) the same
-    run under ``FailureConfig(max_failures=1)`` whose first worker calls
-    ``os._exit(1)`` right after reporting step 9: the group restarts from
-    step 8's checkpoint, steps 9-11 equal (a)'s bit for bit; the death to
-    the first resumed report, split. (c) after each ``fit()`` the GPU and
-    its memory are released. (d) the host collectives on CPU actors."""
+    ``GPU``: one run of phase 17's six steps (model and batch) on one
+    ``num_gpus=1`` worker under ``FailureConfig(max_failures=1)``, the train
+    state checkpointed after step 2 (``CheckpointConfig(num_to_keep=1)``).
+    (a) its first worker: losses of steps 0-3 equal phase 17's bit for bit,
+    K3/K4/K5 launches as expected, finite losses; the median step against
+    phase 17's, ``fit()`` to the first report, peak memory, the
+    checkpoint's bytes, save and commit times; it calls ``os._exit(1)``
+    right after reporting step 3. (b) the group restarts from step 2's
+    checkpoint: steps 3-5 equal phase 17's bit for bit, the new worker's
+    launches as expected; the death to the first resumed report, split.
+    (c) after ``fit()`` the GPU and its memory are released. (d) the host
+    collectives on CPU actors. (Until phase 32 came, an uninterrupted run
+    of 12 steps, checkpointing too, came first, and the failover run's
+    resumed steps were held against it.)"""
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3867,85 +3897,79 @@ def train_over_runtime(card: str, phase17: dict) -> dict:
     if disk.free < 2.5 * want_bytes:
         raise AssertionError(f"{storage} has {disk.free / 1e9:.1f} GB free: too little for two checkpoints")
     try:
-        # (a) uninterrupted
-        result, t_fit, _ = fit_406m(storage, "uninterrupted")
+        result, t_fit, death_file = fit_406m(storage, "failover", die_after=TRAIN25_DIE_AFTER)
         if result.error is not None:
-            raise AssertionError(f"(a) fit() failed: {result.error!r}")
+            raise AssertionError(f"fit() failed: {result.error!r}")
         hist = [h["metrics"] for h in result.metrics_history]
-        if [m["step"] for m in hist] != list(range(TRAIN25_STEPS)):
-            raise AssertionError(f"(a) reported steps {[m['step'] for m in hist]}")
-        losses = [m["loss"] for m in hist]
-        launches = tuple(hist[-1]["launches"])
-        # the trainer's time between two steps: report, ack and the next
-        # batch's copy (the clock of step i's report minus step i - 1's,
-        # less step i); after step 8 it also commits the checkpoint
-        between = {m["step"]: m["wall"] - prev["wall"] - m["ms"] / 1e3 for prev, m in zip(hist, hist[1:])}
-        commit_s = between.pop(TRAIN25_CKPT_AT + 1)
-        want = expected_flash_launches(TRAIN_406M, TRAIN25_STEPS)
-        same17 = losses[:len(phase17["losses"])] == phase17["losses"]
-        ms = [m["ms"] for m in hist[1:]]
-        saved = hist[TRAIN25_CKPT_AT]
-        print(f"(a) TorchTrainer, 1 num_gpus=1 worker, {TRAIN25_STEPS} steps [{card}]: losses "
-              f"{[f'{x:.6f}' for x in losses]}; steps 0-{len(phase17['losses']) - 1} "
-              f"{'equal' if same17 else 'DIFFER from'} phase 17's bit for bit; median step "
-              f"{np.median(ms):.3f} ms against phase 17's {np.median(phase17['step_ms']):.3f} ms "
-              f"({np.median(ms) / np.median(phase17['step_ms']):.3f}x; steps {[f'{x:.1f}' for x in ms]}); "
-              f"K3/K4/K5 launches {launches} = {want} expected; fit() to the first report "
-              f"{hist[0]['wall'] - t_fit:.2f} s (worker start to loop {hist[0]['enter_wall'] - t_fit:.2f} s, "
-              f"model built on the card {hist[0]['build_s']:.2f} s, step 0 {hist[0]['ms']:.1f} ms); "
-              f"the trainer between two steps {np.median(list(between.values())) * 1e3:.2f} ms (median; "
-              f"report, ack, batch to the card); checkpoint after step {TRAIN25_CKPT_AT}: "
-              f"{saved['ckpt_bytes'] / 1e9:.3f} GB ({saved['ckpt_bytes'] / n_params:.2f} bytes a parameter) "
-              f"saved in {saved['save_s']:.2f} s, committed into the trial directory (and the stage deleted) "
-              f"in {commit_s:.2f} s; worker peak memory {max(m['peak_gb'] for m in hist):.2f} GB")
-        if not same17:
-            raise AssertionError(f"(a) losses of steps 0-5 {losses[:6]} differ from phase 17's {phase17['losses']}")
-        if launches != want:
-            raise AssertionError(f"(a) K3/K4/K5 launched {launches} times, expected {want}")
-        if not all(np.isfinite(losses)):
-            raise AssertionError(f"(a) non-finite loss {losses}")
-        card_released(free_before, cache_bytes, "after (a)")
-        shutil.rmtree(os.path.join(storage, "uninterrupted"), ignore_errors=True)
-
-        # (b) the worker dies after reporting step 9 and the group restarts
-        result_b, t_fit_b, death_file = fit_406m(storage, "failover", die_after=TRAIN25_DIE_AFTER)
-        if result_b.error is not None:
-            raise AssertionError(f"(b) fit() failed: {result_b.error!r}")
-        hist_b = [h["metrics"] for h in result_b.metrics_history]
-        first = [m for m in hist_b if m["resumed_from"] == 0]
-        resumed = [m for m in hist_b if m["resumed_from"] > 0]
-        died_at = float(Path(death_file).read_text())
-        ckpt_step = result_b.checkpoint.get_metadata().get("step") if result_b.checkpoint else None
+        first = [m for m in hist if m["resumed_from"] == 0]
+        resumed = [m for m in hist if m["resumed_from"] > 0]
         if [m["step"] for m in first] != list(range(TRAIN25_DIE_AFTER + 1)) or \
                 [m["step"] for m in resumed] != list(range(TRAIN25_CKPT_AT + 1, TRAIN25_STEPS)):
-            raise AssertionError(f"(b) reported steps {[(m['step'], m['resumed_from']) for m in hist_b]}")
-        got = [m["loss"] for m in resumed]
-        same_a = got == losses[TRAIN25_CKPT_AT + 1:]
-        r0 = resumed[0]
+            raise AssertionError(f"reported steps {[(m['step'], m['resumed_from']) for m in hist]}")
+        want17 = phase17["losses"]
+        if len(want17) != TRAIN25_STEPS:
+            raise AssertionError(f"phase 17 has {len(want17)} losses, the run {TRAIN25_STEPS} steps")
+
+        # (a) the first worker, to its death
+        got_a = [m["loss"] for m in first]
+        same17 = got_a == want17[:len(first)]
+        saved = first[TRAIN25_CKPT_AT]
+        # the report after the checkpoint's waits for its commit
+        after = first[TRAIN25_CKPT_AT + 1]
+        commit_s = after["wall"] - saved["wall"] - after["ms"] / 1e3
+        # the trainer's time between two steps: report, ack and the next
+        # batch's copy (the clock of step i's report minus step i - 1's,
+        # less step i), within each worker, the commit's step left out
+        between = [m["wall"] - prev["wall"] - m["ms"] / 1e3 for run in (first, resumed)
+                   for prev, m in zip(run, run[1:]) if m is not after]
         f_launch = tuple(first[-1]["launches"])
         want_f = expected_flash_launches(TRAIN_406M, len(first))
+        ms = [m["ms"] for m in first[1:]]
+        print(f"(a) TorchTrainer, 1 num_gpus=1 worker, FailureConfig(max_failures=1), {TRAIN25_STEPS} steps "
+              f"[{card}]: the first worker's losses {[f'{x:.6f}' for x in got_a]} "
+              f"{'equal' if same17 else 'DIFFER from'} phase 17's steps 0-{len(first) - 1} bit for bit; median step "
+              f"{np.median(ms):.3f} ms against phase 17's {np.median(phase17['step_ms']):.3f} ms "
+              f"({np.median(ms) / np.median(phase17['step_ms']):.3f}x; steps {[f'{x:.1f}' for x in ms]}); "
+              f"K3/K4/K5 launches {f_launch} = {want_f} expected; fit() to the first report "
+              f"{first[0]['wall'] - t_fit:.2f} s (worker start to loop {first[0]['enter_wall'] - t_fit:.2f} s, "
+              f"model built on the card {first[0]['build_s']:.2f} s, step 0 {first[0]['ms']:.1f} ms); "
+              f"the trainer between two steps {np.median(between) * 1e3:.2f} ms (median; report, ack, batch to "
+              f"the card); checkpoint after step {TRAIN25_CKPT_AT}: {saved['ckpt_bytes'] / 1e9:.3f} GB "
+              f"({saved['ckpt_bytes'] / n_params:.2f} bytes a parameter) saved in {saved['save_s']:.2f} s, "
+              f"committed into the trial directory (and the stage deleted) in {commit_s:.2f} s; worker peak "
+              f"memory {max(m['peak_gb'] for m in hist):.2f} GB")
+        if not same17:
+            raise AssertionError(f"(a) losses {got_a} differ from phase 17's {want17}")
+        if f_launch != want_f:
+            raise AssertionError(f"(a) K3/K4/K5 launched {f_launch} times in the first worker, expected {want_f}")
+        if not all(np.isfinite([m["loss"] for m in hist])):
+            raise AssertionError(f"(a) non-finite loss {[m['loss'] for m in hist]}")
+
+        # (b) the group restarted from the checkpoint
+        died_at = float(Path(death_file).read_text())
+        ckpt_step = result.checkpoint.get_metadata().get("step") if result.checkpoint else None
+        got = [m["loss"] for m in resumed]
+        same_b = got == want17[TRAIN25_CKPT_AT + 1:]
+        r0 = resumed[0]
         r_launch = tuple(resumed[-1]["launches"])
         want_r = expected_flash_launches(TRAIN_406M, len(resumed))
         print(f"(b) worker os._exit(1) after reporting step {TRAIN25_DIE_AFTER}; the group restarted from "
               f"step {TRAIN25_CKPT_AT}'s checkpoint (train state {ckpt_step} steps in); resumed steps "
               f"{[m['step'] for m in resumed]} losses {[f'{x:.6f}' for x in got]} "
-              f"{'equal' if same_a else 'DIFFER from'} (a)'s bit for bit; death to the first resumed report "
+              f"{'equal' if same_b else 'DIFFER from'} phase 17's bit for bit; death to the first resumed report "
               f"{r0['wall'] - died_at:.2f} s = group restart and worker start to the loop "
               f"{r0['enter_wall'] - died_at:.2f} s + model built on the card {r0['build_s']:.2f} s + checkpoint "
               f"load {r0['load_s']:.2f} s + first step {r0['ms'] / 1e3:.2f} s + the rest "
               f"{r0['wall'] - r0['enter_wall'] - r0['build_s'] - r0['load_s'] - r0['ms'] / 1e3:.2f} s; "
-              f"K3/K4/K5 launches in the worker that died {f_launch} = {want_f} expected, in the new worker "
-              f"{r_launch} = {want_r} expected")
-        if not same_a:
-            raise AssertionError(f"(b) resumed losses {got} differ from (a)'s {losses[TRAIN25_CKPT_AT + 1:]}")
+              f"K3/K4/K5 launches in the new worker {r_launch} = {want_r} expected")
+        if not same_b:
+            raise AssertionError(f"(b) resumed losses {got} differ from phase 17's {want17[TRAIN25_CKPT_AT + 1:]}")
         if ckpt_step is None or ckpt_step < TRAIN25_CKPT_AT + 1:
             raise AssertionError(f"(b) the last checkpoint is {ckpt_step} steps in, expected step "
                                  f"{TRAIN25_CKPT_AT}'s ({TRAIN25_CKPT_AT + 1} steps in) or later")
-        if f_launch != want_f:
-            raise AssertionError(f"(b) K3/K4/K5 launched {f_launch} times in the worker that died, expected {want_f}")
         if r_launch != want_r:
             raise AssertionError(f"(b) K3/K4/K5 launched {r_launch} times in the new worker, expected {want_r}")
-        card_released(free_before, cache_bytes, "after (b)")
+        card_released(free_before, cache_bytes, "after the run")
 
         # (d) host collectives on the runtime
         collective_on_the_runtime()
@@ -3953,24 +3977,26 @@ def train_over_runtime(card: str, phase17: dict) -> dict:
         shutil.rmtree(storage, ignore_errors=True)
         ray_tpu_torch.shutdown()
     print(f"phase 25 [{card}]: {time.perf_counter() - t_phase:.1f} s")
-    launches_b = tuple(a + b for a, b in zip(f_launch, r_launch))
-    return dict(launches=dict(zip(("K3", "K4", "K5"), tuple(a + b for a, b in zip(launches, launches_b)))),
-                losses=losses, between_ms=np.median(list(between.values())) * 1e3)
+    losses = [m["loss"] for m in first[:TRAIN25_CKPT_AT + 1] + resumed]  # the run's steps 0-5
+    return dict(launches=dict(zip(("K3", "K4", "K5"), tuple(a + b for a, b in zip(f_launch, r_launch)))),
+                losses=losses, between_ms=np.median(between) * 1e3)
 
 
 # ---------------------------------------------------------------------------
 # phase 26: Data into Train
 # ---------------------------------------------------------------------------
 
-DATA26_FILES, DATA26_ROWS = 13, 24  # (a): 312 rows = phase 17's batch 12 times, 24 rows a file
+# (a): 156 rows = phase 17's batch 6 times (TRAIN25_STEPS), 12 rows a file
+# (312 rows, 24 a file, until phase 32 came)
+DATA26_FILES, DATA26_ROWS = 13, 12
 SHUFFLE_FILES, SHUFFLE_ROWS, SHUFFLE_BATCH = 64, 4096, 256  # (b): 262,144 rows of 1025 int32 tokens
 HASH_MUL = 0x9E3779B97F4A7C15 - (1 << 64)  # (b): a row hash's odd multiplier, as a signed int64
 
 
 def write_406m_corpus(d: str) -> None:
-    """(a): phase 17's (26, 1025) int64 batch 12 times over, as 13 .npy
-    files of 24 rows: the trainer's 26-row batches straddle files and
-    blocks."""
+    """(a): phase 17's (26, 1025) int64 batch ``TRAIN25_STEPS`` times over,
+    as 13 .npy files of 12 rows: the trainer's 26-row batches straddle files
+    and blocks."""
     tokens = np.concatenate([train_406m_tokens()] * TRAIN25_STEPS)
     assert len(tokens) == DATA26_FILES * DATA26_ROWS
     for i in range(DATA26_FILES):
@@ -4106,10 +4132,10 @@ def shuffle_to_card(card: str) -> None:
 
 
 def data_into_train(card: str, phase17: dict, phase25: dict) -> dict:
-    """Phase 26: (a) phase 25 (a)'s run fed from a ``read_numpy`` Dataset
-    through ``iter_torch_batches``: 12 batches on the card, losses equal
-    phase 25 (a)'s bit for bit, K3/K4/K5 at 288 each, the card released;
-    (b) ``shuffle_to_card``."""
+    """Phase 26: (a) phase 25's run fed from a ``read_numpy`` Dataset
+    through ``iter_torch_batches``: ``TRAIN25_STEPS`` batches on the card,
+    losses equal phase 25's bit for bit, K3/K4/K5 at 24 a step each, the
+    card released; (b) ``shuffle_to_card``."""
     from ray_tpu_torch import data
 
     t_phase = time.perf_counter()
@@ -4137,7 +4163,7 @@ def data_into_train(card: str, phase17: dict, phase25: dict) -> dict:
         print(f"(a) TorchTrainer fed data.read_numpy({DATA26_FILES} files x {DATA26_ROWS} rows) through "
               f"iter_torch_batches(batch_size={TRAIN_B}, drop_last=True) [{card}]: {len(hist)} batches of "
               f"{sorted({m['rows'] for m in hist})} rows, on the card {all(m['on_card'] for m in hist)}; losses "
-              f"{[f'{x:.6f}' for x in losses]} {'equal' if same25 else 'DIFFER from'} phase 25 (a)'s bit for bit; "
+              f"{[f'{x:.6f}' for x in losses]} {'equal' if same25 else 'DIFFER from'} phase 25's bit for bit; "
               f"median step {np.median(ms):.3f} ms against phase 17's {np.median(phase17['step_ms']):.3f} ms "
               f"({np.median(ms) / np.median(phase17['step_ms']):.3f}x); the trainer between two steps "
               f"{np.median(between) * 1e3:.2f} ms (median; report, ack, the next batch from the Dataset to the "
@@ -4150,7 +4176,7 @@ def data_into_train(card: str, phase17: dict, phase25: dict) -> dict:
         if not all(m["on_card"] and m["rows"] == TRAIN_B for m in hist):
             raise AssertionError("(a) a batch did not arrive on the card with 26 rows")
         if not same25:
-            raise AssertionError(f"(a) losses {losses} differ from phase 25 (a)'s {phase25['losses']}")
+            raise AssertionError(f"(a) losses {losses} differ from phase 25's {phase25['losses']}")
         if launches != want:
             raise AssertionError(f"(a) K3/K4/K5 launched {launches} times, expected {want}")
         card_released(free_before, cache_bytes, "after (a)")
@@ -5662,6 +5688,434 @@ def operator_tooling(card: str) -> dict:
     return dict(k1=ran["k1"], k3=pooled["k3"], seconds=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------------------
+# phase 32: the CLI and the autoscaler on the card
+# ---------------------------------------------------------------------------
+
+CLI_SEED = 32
+CLI_REQUESTS, CLI_NEW = 8, 32  # greedy requests of 64-256 prompt ids, new tokens each
+CLI_IDLE_S, CLI_TICK_S = 5.0, 0.5  # (b): the cluster config's idle_timeout_s and update_interval_s
+# (b): the cluster config of `up`, written as .json (JSON is YAML too): the
+# fake provider, a CPU head, one GPU node type
+CLI_CLUSTER = {
+    "cluster_name": "p32",
+    "provider": {"type": "fake"},
+    "head": {"num_cpus": 2},
+    "node_types": {"gpu_worker": {"resources": {"GPU": 1, "CPU": 4}, "min_workers": 0, "max_workers": 1}},
+    "idle_timeout_s": CLI_IDLE_S,
+    "update_interval_s": CLI_TICK_S,
+}
+# (a): state commands run side by side against the CLI's head, each exits 0
+CLI_STATE = (("summary",), ("list", "actors"), ("list", "nodes"), ("node-stats",), ("stacks",))
+# a node agent retries a lost head for head_reconnect_grace_s (30 s by
+# default) before it exits: the phase's agent waits 1 s
+CLI_AGENT_GRACE_S = "1"
+
+
+def cli_generate(eng: LLMEngine, prompts: list, new: int) -> list:
+    """Greedy ``new`` tokens for each prompt, all submitted at once and
+    stepped to their ends."""
+    sp = SamplingParams(max_tokens=new, temperature=0.0)
+    reqs = [eng.submit(p, sp) for p in prompts]
+    while not all(r.finished for r in reqs):
+        eng.step()
+    return [list(r.out) for r in reqs]
+
+
+class CLIEngineHost:
+    """Phase 32's ``num_gpus=1`` actor: GPT-124M in bf16 from a CUDA
+    generator seeded ``CLI_SEED``, phase 19's engine config, built and
+    warmed up in ``__init__``. It raises without a CUDA device. ``info``
+    has its clocks: entering ``__init__`` (its class, and torch with it,
+    loaded), the card's context up, the engine built, warmed up."""
+
+    def __init__(self):
+        import os
+
+        self.clocks = [time.time()]
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: phase 32's actor serves GPT-124M on the card only")
+        self.pid = os.getpid()
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        self.clocks.append(time.time())
+        params = gpt_init(GPT_124M, torch.Generator(device="cuda").manual_seed(CLI_SEED), "cuda")
+        self.engine = LLMEngine(GPT_124M, params, GPT_ENGINE)
+        torch.cuda.synchronize()
+        self.clocks.append(time.time())
+        self.engine.warmup()
+        torch.cuda.synchronize()
+        self.clocks.append(time.time())
+
+    def info(self) -> dict:
+        return dict(node=ray_tpu_torch.get_runtime_context().get_node_id(), pid=self.pid,
+                    device=torch.cuda.get_device_name(0), clocks=self.clocks)
+
+    def generate(self, prompts: list, new: int) -> dict:
+        """``cli_generate`` with the K1 and decode-step counts set to 0
+        just before and read just after."""
+        paged_attention_cuda.launches = 0
+        self.engine.runner.launches = dict.fromkeys(self.engine.runner.launches, 0)
+        out = cli_generate(self.engine, prompts, new)
+        return dict(out=out, k1=paged_attention_cuda.launches, decode=self.engine.runner.launches["decode"],
+                    **self.info())
+
+
+def cli_prompts() -> list:
+    """8 prompts of 64-256 ids over the whole vocabulary, numpy seed 32."""
+    rng = np.random.RandomState(CLI_SEED)
+    return [[int(t) for t in rng.randint(0, GPT_124M.vocab_size, n)]
+            for n in rng.randint(64, 257, CLI_REQUESTS)]
+
+
+def cli_reference(prompts: list) -> tuple:
+    """The actor's engine in this process: its tokens for ``prompts``, and
+    the weights (for the dense forward's check)."""
+    params = gpt_init(GPT_124M, torch.Generator(device="cuda").manual_seed(CLI_SEED), "cuda")
+    eng = LLMEngine(GPT_124M, params, GPT_ENGINE)
+    eng.warmup()
+    want = cli_generate(eng, prompts, CLI_NEW)
+    del eng
+    torch.cuda.empty_cache()
+    return want, params
+
+
+def cli_ready(actor, t_req: float) -> tuple:
+    """The actor's ``info`` once it is up, and the seconds from its request
+    (``t_req``, wall clock) to its ``__init__`` (the worker's start and the
+    class's load), the card's context, the engine's build and warmup."""
+    info = ray_tpu_torch.get(actor.info.remote(), timeout=300)
+    c = info["clocks"]
+    split = dict(ready=c[-1] - t_req, start=c[0] - t_req, cuda=c[1] - c[0], build=c[2] - c[1], warmup=c[3] - c[2])
+    return info, split
+
+
+def cli_split(split: dict) -> str:
+    return (f"ready {split['ready']:.2f} s after the request = worker start and class load {split['start']:.2f} s "
+            f"+ CUDA context {split['cuda']:.2f} s + GPT-124M built {split['build']:.2f} s + warmup "
+            f"{split['warmup']:.2f} s")
+
+
+class GPUTotal:
+    """Polls the attached cluster's ``GPU`` total every 50 ms in a thread:
+    the largest value seen, and when it first read above 0."""
+
+    def __init__(self):
+        self.most, self.first_up, self.polls = 0.0, None, 0
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self.run, daemon=True)
+        self.thread.start()
+
+    def run(self) -> None:
+        while not self.stop.is_set():
+            gpu = ray_tpu_torch.cluster_resources().get("GPU", 0.0)
+            now = time.perf_counter()
+            self.polls += 1
+            self.most = max(self.most, gpu)
+            if gpu > 0:
+                self.first_up = self.first_up or now
+            self.stop.wait(0.05)
+
+    def close(self) -> None:
+        self.stop.set()
+        self.thread.join(timeout=10)
+
+
+def cli_popen(env: dict, log: str, *args) -> subprocess.Popen:
+    """``python -m ray_tpu_torch <args>`` with its output in ``log``."""
+    with open(log, "w") as f:
+        return subprocess.Popen([sys.executable, "-m", "ray_tpu_torch", *args], stdout=f,
+                                stderr=subprocess.STDOUT, env=env)
+
+
+def cli_wait_line(proc: subprocess.Popen, log: str, needle: str, timeout: float = 120) -> str:
+    """The first line of ``log`` holding ``needle``; fails if the process
+    exits or the time runs out first."""
+    deadline = time.monotonic() + timeout
+    while True:
+        line = next((ln for ln in Path(log).read_text().splitlines() if needle in ln), None)
+        if line is not None:
+            return line
+        if proc.poll() is not None or time.monotonic() > deadline:
+            raise AssertionError(f"{' '.join(proc.args[2:])} printed no {needle!r} (exit {proc.poll()}):\n"
+                                 + Path(log).read_text()[-3000:])
+        time.sleep(0.05)
+
+
+def cli_run(env: dict, *args, timeout: float = 120) -> str:
+    """``python -m ray_tpu_torch <args>`` to its end; fails unless it exits 0."""
+    p = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args], capture_output=True, text=True, env=env,
+                       timeout=timeout)
+    if p.returncode != 0:
+        raise AssertionError(f"ray_tpu_torch {' '.join(args)} exited {p.returncode}:\n{p.stdout[-2000:]}\n"
+                             f"{p.stderr[-3000:]}")
+    return p.stdout
+
+
+def cli_doc(out: str):
+    """The JSON document a command printed: it starts at the first line that
+    is ``{``, ``[`` or ``[]`` (a runtime warning before it may hold braces)."""
+    lines = out.splitlines()
+    start = next(i for i, ln in enumerate(lines) if ln in ("{", "[", "[]"))
+    return json.loads("\n".join(lines[start:]))
+
+
+def cli_status(env: dict, address: str) -> dict:
+    return cli_doc(cli_run(env, "status", "--address", address))
+
+
+def cli_stop(proc: subprocess.Popen, label: str, timeout: float) -> tuple:
+    """SIGTERM, then the exit code and the seconds to exit."""
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{label} still running {timeout} s after SIGTERM") from None
+    return rc, time.perf_counter() - t0
+
+
+def cli_reap(*procs) -> None:
+    """Every process the phase started ends with it."""
+    for p in procs:
+        if p is not None and p.poll() is None:
+            p.kill()
+            p.wait(timeout=30)
+
+
+def check_cli_tokens(got: dict, want: list, params, prompts: list, label: str) -> int:
+    """The actor's tokens against the in-process engine's: equal bit for bit,
+    or each request's tokens within the bf16 top-2 margin of the dense
+    forward (``check_greedy``). Returns the requests that differ."""
+    differ = [i for i, (g, w) in enumerate(zip(got["out"], want)) if g != w]
+    if len(got["out"]) != len(want) or any(len(o) != CLI_NEW for o in got["out"]):
+        raise AssertionError(f"{label}: {len(got['out'])} outputs of lengths {[len(o) for o in got['out']]}")
+    if differ:
+        sp = SamplingParams(max_tokens=CLI_NEW, temperature=0.0)
+        check_greedy(GPT_124M, params, {i: (prompts[i], sp, SimpleNamespace(out=got["out"][i]), None)
+                                        for i in differ}, label, gpt_forward_plain)
+    if got["k1"] <= 0 or got["k1"] != GPT_124M.n_layers * got["decode"]:
+        raise AssertionError(f"{label}: K1 launched {got['k1']} times over {got['decode']} decode steps")
+    return len(differ)
+
+
+def cli_head(card: str, tmp: str, env: dict, prompts: list, gpus: int) -> dict:
+    """(a): ``start --head``, ``start --address``, a driver's GPU actor, the
+    state CLI and a job, then the head's SIGTERM. While the actor comes up,
+    ``cli_reference`` runs here."""
+    from ray_tpu_torch.accelerators import gpu as gpu_accel
+
+    t0 = time.perf_counter()
+    head = cli_popen(env, os.path.join(tmp, "head.log"), "start", "--head", "--port", "0", "--num-cpus", "4")
+    node = watch = None
+    try:
+        line = cli_wait_line(head, os.path.join(tmp, "head.log"), "head listening on")
+        address = line.rsplit(" ", 1)[-1]
+        head_s = time.perf_counter() - t0
+        doc = cli_status(env, address)
+        gpu_key = f"GPU-{gpu_accel.accelerator_type()}"
+        res = doc["cluster_resources"]
+        print(f"(a) start --head [{card}]: listening on {address} after {head_s:.2f} s; status: cluster "
+              f"resources {json.dumps(res)}")
+        if res.get("GPU") != float(gpus) or res.get(gpu_key) != float(gpus) or res.get("CPU") != 4.0:
+            raise AssertionError(f"(a) the head registered {res}, expected GPU {gpus} and {gpu_key} (detect_num_gpus)")
+        node_log = os.path.join(tmp, "node.log")
+        node = cli_popen(env, node_log, "start", "--address", address, "--num-cpus", "2",
+                         "--labels", json.dumps({"provider_node_id": "p32"}))
+        cli_wait_line(node, node_log, "joined")
+        nodes = cli_status(env, address)["nodes"]
+        alive = [n for n in nodes if n["Alive"]]
+        labelled = [n for n in alive if n["Labels"].get("provider_node_id") == "p32"]
+        print(f"(a) start --address: status lists {len(alive)} live nodes, labels "
+              f"{[n['Labels'] for n in alive]}")
+        if len(alive) != 2 or len(labelled) != 1 or labelled[0]["Resources"].get("CPU") != 2.0:
+            raise AssertionError(f"(a) status after the join: {nodes}")
+
+        ray_tpu_torch.init(address=address)
+        watch = GPUTotal()
+        t_req = time.time()
+        actor = ray_tpu_torch.remote(num_gpus=1)(CLIEngineHost).remote()
+        want, params = cli_reference(prompts)
+        info, split = cli_ready(actor, t_req)
+        got = ray_tpu_torch.get(actor.generate.remote(prompts, CLI_NEW), timeout=600)
+        differ = check_cli_tokens(got, want, params, prompts, "(a) the head's actor")
+        head_node = next(n["NodeID"] for n in alive if not n["Labels"])
+        print(f"(a) driver attached by address; num_gpus=1 actor (pid {info['pid']}, {info['device']}, GPT-124M "
+              f"from seed {CLI_SEED}) {cli_split(split)}, on the "
+              f"{'head' if info['node'] == head_node else 'JOINED'} node; {CLI_REQUESTS} greedy requests of "
+              f"{CLI_NEW} tokens: {CLI_REQUESTS - differ} equal to the in-process engine's bit for bit, {differ} "
+              f"within the top-2 margin; K1 {got['k1']} = {GPT_124M.n_layers} x {got['decode']} decode steps")
+        if info["node"] != head_node:
+            raise AssertionError(f"(a) the GPU actor ran on {info['node']}, not the head's node {head_node}")
+
+        # the state CLI and a job, side by side
+        t2 = time.perf_counter()
+        outs = {"timeline": os.path.join(tmp, "timeline.json"), "grafana": os.path.join(tmp, "grafana.json")}
+        cmds = [[*c, "--address", address] for c in CLI_STATE] + [
+            ["timeline", "--address", address, "--output", outs["timeline"]],
+            ["grafana", "-o", outs["grafana"]],
+            # the entrypoint takes every argument after the action, so a
+            # job command's options come before it
+            ["job", "--address", address, "submit", "--", sys.executable, "-c", "print(1)"]]
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            texts = list(pool.map(lambda c: cli_run(env, *c), cmds))
+        jid = texts[-1].strip().splitlines()[-1]
+        if job.wait_job(jid, timeout=120) != job.SUCCEEDED:
+            raise AssertionError(f"(a) job {jid} ended {job.get_job_status(jid)}")
+        status = cli_run(env, "job", "--address", address, "--job-id", jid, "status").strip().splitlines()[-1]
+        logs = cli_run(env, "job", "--address", address, "--job-id", jid, "logs")
+        cli_s = time.perf_counter() - t2
+        summary, actors, listed = cli_doc(texts[0]), cli_doc(texts[1]), cli_doc(texts[2])
+        trace = json.loads(Path(outs["timeline"]).read_text())
+        board = json.loads(Path(outs["grafana"]).read_text())
+        mine = [a for a in actors if a.get("class_name") == "CLIEngineHost"]
+        print(f"(a) CLI [{card}]: {' | '.join(' '.join(c[:2]) for c in cmds)}, job status, job logs exit 0 in "
+              f"{cli_s:.2f} s (side by side, then the job's two); summary: "
+              f"{len(summary['nodes'])} nodes, actors {json.dumps(summary.get('actors', {}))[:160]}; list "
+              f"actors: {[(a.get('class_name'), a.get('state')) for a in actors]}; list nodes: {len(listed)}; "
+              f"node-stats and stacks {len(texts[3])} and {len(texts[4])} bytes; timeline {len(trace)} events; "
+              f"grafana {len(board['panels'])} panels; job {jid} {status}, logs {logs.strip()[:120]!r}")
+        if len(listed) != 2 or [a.get("state") for a in mine] != ["ALIVE"] or not trace or not board["panels"]:
+            raise AssertionError(f"(a) the CLI's view: nodes {listed}, actors {actors}, {len(trace)} timeline "
+                                 f"events, {len(board['panels'])} panels")
+        if status != job.SUCCEEDED or logs.splitlines()[:1] != ["1"]:
+            raise AssertionError(f"(a) job status {status!r}, logs {logs!r}")
+        ray_tpu_torch.kill(actor)
+        watch.close()
+        ray_tpu_torch.shutdown()
+        rc, stop_s = cli_stop(head, "(a) the head", 10)
+        agent_rc = node.wait(timeout=30)
+        print(f"(a) SIGTERM: the head exited {rc} in {stop_s:.2f} s, the node agent exited {agent_rc} "
+              f"(reconnect grace {CLI_AGENT_GRACE_S} s); the GPU total read at most {watch.most} over "
+              f"{watch.polls} polls")
+        if rc != 0 or agent_rc != 0:
+            raise AssertionError(f"(a) the head exited {rc}, the node agent {agent_rc}")
+    finally:
+        if watch is not None:
+            watch.close()
+        ray_tpu_torch.shutdown()
+        cli_reap(head, node)
+    return dict(k1=got["k1"], out=got["out"], most=watch.most, ready_s=split["ready"], cli_s=cli_s,
+                want=want, params=params, seconds=time.perf_counter() - t0)
+
+
+def cli_up(card: str, tmp: str, env: dict, prompts: list, want: list, params, a_out: list) -> dict:
+    """(b): ``up`` with the fake provider buys the GPU node on demand and
+    reaps it when idle; ``down``. The actor's tokens equal (a)'s."""
+    t0 = time.perf_counter()
+    cfg_path = os.path.join(tmp, "p32.json")
+    Path(cfg_path).write_text(json.dumps(CLI_CLUSTER, indent=2))
+    log = os.path.join(tmp, "up.log")
+    up = cli_popen(env, log, "up", cfg_path)
+    watch = None
+    try:
+        line = cli_wait_line(up, log, "head listening on")
+        address = line.rsplit(" ", 1)[-1]
+        before = cli_status(env, address)
+        print(f"(b) up {os.path.basename(cfg_path)} [{card}]: {line.strip()} after {time.perf_counter() - t0:.2f} s; "
+              f"status before any demand: cluster resources {json.dumps(before['cluster_resources'])}")
+        if before["cluster_resources"].get("GPU", 0.0) != 0.0 or len(before["nodes"]) != 1:
+            raise AssertionError(f"(b) status before any demand: {before}")
+        ray_tpu_torch.init(address=address)
+        watch = GPUTotal()
+        t1, t_req = time.perf_counter(), time.time()
+        actor = ray_tpu_torch.remote(num_gpus=1)(CLIEngineHost).remote()
+        info, split = cli_ready(actor, t_req)
+        scale_up_s = watch.first_up - t1 if watch.first_up else None
+        nodes = ray_tpu_torch.nodes()
+        gpu_nodes = [n for n in nodes if n["Alive"] and n["Resources"].get("GPU", 0) > 0]
+        head_node = next(n["NodeID"] for n in nodes if not n["Labels"])
+        print(f"(b) num_gpus=1 actor requested with no GPU node: the autoscaler bought "
+              f"{[(n['Labels'], n['Resources']) for n in gpu_nodes]} {scale_up_s:.2f} s after the request; the "
+              f"actor (pid {info['pid']}, {info['device']}) {cli_split(split)}, on node {info['node'][:12]} (the "
+              f"head's {head_node[:12]})")
+        if len(gpu_nodes) != 1 or gpu_nodes[0]["NodeID"] != info["node"] or info["node"] == head_node:
+            raise AssertionError(f"(b) GPU nodes {gpu_nodes}, the actor on {info['node']}, the head {head_node}")
+        if "instance_id" not in gpu_nodes[0]["Labels"]:
+            raise AssertionError(f"(b) the GPU node carries no instance_id label: {gpu_nodes[0]['Labels']}")
+        got = ray_tpu_torch.get(actor.generate.remote(prompts, CLI_NEW), timeout=600)
+        differ = check_cli_tokens(got, want, params, prompts, "(b) the autoscaled node's actor")
+        print(f"(b) {CLI_REQUESTS} greedy requests on the autoscaled node: {CLI_REQUESTS - differ} equal to the "
+              f"in-process engine's bit for bit, {differ} within the top-2 margin; K1 {got['k1']} = "
+              f"{GPT_124M.n_layers} x {got['decode']} decode steps")
+        # scale-down: one tick sees the node idle, idle_timeout_s later a
+        # tick marks it TERMINATING and the next terminates it; the limit
+        # adds 0.5 s for the kill and the ticks' own work
+        limit = CLI_IDLE_S + 2 * CLI_TICK_S + 0.5
+        t2 = time.perf_counter()
+        ray_tpu_torch.kill(actor)
+        while ray_tpu_torch.cluster_resources().get("GPU", 0.0) > 0:
+            if time.perf_counter() - t2 > limit + 30:
+                break
+            time.sleep(0.05)
+        down_s = time.perf_counter() - t2
+        watch.close()
+        after = cli_status(env, address)
+        print(f"(b) actor killed: the idle GPU node was terminated and its GPU gone from the cluster "
+              f"{down_s:.2f} s later (limit idle_timeout_s {CLI_IDLE_S} + 2 ticks of {CLI_TICK_S} s + 0.5 s for "
+              f"the kill and the ticks' own work = {limit:.1f} s); status: cluster resources "
+              f"{json.dumps(after['cluster_resources'])}, {sum(n['Alive'] for n in after['nodes'])} live node(s); the "
+              f"GPU total read at most {watch.most} over {watch.polls} polls")
+        if after["cluster_resources"].get("GPU", 0.0) != 0.0 or down_s > limit:
+            raise AssertionError(f"(b) {down_s:.2f} s after the kill status shows {after['cluster_resources']}")
+        ray_tpu_torch.shutdown()
+        rc, stop_s = cli_stop(up, "(b) up", 30)
+        counts_line = next((ln for ln in Path(log).read_text().splitlines() if "] instances: " in ln), "")
+        counts = json.loads(counts_line.split("instances: ", 1)[1]) if counts_line else None
+        down = cli_run(env, "down", cfg_path).strip()
+        print(f"(b) SIGTERM: up exited {rc} in {stop_s:.2f} s printing {counts_line.strip()!r}; down: {down!r}")
+        if rc != 0 or counts != {"TERMINATED": 1}:
+            raise AssertionError(f"(b) up exited {rc} with instances {counts}:\n{Path(log).read_text()[-3000:]}")
+        if "[p32] terminated 0 instance(s)" not in down:
+            raise AssertionError(f"(b) down printed {down!r}")
+        if got["out"] != a_out:
+            raise AssertionError("(b) the autoscaled node's tokens differ from (a)'s")
+    finally:
+        if watch is not None:
+            watch.close()
+        ray_tpu_torch.shutdown()
+        cli_reap(up)
+    return dict(k1=got["k1"], most=watch.most, scale_up_s=scale_up_s, ready_s=split["ready"], down_s=down_s,
+                seconds=time.perf_counter() - t0)
+
+
+def cli_and_autoscaler(card: str) -> dict:
+    """Phase 32: ``cli_head`` ((a)) and ``cli_up`` ((b)), every process a
+    ``python -m ray_tpu_torch`` started here, the driver attached by
+    address; the in-process engine's tokens (``cli_reference``) are the
+    reference."""
+    from ray_tpu_torch.accelerators import gpu as gpu_accel
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gpus = gpu_accel.detect_num_gpus()
+    if gpus != torch.cuda.device_count():
+        raise AssertionError(f"detect_num_gpus() {gpus}, torch sees {torch.cuda.device_count()} card(s)")
+    prompts = cli_prompts()
+    tmp = tempfile.mkdtemp(prefix="phase32_")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(ray_tpu_torch.__file__)))
+    key = os.urandom(16).hex()
+    path = os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p)
+    env = dict(os.environ, PYTHONPATH=path, RAY_TPU_AUTHKEY=key, RAY_TPU_HEAD_RECONNECT_GRACE_S=CLI_AGENT_GRACE_S)
+    saved_key = os.environ.get("RAY_TPU_AUTHKEY")
+    os.environ["RAY_TPU_AUTHKEY"] = key  # the driver attaches with the CLI's key
+    try:
+        a = cli_head(card, tmp, env, prompts, gpus)
+        b = cli_up(card, tmp, env, prompts, a.pop("want"), a.pop("params"), a["out"])
+    finally:
+        if saved_key is None:
+            os.environ.pop("RAY_TPU_AUTHKEY", None)
+        else:
+            os.environ["RAY_TPU_AUTHKEY"] = saved_key
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    most = max(a["most"], b["most"])
+    if most > gpus:
+        raise AssertionError(f"the cluster's GPU total reached {most}, above the card count {gpus}")
+    return dict(k1=a["k1"] + b["k1"], seconds=time.perf_counter() - t_phase, a=a, b=b)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -5810,6 +6264,13 @@ def main() -> int:
     ops = operator_tooling(card)
     print(f"phase 31 [{card}]: {ops['seconds']:.1f} s")
 
+    phase("32 the CLI and the autoscaler on the card")
+    cli = cli_and_autoscaler(card)
+    print(f"phase 32 [{card}]: {cli['seconds']:.1f} s ((a) {cli['a']['seconds']:.1f} s: actor ready "
+          f"{cli['a']['ready_s']:.2f} s, CLI {cli['a']['cli_s']:.2f} s; (b) {cli['b']['seconds']:.1f} s: scale-up "
+          f"{cli['b']['scale_up_s']:.2f} s, actor ready {cli['b']['ready_s']:.2f} s, scale-down "
+          f"{cli['b']['down_s']:.2f} s)")
+
     kernels = [
         dict(
             name="paged_decode_attention",
@@ -5817,7 +6278,8 @@ def main() -> int:
             source="ray_tpu_torch/ops/csrc/paged_attention.cu",
             replaces="ray_tpu/ops/paged_attention.py:203",
             launches=(served["launches"] + gpt_served["k1"] + swapped["launches"] + production["k1"]
-                      + runtime["k1"] + served24["k1_gptj"] + served24["k1_gpt"] + rl["k1"] + ops["k1"]),
+                      + runtime["k1"] + served24["k1_gptj"] + served24["k1_gpt"] + rl["k1"] + ops["k1"]
+                      + cli["k1"]),
             max_abs_err=err,
             ms=timing["ms"],
             plain_ms=timing["plain_ms"],
@@ -5830,7 +6292,8 @@ def main() -> int:
                               "gpt_124m_production": production["k1"], "gpt_124m_actor": runtime["k1"],
                               "gptj_6b_serve_replica": served24["k1_gptj"],
                               "gpt_124m_serve_failover": served24["k1_gpt"],
-                              "gpt_124m_rlhf_rollouts": rl["k1"], "gpt_124m_job": ops["k1"]},
+                              "gpt_124m_rlhf_rollouts": rl["k1"], "gpt_124m_job": ops["k1"],
+                              "gpt_124m_cli_actors": cli["k1"]},
             at_head_dim_64=dict(timing64, bound_by="bytes"),
         ),
         dict(

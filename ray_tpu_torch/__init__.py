@@ -62,6 +62,14 @@ Ported so far:
   waterfall, overhead, events, timeline, objects, arena, export,
   attribute); job submission (``job``) and the dashboard (``dashboard``,
   with its static pages). None of them imports torch.
+- the autoscaler and the CLI: ``autoscaler`` (``StandardAutoscaler`` and
+  ``Monitor``, autoscaler v2's instance state machine and reconciler, the
+  fake, GKE and GCE providers over injectable REST transports, the cluster
+  config with ``up``/``down``) and ``python -m ray_tpu_torch``
+  (``scripts``, ``__main__``: start, up, down, summary, list, timeline,
+  grafana, status, stacks, profile, node-stats, job), where ``start
+  --head`` registers the host's cards as ``GPU``. None of them imports
+  torch.
 
 ROADMAP.md lists what is still to port.
 

@@ -860,6 +860,9 @@ class Head:
         self._metric_series = None
         self._alerts = None
         self._infeasible_warned: dict[bytes, float] = {}
+        # resource shapes an attached autoscaler can launch (rpc_autoscaler_offer):
+        # a GPU request waits for a node it may buy instead of failing at once
+        self._autoscaler_offer: list[dict] = []
         # streaming-generator returns: task_id -> {"items": {index: obj_id},
         # "count": Optional[int] (set at completion), "next": next index a
         # consumer will ask for} (reference: task_manager.cc streaming
@@ -1983,8 +1986,11 @@ class Head:
             assigned = list(node.assigned)
             node.assigned.clear()
             node.idle_workers.clear()
+            # the handles stay alive until _handle_worker_death_locked below
+            # retires them: it returns at once for a handle already marked
+            # dead, and then a task running there was never retried or
+            # failed, nor an actor there restarted
             for wh in workers:
-                wh.alive = False
                 if wh.proc is not None and wh.proc.is_alive():
                     wh.proc.terminate()
             if node.template is not None:
@@ -2225,7 +2231,7 @@ class Head:
         if node is None:
             if self._try_lease_dispatch(rec):
                 return True
-            if res.get("GPU", 0) > 0 and not self._any_node_has_gpu():
+            if res.get("GPU", 0) > 0 and not self._any_node_has_gpu() and not self._gpu_offered():
                 self._fail_without_gpu(rec, res)
                 return True
             self._warn_infeasible(rec)
@@ -2258,10 +2264,16 @@ class Head:
         """Lock held. Whether any live node offers the ``GPU`` resource."""
         return any(n.alive and n.resources_total.get("GPU", 0) > 0 for n in self.nodes.values())
 
+    def _gpu_offered(self) -> bool:
+        """Lock held. Whether an attached autoscaler can launch a node with
+        the ``GPU`` resource (``rpc_autoscaler_offer``)."""
+        return any(shape.get("GPU", 0) > 0 for shape in self._autoscaler_offer)
+
     def _fail_without_gpu(self, rec, res: dict) -> None:
         """Lock held. A GPU request on a cluster with no card fails at once
-        (the reference warns and waits for a node that may join): GPU work
-        never runs on the CPU in its place, and never waits silently."""
+        (the reference warns and waits for a node that may join), unless an
+        autoscaler offers a GPU node type: GPU work never runs on the CPU in
+        its place, and never waits for a node that cannot come."""
         spec = rec["spec"]
         what = "actor" if spec["kind"] == "actor_create" else "task"
         err = rex.RayError(
@@ -5165,6 +5177,14 @@ class Head:
                 for tid, name, state, t, kind, rid in self.task_events
             ]
 
+    def rpc_autoscaler_offer(self, shapes: list) -> None:
+        """An autoscaler's node types, as the resource shapes it can launch
+        (each autoscaler sends them before it reads the demand). A GPU
+        request on a cluster with no GPU node then waits for the node the
+        autoscaler buys, as the reference's request always waits."""
+        with self.lock:
+            self._autoscaler_offer = [dict(shape) for shape in shapes]
+
     def rpc_autoscaler_demand(self):
         """Autoscaler feed: unplaceable resource demand + per-node load.
 
@@ -5191,8 +5211,11 @@ class Head:
             nodes = []
             now = time.monotonic()
             for n in self.nodes.values():
+                # only a live worker keeps its node busy: a killed actor's
+                # worker is retired (alive False) before its process exits,
+                # and its handle keeps the create task as current_task
                 busy = bool(n.assigned) or any(
-                    w.current_task is not None or w.actor_id is not None
+                    w.alive and (w.current_task is not None or w.actor_id is not None)
                     for w in n.all_workers
                 )
                 idle_s = 0.0

@@ -1,0 +1,208 @@
+"""The port's CLI, ``python -m ray_tpu_torch`` (``ray_tpu_torch/scripts.py``,
+``__main__.py``), in subprocesses as an operator runs it.
+
+Mirrors ``tests/test_multihost.py::test_cli_head_node_driver_roundtrip``
+(with its contention skip), and adds what the port changes or the
+reference's tests leave out: ``start --head`` registers the host's cards as
+``GPU`` (here ``CUDA_VISIBLE_DEVICES`` lists them) and ``--resources``
+overrides it; ``status``, ``list``, ``grafana`` and ``up --ticks`` on a
+``.json`` config run; a node agent leaves once its head is gone."""
+
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import pytest
+
+import ray_tpu_torch
+
+REPO = Path(__file__).resolve().parents[1]
+CLI_ENV = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+CLI_ENV.pop("RAY_TPU_AUTHKEY", None)  # the head and its clients share the default key
+
+
+def cli(*args, env=None, timeout=120) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args], capture_output=True, text=True,
+                          timeout=timeout, env=env or CLI_ENV)
+
+
+def json_doc(stdout: str):
+    """The JSON document a command printed: stray runtime prints (warnings
+    may even contain braces) can precede it, so it starts at the first bare
+    ``{`` line."""
+    lines = stdout.splitlines()
+    return json.loads("\n".join(lines[lines.index("{"):]))
+
+
+def start_head(*args, env=None) -> tuple:
+    """``start --head`` in a subprocess: (the process, its address)."""
+    proc = subprocess.Popen([sys.executable, "-m", "ray_tpu_torch", "start", "--head", "--port", "0", *args],
+                            stdout=subprocess.PIPE, text=True, env=env or CLI_ENV)
+    line = proc.stdout.readline()
+    assert "listening on" in line, line
+    return proc, line.strip().rsplit(" ", 1)[-1]
+
+
+def stop(*procs) -> None:
+    for p in procs:
+        if p is not None and p.poll() is None:
+            p.terminate()
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+
+def test_cli_head_node_driver_roundtrip(tmp_path):
+    """The real deployment shape: `ray_tpu_torch start --head` in one process,
+    `ray_tpu_torch start --address` in another, driver + state CLI attach over
+    TCP.
+
+    Capability probe (the reference's skip, kept): three cold interpreters
+    boot back to back under 60s/120s budgets; when the spin canary shows the
+    box contended, their boot times would measure the neighbors, not the
+    control plane."""
+    from conftest import SPIN_CANARY_FLOOR_MOPS, spin_mops
+
+    canary = spin_mops()
+    if canary < SPIN_CANARY_FLOOR_MOPS:
+        pytest.skip(
+            f"box contended (spin canary {canary:.1f} Mops < 12): three "
+            "cold-interpreter boots under 60s/120s budgets measure the "
+            "ambient load, not the CLI control plane"
+        )
+    head_proc = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch", "start", "--head", "--port", "0", "--num-cpus", "0"],
+        stdout=subprocess.PIPE,
+        text=True,
+        env=CLI_ENV,
+    )
+    node_proc = None
+    try:
+        line = head_proc.stdout.readline()
+        assert "listening on" in line, line
+        address = line.strip().rsplit(" ", 1)[-1]
+        node_proc = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch", "start", "--address", address,
+             "--num-cpus", "2"],
+            stdout=subprocess.PIPE,
+            text=True,
+            env=CLI_ENV,
+        )
+        assert "joined" in node_proc.stdout.readline()
+
+        ray_tpu_torch.init(address=address)
+
+        @ray_tpu_torch.remote
+        def f(x):
+            return x + 1
+
+        assert ray_tpu_torch.get([f.remote(i) for i in range(4)], timeout=60) == [1, 2, 3, 4]
+        ray_tpu_torch.shutdown()
+
+        out = subprocess.run(
+            [sys.executable, "-m", "ray_tpu_torch", "summary", "--address", address],
+            capture_output=True,
+            text=True,
+            timeout=120,
+            env=CLI_ENV,
+        )
+        assert out.returncode == 0, out.stderr
+        summ = json_doc(out.stdout)
+        assert summ["tasks"]["by_state"].get("FINISHED", 0) >= 4
+        assert len(summ["nodes"]) == 2
+    finally:
+        stop(node_proc, head_proc)
+
+
+@pytest.mark.parametrize("override", [False, True], ids=["detected", "resources_override"])
+def test_start_head_registers_gpus(override):
+    """``start --head`` registers the host's cards as ``GPU`` where the
+    reference registers TPU chips: two under ``CUDA_VISIBLE_DEVICES=0,1``;
+    ``--resources '{"GPU": 0}'`` wins over the detection. ``status`` shows
+    the totals; the head exits 0 on SIGTERM."""
+    env = dict(CLI_ENV, CUDA_VISIBLE_DEVICES="0,1")
+    extra = ["--resources", json.dumps({"GPU": 0})] if override else []
+    head, address = start_head("--num-cpus", "1", *extra, env=env)
+    try:
+        out = cli("status", "--address", address)
+        assert out.returncode == 0, out.stderr
+        doc = json_doc(out.stdout)
+        assert doc["cluster_resources"]["GPU"] == (0.0 if override else 2.0), doc
+        assert doc["cluster_resources"]["CPU"] == 1.0
+        assert len(doc["nodes"]) == 1
+    finally:
+        head.terminate()
+        assert head.wait(timeout=30) == 0
+        stop(head)
+
+
+def test_status_list_and_grafana(tmp_path):
+    """``status``, ``list nodes``, ``list actors`` and ``grafana -o``
+    against a head with one joined node, and ``grafana`` with no cluster."""
+    head, address = start_head("--num-cpus", "1")
+    node = None
+    try:
+        node = subprocess.Popen([sys.executable, "-m", "ray_tpu_torch", "start", "--address", address,
+                                 "--num-cpus", "2", "--labels", json.dumps({"provider_node_id": "p1"})],
+                                stdout=subprocess.PIPE, text=True, env=CLI_ENV)
+        assert "joined" in node.stdout.readline()
+        out = cli("status", "--address", address)
+        assert out.returncode == 0, out.stderr
+        doc = json_doc(out.stdout)
+        assert doc["cluster_resources"]["CPU"] == 3.0
+        nodes = cli("list", "nodes", "--address", address)
+        assert nodes.returncode == 0, nodes.stderr
+        listed = json.loads(nodes.stdout[nodes.stdout.index("["):])
+        assert sorted(n["Labels"].get("provider_node_id", "") for n in listed) == ["", "p1"], listed
+        actors = cli("list", "actors", "--address", address)
+        assert actors.returncode == 0 and json.loads(actors.stdout[actors.stdout.index("["):]) == []
+        board = tmp_path / "board.json"
+        out = cli("grafana", "-o", str(board))
+        assert out.returncode == 0 and out.stdout.strip() == f"wrote {board}"
+        panels = json.loads(board.read_text())["panels"]
+        assert panels and all(p["targets"][0]["expr"] for p in panels)
+    finally:
+        head.terminate()
+        assert head.wait(timeout=30) == 0
+        stop(head, node)
+
+
+def test_node_agent_leaves_when_its_head_is_gone():
+    """After the head's SIGTERM the node agent exits on its own, once its
+    reconnect grace (``head_reconnect_grace_s``) has run out."""
+    head, address = start_head("--num-cpus", "1")
+    env = dict(CLI_ENV, RAY_TPU_HEAD_RECONNECT_GRACE_S="1")
+    node = subprocess.Popen([sys.executable, "-m", "ray_tpu_torch", "start", "--address", address,
+                             "--num-cpus", "1"], stdout=subprocess.PIPE, text=True, env=env)
+    try:
+        assert "joined" in node.stdout.readline()
+        head.terminate()
+        assert head.wait(timeout=30) == 0
+        t0 = time.monotonic()
+        assert node.wait(timeout=30) == 0
+        assert time.monotonic() - t0 < 20
+    finally:
+        stop(head, node)
+
+
+def test_up_cli_json_config_in_a_subprocess(tmp_path):
+    """``python -m ray_tpu_torch up cfg.json --ticks 4`` with the fake
+    provider: the autoscaler buys min_workers virtual nodes, they join, and
+    ``down`` terminates nothing (the fake's nodes die with its head)."""
+    cfg = {"cluster_name": "t", "provider": {"type": "fake"}, "head": {"num_cpus": 1},
+           "node_types": {"w": {"resources": {"CPU": 2}, "min_workers": 1, "max_workers": 2}},
+           "idle_timeout_s": 60, "update_interval_s": 0}
+    path = tmp_path / "cluster.json"
+    path.write_text(json.dumps(cfg))
+    out = cli("up", str(path), "--ticks", "4")
+    assert out.returncode == 0, out.stderr
+    assert "[t] head listening on" in out.stdout and "python -m ray_tpu_torch start" in out.stdout
+    counts = json.loads(out.stdout.rsplit("instances: ", 1)[1].splitlines()[0])
+    assert counts == {"RAY_RUNNING": 1}, counts
+    down = cli("down", str(path))
+    assert down.returncode == 0 and "[t] terminated 0 instance(s)" in down.stdout

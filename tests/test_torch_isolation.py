@@ -228,6 +228,33 @@ def test_operator_tooling_loads_no_jax_and_no_torch():
     assert proc.returncode == 0 and "waterfall" in proc.stdout, proc.stdout + proc.stderr
 
 
+def test_autoscaler_and_cli_load_no_jax_and_no_torch():
+    """``autoscaler`` (every module), ``scripts`` and the ``__main__``
+    module load neither JAX, the JAX package nor torch, on import and when
+    the CLI runs a command (``grafana``): ``status`` and ``summary`` pay no
+    torch import."""
+    code = (
+        "import os, runpy, sys, tempfile\n"
+        "import ray_tpu_torch.autoscaler, ray_tpu_torch.scripts\n"
+        "from ray_tpu_torch.autoscaler import autoscaler, cluster_config, gce, gke, node_provider, v2\n"
+        "out = os.path.join(tempfile.mkdtemp(), 'board.json')\n"
+        "sys.argv = ['ray_tpu_torch', 'grafana', '-o', out]\n"
+        "try:\n"
+        "    runpy.run_module('ray_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0 and os.path.getsize(out) > 0, e.code\n"
+        "heavy = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu', 'torch'))\n"
+        "print(heavy); sys.exit(1 if heavy else 0)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    proc = subprocess.run([sys.executable, "-m", "ray_tpu_torch", "--help"], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "node-stats" in proc.stdout, proc.stdout + proc.stderr
+
+
 def test_rl_and_rlhf_entry_points_without_device_need_cuda(monkeypatch):
     """A learner, an env runner, an RL module and a rollout worker with no
     device mean the card: without a GPU they raise, never sampling or
@@ -286,7 +313,7 @@ def test_chip_smoke_sends_its_runtime_code_by_value():
     """On the card ``chip_smoke.py`` runs as ``__main__``, so the functions
     and classes it hands the runtime's workers (phase 23's GPU task, phase
     25's train loop and collective member, phase 28's trainable and train
-    loop, phase 29's rollout worker and reward) travel by cloudpickle's value path, which must be able to carry
+    loop, phase 29's rollout worker and reward, phase 32's actor) travel by cloudpickle's value path, which must be able to carry
     every global they name."""
     code = (
         "import sys, cloudpickle\n"
@@ -294,7 +321,8 @@ def test_chip_smoke_sends_its_runtime_code_by_value():
         "import chip_smoke as cs\n"
         "cloudpickle.register_pickle_by_value(cs)\n"
         "for obj in (cs.train_loop_406m, cs.CollectiveMember, cs.k1_in_a_gpu_task, cs.GPTEngineHost,\n"
-        "            cs.gpt_124m_trainable, cs.gpt_124m_train_loop, cs.CardRolloutWorker, cs.low_id_reward):\n"
+        "            cs.gpt_124m_trainable, cs.gpt_124m_train_loop, cs.CardRolloutWorker, cs.low_id_reward,\n"
+        "            cs.CLIEngineHost):\n"
         "    cloudpickle.dumps(obj)\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}

@@ -1,10 +1,9 @@
 """The port's job submission and dashboard against the reference's tests:
 mirrors of ``tests/test_job.py`` and ``tests/test_dashboard.py`` run on
 ``ray_tpu_torch`` over one module cluster, and the port's dashboard pages
-beside the reference's. The reference's Grafana round trip goes through
-its CLI (``python -m ray_tpu grafana``); the port's CLI is still to port
-(ROADMAP.md, queue A5.8), so the mirror writes the board with
-``util.grafana.write_dashboard``, the function that CLI calls."""
+beside the reference's. The Grafana round trip goes through the port's
+CLI (``python -m ray_tpu_torch grafana -o``), as the reference's goes
+through ``python -m ray_tpu grafana``."""
 
 import json
 import os
@@ -197,9 +196,18 @@ def test_grafana_dashboard_json(dash, tmp_path):
         assert "ray_tpu_" in p["targets"][0]["expr"]
         assert "gridPos" in p and "id" in p
 
-    from ray_tpu_torch.util.grafana import write_dashboard
+    # CLI writer round-trips
+    import subprocess
 
-    path = write_dashboard(str(tmp_path / "board.json"))
+    path = tmp_path / "board.json"
+    r = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch", "grafana", "-o", str(path)],
+        capture_output=True,
+        text=True,
+        timeout=60,
+        env={**os.environ, "PYTHONPATH": str(REPO)},
+    )
+    assert r.returncode == 0, r.stderr
     with open(path) as f:
         assert json.load(f)["uid"] == board["uid"]
 
