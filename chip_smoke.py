@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py        # from the repository root, one NVIDIA H100
 
+(``--workflow-driver run|resume STORAGE`` runs one of phase 33's drivers.)
+
 Builds the port's CUDA kernels from the sources in the checkout, holds each
 against its plain PyTorch version at its path's shapes, times it, and drives
 the port's main paths through the entry points a user calls: the paged-KV
@@ -28,7 +30,8 @@ the device-step profiler, the ``obs`` CLI, the dashboard, an OTLP export
 and an ``ActorPool``) over a GPT-124M serving job; and ``python -m
 ray_tpu_torch`` (``start``, ``up``, ``down``, ``status`` and the state
 commands) with a GPT-124M actor on the CLI's head and on a GPU node that
-the autoscaler buys on demand. Phases,
+the autoscaler buys on demand; and a durable GPT-124M workflow whose driver
+is killed after its decode step and which a fresh driver resumes. Phases,
 each of which raises on failure:
 
 1. device: name, compute capability, power limit;
@@ -243,8 +246,9 @@ each of which raises on failure:
     j) beyond the mean bound; then one update: step ms, peak memory,
     ``mean_ratio`` within ``RATIO_GAP`` of 1, K3/K4/K5 at 24/12/12; (b)
     ``rlhf.Algorithm`` with two rollout workers in actors at ``GPU`` 0.25
-    and the learner in this process, 3 iterations (``RLHF_ITERS``, cut from
-    8 when phase 30 came and from 4 when phase 31 came; train_batch 32,
+    and the learner in this process, 2 iterations (``RLHF_ITERS``, cut from
+    8 when phase 30 came, from 4 when phase 31 came and from 3 when phase 33
+    came; train_batch 32,
     rollout_inflight 16, max_staleness 4, reward the share of generated
     ids below 1024): per iteration the learner step, the publish time and
     bytes, consumed versions and staleness, rollout tokens/s and reward,
@@ -266,7 +270,8 @@ each of which raises on failure:
     Pendulum transitions, each recorded here and read back from ``.npz``;
     (e) IMPALA and APPO with two env-runner actors at ``ENV_RUNNER_GPUS``
     of the card, the learner in this process, 2 iterations; (f) ES over
-    two env-runner actors, 2 iterations; (g) Dreamer on MinAtar Breakout
+    two env-runner actors, 2 iterations (the three built side by side, so
+    their six runner actors come up together); (g) Dreamer on MinAtar Breakout
     (latent 128, batch 128, horizon 8), 3 iterations, and an update's time;
     (h) shared-policy PPO on ``EchoCoopEnv`` (4 envs x 2 agents), 2
     iterations. Each part checks its metrics finite and its mechanism
@@ -329,7 +334,30 @@ each of which raises on failure:
     s) and ``GPU`` is gone; SIGTERM: ``up`` prints its instance counts
     (``TERMINATED`` 1) and exits 0; ``down`` terminates 0 instances. The
     cluster's ``GPU`` total, polled throughout, never exceeds the card
-    count.
+    count;
+33. a durable GPT-124M workflow (``ray_tpu_torch.workflow``): prompts (a
+    CPU step, 8 of 64-256 ids from numpy seed 33) -> ``generate`` (a
+    ``num_gpus=1`` step: GPT-124M in bf16 from seed 33 in phase 19's
+    engine, 32 greedy tokens a prompt, K1) -> ``score`` (a ``num_gpus=1``
+    step with ``wait_for_event("go")``: each continuation's summed logprob
+    under teacher forcing, K3) -> ``summarize``, which returns a
+    continuation of one CPU step. (a) driver 1, this script run as
+    ``--workflow-driver run`` in its own session with its own cluster,
+    calls ``workflow.run``; once ``generate``'s commit is in the event log
+    it is SIGKILLed: within 20 s no process of its session is left, the
+    card's compute apps and free memory are back to this process's alone,
+    and the status reads ``RUNNING``; (b) after ``send_event("go")``,
+    driver 2, a fresh process with a fresh cluster, calls ``resume``: no
+    ``generate`` starts after the kill, K1 launches 0 times and K3 12 times
+    a forward in ``score``, the status is ``SUCCESSFUL`` and ``get_output``
+    equals what ``resume`` returned, a second ``resume`` returns it and
+    starts no step, and the virtual actor ``RunLedger`` (one write, one
+    ``@readonly`` read) holds exactly one finished run; kill -> resume is
+    split into driver start, the worker's start with torch, the CUDA
+    context, the build and the step; (c) the same weights and prompts
+    through the engine and the forward in this process: the workflow's
+    tokens equal bit for bit, its scores within ``TOL[bf16]`` relative to
+    max(1, |ref|).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it has
 the card's name and power limit, the one before that the kernels' record.
@@ -343,6 +371,7 @@ import dataclasses
 import gc
 import json
 import os
+import pickle
 import shutil
 import signal
 import subprocess
@@ -365,7 +394,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import ray_tpu_torch
-from ray_tpu_torch import _native, dashboard, job, serve
+from ray_tpu_torch import _native, dashboard, job, serve, workflow
 from ray_tpu_torch._private import chaos, events, shm_store
 from ray_tpu_torch._private.shm_store import shm_mapping_of
 from ray_tpu_torch.exceptions import OverloadedError
@@ -469,8 +498,11 @@ BF16_TOP2_MARGIN = 0.1
 QKV_GRAD_GAP = 0.15
 
 
+T_START = time.perf_counter()  # each phase's header shows the seconds since the script started
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def card_line() -> str:
@@ -4689,7 +4721,7 @@ LOGP_GAP_MAX = 0.15
 LOGP_GAP_MEAN = 0.05
 RATIO_GAP = 0.02
 RLHF_LR = 1e-4
-RLHF_ITERS = 3  # (b); 8 until phase 30 came, 4 until phase 31 came
+RLHF_ITERS = 2  # (b); 8 until phase 30 came, 4 until phase 31 came, 3 until phase 33 came
 PPO_ITERS = 3  # (c)
 PPO_TOL = 1e-5  # (c): one fp32 update on the card against the CPU's
 
@@ -5183,11 +5215,16 @@ def offline_part(card: str, storage: str) -> tuple:
     return bc, cql
 
 
-def async_part(card: str, label: str, config) -> dict:
+def async_build(config):
     """(e) IMPALA or APPO at its defaults with two env-runner actors at
     ``ENV_RUNNER_GPUS`` of the card and the learner in this process on the
-    card: 2 iterations; then the card-versus-CPU update on a sequence batch
-    from a runner."""
+    card."""
+    return config.environment("CartPole-v1").env_runners(num_env_runners=2).debugging(seed=RL_SEED).build()
+
+
+def async_part(card: str, label: str, algo) -> dict:
+    """(e) IMPALA or APPO (``async_build``): 2 iterations; then the
+    card-versus-CPU update on a sequence batch from a runner."""
     def check(algo, results):
         check_finite(label, results[-1], ("learner/loss", "learner/policy_loss", "learner/vf_loss"))
         steps = [r["num_env_steps_sampled"] for r in results]
@@ -5200,19 +5237,21 @@ def async_part(card: str, label: str, config) -> dict:
             algo.config.rollout_fragment_length, algo.config.gamma))
         return learner_gate(algo, batch, label, card)
 
-    return rl_part(label, card, lambda: config.environment("CartPole-v1").env_runners(
-        num_env_runners=2).debugging(seed=RL_SEED).build(), 2, check, gate)
+    return rl_part(label, card, lambda: algo, 2, check, gate)
 
 
-def es_part(card: str) -> dict:
+def es_build():
     """(f) ES at ``ESConfig``'s defaults over two env-runner actors on the
-    card: 2 iterations of 8 antithetic pairs."""
+    card."""
     from ray_tpu_torch.rl.algorithms.es import ES, ESConfig
 
-    def build():
-        cfg = ESConfig()
-        cfg.env, cfg.num_env_runners, cfg.seed = "CartPole-v1", 2, RL_SEED
-        return ES(cfg)
+    cfg = ESConfig()
+    cfg.env, cfg.num_env_runners, cfg.seed = "CartPole-v1", 2, RL_SEED
+    return ES(cfg)
+
+
+def es_part(card: str, algo) -> dict:
+    """(f) ES (``es_build``): 2 iterations of 8 antithetic pairs."""
 
     def check(algo, results):
         r = results[-1]
@@ -5222,7 +5261,7 @@ def es_part(card: str) -> dict:
         if not r["es_update_norm"] > 0 or not np.isfinite(algo._theta).all():
             raise AssertionError(f"(f): no update: {r}")
 
-    return rl_part("(f) ES, two runners", card, build, 2, check)
+    return rl_part("(f) ES, two runners", card, lambda: algo, 2, check)
 
 
 def dreamer_part(card: str) -> dict:
@@ -5340,9 +5379,18 @@ def rl_rest_on_card(card: str) -> dict:
         shutil.rmtree(storage, ignore_errors=True)
     ray_tpu_torch.init()
     try:
-        parts["IMPALA"] = async_part(card, "(e) IMPALA, two runners", IMPALAConfig())
-        parts["APPO"] = async_part(card, "(e) APPO, two runners", APPOConfig())
-        parts["ES"] = es_part(card)
+        # the three algorithms are built together, so their six runner
+        # actors come up side by side (0.6 of the card), then run in turn
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(3) as pool:
+            built = list(pool.map(lambda build: build(), (
+                lambda: async_build(IMPALAConfig()), lambda: async_build(APPOConfig()), es_build)))
+        build_s = time.perf_counter() - t0
+        print(f"(e)-(f) IMPALA, APPO and ES built side by side, two runner actors each at GPU "
+              f"{ENV_RUNNER_GPUS} [{card}]: {build_s:.1f} s")
+        parts["IMPALA"] = async_part(card, "(e) IMPALA, two runners", built[0])
+        parts["APPO"] = async_part(card, "(e) APPO, two runners", built[1])
+        parts["ES"] = es_part(card, built[2])
     finally:
         ray_tpu_torch.shutdown()
     parts["Dreamer"] = dreamer_part(card)
@@ -6116,10 +6164,358 @@ def cli_and_autoscaler(card: str) -> dict:
     return dict(k1=a["k1"] + b["k1"], seconds=time.perf_counter() - t_phase, a=a, b=b)
 
 
+# ---------------------------------------------------------------------------
+# phase 33: a durable GPT-124M workflow
+# ---------------------------------------------------------------------------
+
+WF_SEED = 33
+WF_REQUESTS, WF_NEW = 8, 32  # greedy requests of 64-256 prompt ids, new tokens each
+WF_ID = "gpt124m"
+WF_KILL_S = 20.0  # (a): the killed driver's processes must be gone within this
+# (a): the card's free memory after the kill may fall short of the level
+# before driver 1 by this much: this process's own CUDA context grows as the
+# in-process reference loads its kernels (by 0.20 GB on the H100), while the
+# killed GPU worker held GPT-124M, its KV pool and a context (over 1 GB)
+WF_FREE_SLACK = 512 << 20
+
+
+def wf_prompt_list() -> list:
+    """8 prompts of 64-256 ids over the whole vocabulary, numpy seed 33."""
+    rng = np.random.RandomState(WF_SEED)
+    return [[int(t) for t in rng.randint(0, GPT_124M.vocab_size, n)] for n in rng.randint(64, 257, WF_REQUESTS)]
+
+
+@ray_tpu_torch.remote
+def wf_prompts() -> list:
+    """The workflow's first step (CPU): ``wf_prompt_list()``."""
+    return wf_prompt_list()
+
+
+def wf_clocks_up() -> list:
+    """A GPU step's clocks: entering the step (the worker started and the
+    step's code, torch with it, loaded), then the card's context up."""
+    clocks = [time.time()]
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: phase 33's GPU steps run on the card only")
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    clocks.append(time.time())
+    return clocks
+
+
+def wf_weights():
+    return gpt_init(GPT_124M, torch.Generator(device="cuda").manual_seed(WF_SEED), "cuda")
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+def wf_generate(prompts: list) -> dict:
+    """``num_gpus=1``: GPT-124M (bf16, seed 33) in the paged engine with
+    phase 19's config, warmed up, then ``WF_NEW`` greedy tokens a prompt
+    (K1 in every decode step); the tokens as plain ints, with the K1 and
+    decode-step counts set to 0 just before and read just after, and the
+    step's clocks (entered, CUDA context, built, generated)."""
+    clocks = wf_clocks_up()
+    eng = LLMEngine(GPT_124M, wf_weights(), GPT_ENGINE)
+    eng.warmup()
+    torch.cuda.synchronize()
+    clocks.append(time.time())
+    paged_attention_cuda.launches = 0
+    eng.runner.launches = dict.fromkeys(eng.runner.launches, 0)
+    out = cli_generate(eng, prompts, WF_NEW)
+    torch.cuda.synchronize()
+    clocks.append(time.time())
+    return dict(prompts=prompts, tokens=out, k1=paged_attention_cuda.launches, decode=eng.runner.launches["decode"],
+                clocks=clocks, pid=os.getpid(), device=torch.cuda.get_device_name(0))
+
+
+def continuation_logprob(params, prompt: list, out: list) -> float:
+    """The summed logprob of ``out`` after ``prompt`` under teacher forcing:
+    one forward over prompt + out (flash attention, K3, on the card), fp32
+    log-softmax of the fp32 logits at the positions that predict ``out``."""
+    tokens = torch.tensor([prompt + out], device="cuda")
+    with torch.no_grad():
+        logits = gpt_forward(GPT_124M, params, tokens)[0, len(prompt) - 1 : -1].float()
+        return float(torch.log_softmax(logits, -1).gather(-1, tokens[0, len(prompt):, None]).sum())
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+def wf_score(generated: dict, go) -> dict:
+    """``num_gpus=1``: each continuation's summed logprob under the same
+    weights (``continuation_logprob``), with the K1 and K3 counts set to 0
+    just before and read just after, and the step's clocks (entered, CUDA
+    context, built, scored)."""
+    clocks = wf_clocks_up()
+    params = wf_weights()
+    torch.cuda.synchronize()
+    clocks.append(time.time())
+    paged_attention_cuda.launches = flash_fwd_cuda.launches = 0
+    scores = [continuation_logprob(params, p, o) for p, o in zip(generated["prompts"], generated["tokens"])]
+    torch.cuda.synchronize()
+    clocks.append(time.time())
+    return dict(scores=scores, k1=paged_attention_cuda.launches, k3=flash_fwd_cuda.launches, forwards=len(scores),
+                clocks=clocks, go=go, pid=os.getpid())
+
+
+@ray_tpu_torch.remote
+def wf_finish(generated: dict, scored: dict) -> dict:
+    """The continuation's one step (CPU): the workflow's output."""
+    return dict(generate=generated, score=scored)
+
+
+@ray_tpu_torch.remote
+def wf_summarize(generated: dict, scored: dict):
+    """The workflow's tail step: a continuation of one CPU step."""
+    return workflow.continuation(wf_finish.bind(generated, scored))
+
+
+def wf_dag():
+    """prompts -> generate -> score (with the "go" event) -> summarize."""
+    generated = wf_generate.bind(wf_prompts.bind())
+    return wf_summarize.bind(generated, wf_score.bind(generated, workflow.wait_for_event("go")))
+
+
+class RunLedger:
+    """Phase 33's virtual actor: the workflow runs that finished."""
+
+    def __init__(self):
+        self.runs = []
+
+    def record(self, workflow_id: str, tokens: int) -> int:
+        self.runs.append([workflow_id, tokens])
+        return len(self.runs)
+
+    @workflow.readonly
+    def finished(self) -> list:
+        return self.runs
+
+
+def wf_driver(mode: str, storage: str) -> int:
+    """A phase-33 driver, this script run as ``--workflow-driver run|resume
+    STORAGE`` in a process of its own with its own cluster (``init()``):
+    ``run`` starts the workflow (the phase kills it mid-way); ``resume``
+    resumes it, resumes it again, records the run in ``RunLedger`` and
+    prints a ``RESULT`` line."""
+    ray_tpu_torch.init()
+    up = time.time()
+    if mode == "run":
+        workflow.run(wf_dag(), workflow_id=WF_ID, storage=storage)
+        return 1  # the phase kills this driver before the workflow can finish
+    out = workflow.resume(WF_ID, storage=storage)
+    done = time.time()
+    n_events = len(workflow.get_events(WF_ID, storage))
+    again = workflow.resume(WF_ID, storage=storage)
+    ledger = workflow.virtual_actor(RunLedger).get_or_create("runs", storage=storage)
+    ledger.record(WF_ID, sum(len(t) for t in out["generate"]["tokens"]))
+    res = dict(out=out, up=up, done=done, again=again == out,
+               again_events=len(workflow.get_events(WF_ID, storage)) - n_events,
+               status=workflow.get_status(WF_ID, storage), output=workflow.get_output(WF_ID, storage) == out,
+               finished=workflow.get_actor("runs", RunLedger, storage=storage).finished())
+    ray_tpu_torch.shutdown()
+    print("RESULT " + json.dumps(res), flush=True)
+    return 0
+
+
+def session_pids(sid: int) -> list[int]:
+    """The live processes of session ``sid`` (a driver started with
+    ``start_new_session``: its head's template and workers stay in it)."""
+    pids = []
+    for name in os.listdir("/proc"):
+        if name.isdigit() and process_alive(int(name)):
+            try:
+                if os.getsid(int(name)) == sid:
+                    pids.append(int(name))
+            except OSError:
+                pass  # exited while listed
+    return pids
+
+
+def wf_reference(prompts: list) -> tuple:
+    """The workflow's path in this process: the same weights and prompts
+    through the engine (K1) and the forward (K3)."""
+    params = wf_weights()
+    eng = LLMEngine(GPT_124M, params, GPT_ENGINE)
+    eng.warmup()
+    tokens = cli_generate(eng, prompts, WF_NEW)
+    scores = [continuation_logprob(params, p, o) for p, o in zip(prompts, tokens)]
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tokens, scores
+
+
+def wf_kill(card: str, storage: str, env: dict, log: str, meanwhile) -> tuple:
+    """(a): driver 1 runs the workflow (``meanwhile()`` runs here as it
+    comes up); once ``generate``'s commit is in the event log it is
+    SIGKILLed, and every process of its session must be gone, the card's
+    compute apps and free memory back to what they were before it started
+    (this process's alone), and the status still ``RUNNING``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0, apps0 = torch.cuda.mem_get_info()[0], compute_apps()
+    t0 = time.time()
+    with open(log, "w") as f:
+        driver = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--workflow-driver", "run", storage],
+                                  stdout=f, stderr=subprocess.STDOUT, env=env, start_new_session=True)
+    try:
+        here = meanwhile()
+        deadline = time.monotonic() + 600
+        while True:
+            done = [e for e in workflow.get_events(WF_ID, storage)
+                    if e["type"] == "step_completed" and "_wf_generate_" in e["step_id"]]
+            if done:
+                break
+            if driver.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"(a) driver 1 exited {driver.poll()} before generate's commit:\n"
+                                     + Path(log).read_text()[-3000:])
+            time.sleep(0.02)
+        before_kill = session_pids(driver.pid)
+        os.kill(driver.pid, signal.SIGKILL)
+        t_kill = time.time()
+        driver.wait(timeout=30)
+        deadline = time.monotonic() + WF_KILL_S
+        while session_pids(driver.pid) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        left = session_pids(driver.pid)
+        gone_s = time.time() - t_kill
+    finally:
+        for pid in session_pids(driver.pid):
+            os.kill(pid, signal.SIGKILL)
+    while True:
+        apps, free = compute_apps(), torch.cuda.mem_get_info()[0]
+        if (len(apps) <= len(apps0) and free >= free0 - WF_FREE_SLACK) or time.time() - t_kill > WF_KILL_S:
+            break
+        time.sleep(0.1)
+    status = workflow.get_status(WF_ID, storage)
+    events = workflow.get_events(WF_ID, storage)
+    print(f"(a) driver 1 (pid {driver.pid}, its own cluster) ran workflow {WF_ID!r}; generate committed "
+          f"{done[0]['time'] - t0:.2f} s after its start; SIGKILL with {len(before_kill)} processes in its session "
+          f"({len(before_kill) - 1} of its head: template and workers); all gone {gone_s:.2f} s later "
+          f"({len(left)} left); status {status}; events so far "
+          f"{[(e['type'], e['step_id'].split('_', 1)[1].rsplit('_', 1)[0]) for e in events]}; card [{card}]: "
+          f"compute apps {len(apps0)} -> {len(apps)}, free {free0 / 1e9:.3f} -> {free / 1e9:.3f} GB")
+    if left:
+        raise AssertionError(f"(a) processes of the killed driver outlived it by {WF_KILL_S} s: {left}")
+    if len(apps) > len(apps0) or free < free0 - WF_FREE_SLACK:
+        raise AssertionError(f"(a) the killed driver's processes still hold the card: compute apps {apps} "
+                             f"(before {apps0}), free {free / 1e9:.3f} GB (before {free0 / 1e9:.3f} GB)")
+    if status != workflow.STATUS_RUNNING:
+        raise AssertionError(f"(a) status {status!r} after the kill, expected RUNNING")
+    return here, t0, t_kill, done[0]["time"] - t0
+
+
+def wf_resume(card: str, storage: str, env: dict, log: str, t_kill: float) -> dict:
+    """(b): the "go" event, then driver 2, a fresh process with a fresh
+    cluster, resumes: no ``generate`` starts again, K1 launches 0 times and
+    K3 once a layer a forward, ``SUCCESSFUL``, the output stored, a second
+    resume starts no step, one run in ``RunLedger``."""
+    workflow.send_event(WF_ID, "go", "go", storage=storage)
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--workflow-driver", "resume", storage],
+                          capture_output=True, text=True, env=env, timeout=600)
+    Path(log).write_text(proc.stdout + proc.stderr)
+    line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")), None)
+    if proc.returncode != 0 or line is None:
+        raise AssertionError(f"(b) driver 2 exited {proc.returncode}:\n{(proc.stdout + proc.stderr)[-3000:]}")
+    res = json.loads(line[len("RESULT "):])
+    out, sc = res["out"], res["out"]["score"]
+    after = [e for e in workflow.get_events(WF_ID, storage) if e["time"] > t_kill]
+    restarted = [e for e in after if e["type"] == "step_started" and "_wf_generate_" in e["step_id"]]
+    with open(os.path.join(storage, "virtual_actors", "runs", "state.pkl"), "rb") as f:
+        runs = pickle.load(f)["runs"]
+    c = sc["clocks"]
+    split = dict(total=res["done"] - t_kill, driver=res["up"] - t0, worker=c[0] - res["up"], cuda=c[1] - c[0],
+                 build=c[2] - c[1], step=c[3] - c[2])
+    print(f"(b) 'go' sent; driver 2 (a fresh process, its own cluster) resumed: kill -> resume returned "
+          f"{split['total']:.2f} s = driver 1 dead and the event sent {t0 - t_kill:.2f} s + driver start and init "
+          f"{split['driver']:.2f} s + graph load, event and the score worker's start with torch {split['worker']:.2f} s"
+          f" + CUDA context {split['cuda']:.2f} s + GPT-124M built {split['build']:.2f} s + {sc['forwards']} "
+          f"forwards {split['step']:.2f} s + the continuation {res['done'] - c[3]:.2f} s; events after the kill "
+          f"{[(e['type'], e['step_id'].split('_', 1)[1].rsplit('_', 1)[0]) for e in after]}; status "
+          f"{res['status']}; get_output equal {res['output']}; a second resume equal {res['again']}, "
+          f"{res['again_events']} events; RunLedger {runs}; score [{card}]: K1 {sc['k1']}, K3 {sc['k3']} = "
+          f"{GPT_124M.n_layers} x {sc['forwards']} forwards")
+    if restarted:
+        raise AssertionError(f"(b) generate started again after the kill: {restarted}")
+    if sc["k1"] != 0 or sc["k3"] != GPT_124M.n_layers * sc["forwards"] or sc["forwards"] != WF_REQUESTS:
+        raise AssertionError(f"(b) driver 2 launched K1 {sc['k1']} times and K3 {sc['k3']} over {sc['forwards']} "
+                             f"forwards (expected 0 and {GPT_124M.n_layers} a forward)")
+    if sc["go"] != "go":
+        raise AssertionError(f"(b) the score step got the event payload {sc['go']!r}, not 'go'")
+    if res["status"] != workflow.STATUS_SUCCESSFUL or not res["output"]:
+        raise AssertionError(f"(b) status {res['status']}, get_output equal to resume's: {res['output']}")
+    if workflow.get_output(WF_ID, storage) != out:
+        raise AssertionError("(b) the stored output differs from what resume returned")
+    if not res["again"] or res["again_events"] != 0:
+        raise AssertionError(f"(b) a second resume: equal {res['again']}, {res['again_events']} new events")
+    if runs != [[WF_ID, WF_REQUESTS * WF_NEW]] or res["finished"] != runs:
+        raise AssertionError(f"(b) RunLedger holds {runs} (its readonly read {res['finished']})")
+    return dict(out, split=split)
+
+
+def workflow_on_card(card: str) -> dict:
+    """Phase 33: a durable GPT-124M workflow killed after ``generate``'s
+    commit (``wf_kill``) and resumed by a fresh driver (``wf_resume``),
+    held against the same path in this process (``wf_reference``)."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase33_")
+    storage = os.path.join(tmp, "wf")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(ray_tpu_torch.__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+
+    def reference():
+        t0 = time.perf_counter()
+        return (*wf_reference(wf_prompt_list()), time.perf_counter() - t0)
+
+    try:
+        here, t_run, t_kill, commit_s = wf_kill(card, storage, env, os.path.join(tmp, "driver1.log"), reference)
+        out = wf_resume(card, storage, env, os.path.join(tmp, "driver2.log"), t_kill)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want_tokens, want_scores, ref_s = here
+    gen, scores = out["generate"], out["score"]["scores"]
+    gaps = [abs(g - w) / max(1.0, abs(w)) for g, w in zip(scores, want_scores)]
+    equal = sum(g == w for g, w in zip(gen["tokens"], want_tokens))
+    print(f"(c) against this process [{card}] (the same weights, prompts and kernels; built and run here in "
+          f"{ref_s:.2f} s while driver 1 came up): {equal}/{WF_REQUESTS} requests' {WF_NEW} tokens equal bit for bit; "
+          f"scores {[round(x, 3) for x in scores]}, largest gap {max(gaps):.3e} relative to max(1, |ref|) "
+          f"(limit {TOL[torch.bfloat16]}); generate (driver 1, pid {gen['pid']}, {gen['device']}): K1 {gen['k1']} "
+          f"= {GPT_124M.n_layers} x {gen['decode']} decode steps; driver 1's start to generate's commit {commit_s:.2f} "
+          f"s = driver start, init, prompts and the generate worker's start with torch "
+          f"{gen['clocks'][0] - t_run:.2f} s + CUDA context {gen['clocks'][1] - gen['clocks'][0]:.2f} s + GPT-124M "
+          f"built and warmed up {gen['clocks'][2] - gen['clocks'][1]:.2f} s + generated "
+          f"{gen['clocks'][3] - gen['clocks'][2]:.2f} s + the commit")
+    if equal != WF_REQUESTS or any(len(t) != WF_NEW for t in gen["tokens"]):
+        raise AssertionError(f"(c) the workflow's tokens differ from this process's in "
+                             f"{WF_REQUESTS - equal} of {WF_REQUESTS} requests")
+    if not all(np.isfinite(scores)) or max(gaps) > TOL[torch.bfloat16]:
+        raise AssertionError(f"(c) scores {scores} against this process's {want_scores}")
+    if gen["k1"] <= 0 or gen["k1"] != GPT_124M.n_layers * gen["decode"]:
+        raise AssertionError(f"(c) generate launched K1 {gen['k1']} times over {gen['decode']} decode steps")
+    return dict(k1=gen["k1"], k3=out["score"]["k3"], commit_s=commit_s, split=out["split"],
+                seconds=time.perf_counter() - t_phase)
+
+
+def share_bytecode() -> str:
+    """Gives this process and every process it starts (workers, drivers,
+    CLI processes: they inherit the environment) one bytecode cache in the
+    checkout's git-ignored ``ray_tpu_torch/_build/pycache``. Where the
+    interpreter is told to write no bytecode (``PYTHONDONTWRITEBYTECODE``)
+    and the installed packages ship none, each fresh process compiles torch
+    (and sympy, under ``torch._dynamo``) from source; ``chip_start_probe.py``
+    times both ways."""
+    path = os.path.join(os.path.dirname(os.path.abspath(ray_tpu_torch.__file__)), "_build", "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = path
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = path
+    return path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
+    share_bytecode()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -6271,6 +6667,14 @@ def main() -> int:
           f"{cli['b']['scale_up_s']:.2f} s, actor ready {cli['b']['ready_s']:.2f} s, scale-down "
           f"{cli['b']['down_s']:.2f} s)")
 
+    phase("33 a durable GPT-124M workflow")
+    wf = workflow_on_card(card)
+    sp = wf["split"]
+    print(f"phase 33 [{card}]: {wf['seconds']:.1f} s (driver 1's start to generate's commit {wf['commit_s']:.2f} s; "
+          f"kill -> resume returned {sp['total']:.2f} s: driver start {sp['driver']:.2f} s, the score worker's start "
+          f"with torch {sp['worker']:.2f} s, CUDA context {sp['cuda']:.2f} s, build {sp['build']:.2f} s, step "
+          f"{sp['step']:.2f} s)")
+
     kernels = [
         dict(
             name="paged_decode_attention",
@@ -6279,7 +6683,7 @@ def main() -> int:
             replaces="ray_tpu/ops/paged_attention.py:203",
             launches=(served["launches"] + gpt_served["k1"] + swapped["launches"] + production["k1"]
                       + runtime["k1"] + served24["k1_gptj"] + served24["k1_gpt"] + rl["k1"] + ops["k1"]
-                      + cli["k1"]),
+                      + cli["k1"] + wf["k1"]),
             max_abs_err=err,
             ms=timing["ms"],
             plain_ms=timing["plain_ms"],
@@ -6293,7 +6697,7 @@ def main() -> int:
                               "gptj_6b_serve_replica": served24["k1_gptj"],
                               "gpt_124m_serve_failover": served24["k1_gpt"],
                               "gpt_124m_rlhf_rollouts": rl["k1"], "gpt_124m_job": ops["k1"],
-                              "gpt_124m_cli_actors": cli["k1"]},
+                              "gpt_124m_cli_actors": cli["k1"], "gpt_124m_workflow": wf["k1"]},
             at_head_dim_64=dict(timing64, bound_by="bytes"),
         ),
         dict(
@@ -6325,7 +6729,8 @@ def main() -> int:
                    "gpt_124m_tune_pbt": tuned["pbt"][i],
                    "gpt_124m_tuner_over_trainer": tuned["inner"][i],
                    "gpt_124m_rlhf_learner": rl["flash"][i],
-                   "gpt_124m_actor_pool": (ops["k3"], 0, 0)[i]}
+                   "gpt_124m_actor_pool": (ops["k3"], 0, 0)[i],
+                   "gpt_124m_workflow": (wf["k3"], 0, 0)[i]}
         kernels.append(dict(
             name=kernel_name,
             route="cuda",
@@ -6344,4 +6749,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--workflow-driver"]:  # phase 33's drivers
+        sys.exit(wf_driver(*sys.argv[2:4]))
     sys.exit(main())

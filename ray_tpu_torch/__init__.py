@@ -70,6 +70,10 @@ Ported so far:
   grafana, status, stacks, profile, node-stats, job), where ``start
   --head`` registers the host's cards as ``GPU``. None of them imports
   torch.
+- durable workflows (``workflow``): ``run``/``resume`` of a ``dag`` graph
+  with every finished step checkpointed to storage, continuations, durable
+  events and virtual actors (transactions on the head's leased mutex). It
+  imports no torch.
 
 ROADMAP.md lists what is still to port.
 
@@ -107,7 +111,7 @@ __version__ = "0.1.0"
 _LAZY_SUBMODULES = {
     "llm", "models", "ops", "parallel", "util", "accelerators",
     "cluster_utils", "dag", "experimental", "serve", "obs", "train", "collective", "data",
-    "tune", "rl", "rlhf", "job", "dashboard",
+    "tune", "rl", "rlhf", "job", "dashboard", "workflow",
 }
 
 #: names exported from the heavy subpackages, loaded on first access

@@ -252,6 +252,13 @@ def loads(data: bytes) -> Any:
     return pickle.loads(data)
 
 
+def dumps_with_tensors(value: Any) -> bytes:
+    """Fully in-band cloudpickle with the tensor reduction: bytes a file can
+    hold (workflow checkpoints), read back by ``pickle.loads``, whose tensors
+    arrive as the object plane's do (module doc)."""
+    return _dumps(_TensorCloudPickler, value, None)
+
+
 def conn_send(conn, msg) -> None:
     """Control-plane message send: one-shot C ``pickle.dumps`` straight
     into the connection. ``Connection.send`` builds a ForkingPickler plus

@@ -293,9 +293,12 @@ def _recv_loop(conn, ctx: WorkerContext, state: WorkerState):
                     conn = newconn
                     reader = ser.ConnReader(conn)
                     continue
-            state.running = False
-            state.task_queue.put(None)
-            return
+            # the head is gone (its driver died): no result of a task here
+            # can reach anyone, so the process ends now, not after a
+            # running task — a task on the card would hold it for nothing
+            if _prof_exit is not None:
+                _prof_exit()
+            os._exit(0)
         kind = msg[0]
         if kind == "run_task":  # hottest message first (one per task)
             spec = _rehydrate_spec(state, msg[1])

@@ -4,6 +4,7 @@ asks for the CPU."""
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 
 def resolve_device(device=None) -> torch.device:
@@ -19,3 +20,23 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def materialize(module: nn.Module, device) -> nn.Module:
+    """``module.to_empty(device=device)`` for a module built on the meta
+    device: every parameter and buffer becomes an uninitialised tensor on
+    ``device``, registered in its place (order, dtype and ``requires_grad``
+    kept). ``to_empty`` calls ``torch.empty_like`` on each meta tensor,
+    which goes through ``torch._refs`` and, in torch 2.11 with a CUDA
+    target, imports sympy: seconds in every fresh process that builds a
+    model."""
+    for mod in module.modules():
+        for name, p in mod._parameters.items():
+            if p is not None:
+                mod._parameters[name] = nn.Parameter(
+                    torch.empty(p.shape, dtype=p.dtype, device=device), p.requires_grad
+                )
+        for name, b in mod._buffers.items():
+            if b is not None:
+                mod._buffers[name] = torch.empty(b.shape, dtype=b.dtype, device=device)
+    return module

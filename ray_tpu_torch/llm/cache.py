@@ -39,6 +39,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ray_tpu_torch.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class CacheConfig:
@@ -63,7 +65,8 @@ class CacheConfig:
 
 
 class KVBlockPool:
-    """The pool: device tensors + thread-safe host ledger."""
+    """The pool: device tensors + thread-safe host ledger. ``device=None``
+    means the CUDA device (``device.resolve_device``)."""
 
     def __init__(
         self,
@@ -72,9 +75,10 @@ class KVBlockPool:
         n_heads: int,
         head_dim: int,
         dtype: torch.dtype = torch.float32,
-        device="cpu",
+        device=None,
     ):
         self.cfg = cfg
+        device = resolve_device(device)
         shape = (n_layers, cfg.num_blocks, n_heads, cfg.block_size, head_dim)
         self.k = torch.zeros(shape, dtype=dtype, device=device)
         self.v = torch.zeros(shape, dtype=dtype, device=device)

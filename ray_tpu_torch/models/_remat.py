@@ -72,8 +72,11 @@ def remat_block(cfg, x, block: Callable):
     """``block(x)`` under ``cfg.remat`` and ``cfg.remat_policy`` (checked
     by the caller). ``block`` is bound to its layer already
     (``functools.partial``, not a closure over a loop variable: the
-    backward calls it again after the loop)."""
-    if not cfg.remat:
+    backward calls it again after the loop). With grad off there is no
+    backward to recompute for, so the block runs plain (and the first
+    ``checkpoint`` call's import of ``torch._dynamo``, seconds in a fresh
+    process, is not paid for a forward)."""
+    if not cfg.remat or not torch.is_grad_enabled():
         return block(x)
     policy = cfg.remat_policy
     # the blocks draw no random numbers: no RNG state to stash and restore

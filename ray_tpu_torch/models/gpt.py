@@ -46,9 +46,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.device import materialize, resolve_device
 from ray_tpu_torch.models._remat import check_policy, kept_gelu, kept_linear, remat_block
-from ray_tpu_torch.models.gptj import LayerNorm, _attend_cached
+from ray_tpu_torch.models.gptj import LayerNorm, _attend_cached, embedding
 from ray_tpu_torch.models.sampling import pick_tokens
 from ray_tpu_torch.ops.attention import causal_attention
 from ray_tpu_torch.ops.fused_ce import fused_softmax_cross_entropy
@@ -136,8 +136,8 @@ class GPT(nn.Module):
         super().__init__()
         _check_supported(cfg)
         d = cfg.d_model
-        self.embed = nn.Embedding(cfg.vocab_size, d, device=device)
-        self.pos_embed = nn.Embedding(cfg.seq_len, d, device=device)
+        self.embed = embedding(cfg.vocab_size, d, device)
+        self.pos_embed = embedding(cfg.seq_len, d, device)
         self.blocks = nn.ModuleList(GPTBlock(cfg, device) for _ in range(cfg.n_layers))
         self.ln_f = LayerNorm(d, device)
         self.lm_head = nn.Linear(d, cfg.vocab_size, bias=False, device=device)
@@ -146,7 +146,7 @@ class GPT(nn.Module):
 def _empty_model(cfg: GPTConfig, device) -> GPT:
     # built on the meta device first: nn.Linear's own init would otherwise
     # draw and then discard every weight
-    return GPT(cfg, device="meta").to_empty(device=device)
+    return materialize(GPT(cfg, device="meta"), device)
 
 
 @torch.no_grad()

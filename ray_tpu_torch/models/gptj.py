@@ -36,7 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.device import materialize, resolve_device
 from ray_tpu_torch.models._remat import check_policy, remat_block
 from ray_tpu_torch.models.sampling import pick_tokens
 from ray_tpu_torch.ops.attention import causal_attention
@@ -115,13 +115,21 @@ class GPTJBlock(nn.Module):
         return self.mlp_out(F.gelu(self.mlp_in(h), approximate="tanh"))
 
 
+def embedding(num: int, dim: int, device=None, dtype=None) -> nn.Embedding:
+    """An ``nn.Embedding`` whose weight is left uninitialised, as the model
+    builders overwrite it. ``nn.Embedding``'s own N(0, 1) draw on the meta
+    device goes through ``torch._refs``, whose first call imports
+    ``torch._dynamo``: seconds in every fresh process that builds a model."""
+    return nn.Embedding(num, dim, _weight=torch.empty(num, dim, device=device, dtype=dtype))
+
+
 class GPTJ(nn.Module):
     """GPT-J parameters. Build it with ``gptj_init`` or ``params_from_jax``."""
 
     def __init__(self, cfg: GPTJConfig, device=None):
         super().__init__()
         d = cfg.d_model
-        self.embed = nn.Embedding(cfg.vocab_size, d, device=device, dtype=cfg.torch_dtype)
+        self.embed = embedding(cfg.vocab_size, d, device, cfg.torch_dtype)
         self.blocks = nn.ModuleList(GPTJBlock(cfg, device) for _ in range(cfg.n_layers))
         self.ln_f = LayerNorm(d, device)
         self.lm_head = nn.Linear(d, cfg.vocab_size, device=device, dtype=torch.float32)
@@ -134,7 +142,7 @@ class GPTJ(nn.Module):
 def _empty_model(cfg: GPTJConfig, device) -> GPTJ:
     # built on the meta device first: nn.Linear's own init would otherwise
     # draw and then discard every weight of a multi-GB model
-    return GPTJ(cfg, device="meta").to_empty(device=device).requires_grad_(False)
+    return materialize(GPTJ(cfg, device="meta"), device).requires_grad_(False)
 
 
 @torch.no_grad()

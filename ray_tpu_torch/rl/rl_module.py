@@ -38,7 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.device import materialize, resolve_device
 from ray_tpu_torch.rl.learner import tree_leaf
 from ray_tpu_torch.rl.spaces import Box, Discrete, Space
 
@@ -168,7 +168,7 @@ class ActorCriticModule(nn.Module):
         encoder, as the reference splits its key) and place them on
         ``device`` (``None``: the card). Returns the module."""
         dev = resolve_device(device)
-        self.to_empty(device=generator.device)
+        materialize(self, generator.device)
         self.pi.draw(generator)
         self.v.draw(generator)
         if self.enc is not None:
@@ -249,7 +249,7 @@ class QModule(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator, device=None) -> "QModule":
         dev = resolve_device(device)
-        self.to_empty(device=generator.device)
+        materialize(self, generator.device)
         self.q.draw(generator)
         self.target_q.load_state_dict(self.q.state_dict())
         return self.to(dev)
@@ -276,7 +276,7 @@ def params_from_jax(tree: dict, spec, device=None) -> nn.Module:
     ``device=None`` means the card."""
     dev = resolve_device(device)
     module = ActorCriticModule(spec) if isinstance(spec, RLModuleSpec) else spec
-    module.to_empty(device="cpu")
+    materialize(module, "cpu")
     for name, p in module.named_parameters():
         p.copy_(torch.tensor(np.asarray(tree_leaf(tree, name), np.float32)))
     return module.to(dev)
@@ -338,7 +338,7 @@ class SACModule(_BoxBounds, nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator, device=None) -> "SACModule":
         dev = resolve_device(device)
-        self.to_empty(device=generator.device)
+        materialize(self, generator.device)
         self.pi.draw(generator)
         self.q1.draw(generator)
         self.q2.draw(generator)
@@ -406,7 +406,7 @@ class TD3Module(_BoxBounds, nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator, device=None) -> "TD3Module":
         dev = resolve_device(device)
-        self.to_empty(device=generator.device)
+        materialize(self, generator.device)
         for src, dst in (("pi", "target_pi"), ("q1", "target_q1"), ("q2", "target_q2")):
             if getattr(self, src) is not None:
                 getattr(self, src).draw(generator)
@@ -471,7 +471,7 @@ class DreamerModule(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator, device=None) -> "DreamerModule":
         dev = resolve_device(device)
-        self.to_empty(device=generator.device)
+        materialize(self, generator.device)
         for name in self.WORLD_MODEL + ("pi", "v"):
             getattr(self, name).draw(generator)
         self.v_target.load_state_dict(self.v.state_dict())

@@ -1,5 +1,5 @@
 """The port stands alone: ray_tpu_torch and the chip scripts (chip_smoke.py,
-chip_mutants.py, chip_flash_probe.py) import nothing of JAX or of the JAX package, and the port's entry points never fall back to
+chip_mutants.py, chip_flash_probe.py, chip_start_probe.py) import nothing of JAX or of the JAX package, and the port's entry points never fall back to
 the CPU when the card is missing. No port file names a ``ray_tpu.`` module in
 a string (the runtime spawns its workers and template by module name, which
 an import scan cannot see), and a worker under ``ray_tpu_torch.init()`` loads
@@ -20,7 +20,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ray_tpu"}
 
 
 def _port_files():
-    chip = ("chip_smoke.py", "chip_mutants.py", "chip_flash_probe.py")
+    chip = ("chip_smoke.py", "chip_mutants.py", "chip_flash_probe.py", "chip_start_probe.py")
     return sorted((REPO / "ray_tpu_torch").rglob("*.py")) + [REPO / name for name in chip]
 
 
@@ -255,6 +255,86 @@ def test_autoscaler_and_cli_load_no_jax_and_no_torch():
     assert proc.returncode == 0 and "node-stats" in proc.stdout, proc.stdout + proc.stderr
 
 
+def test_workflow_loads_no_jax_and_no_torch():
+    """``workflow`` and ``workflow.virtual_actor`` load neither JAX, the JAX
+    package nor torch — on import, and when a driver runs a workflow with a
+    checkpointed step, an event and a virtual actor's transaction."""
+    code = (
+        "import sys, tempfile\n"
+        "import ray_tpu_torch\n"
+        "from ray_tpu_torch import workflow\n"
+        "import ray_tpu_torch.workflow.virtual_actor\n"
+        "ray_tpu_torch.init(num_cpus=2, num_gpus=0)\n"
+        "storage = tempfile.mkdtemp()\n"
+        "add = ray_tpu_torch.remote(lambda a, b: a + b)\n"
+        "workflow.send_event('w', 'go', 2, storage=storage)\n"
+        "assert workflow.run(add.bind(40, workflow.wait_for_event('go')), workflow_id='w', storage=storage) == 42\n"
+        "class Box:\n"
+        "    def __init__(self):\n"
+        "        self.v = 0\n"
+        "    def put(self, v):\n"
+        "        self.v = v\n"
+        "        return v\n"
+        "assert workflow.virtual_actor(Box).get_or_create('b', storage=storage).put(7) == 7\n"
+        "ray_tpu_torch.shutdown()\n"
+        "heavy = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu', 'torch'))\n"
+        "print(heavy); sys.exit(1 if heavy else 0)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("name", ["workflow", "workflow.virtual_actor"])
+def test_workflow_exports_the_reference_names(name):
+    """The port's workflow modules define the reference's public names (the
+    modules they import aside)."""
+    import importlib
+    import inspect
+
+    def public(mod):
+        return {n for n in dir(mod) if not n.startswith("_") and not inspect.ismodule(getattr(mod, n))}
+
+    ref = public(importlib.import_module(f"ray_tpu.{name}"))
+    port = public(importlib.import_module(f"ray_tpu_torch.{name}"))
+    assert port == ref
+    assert {"run", "resume", "virtual_actor", "readonly", "get_actor"} & ref
+
+
+def test_building_and_serving_a_model_imports_no_dynamo():
+    """A fresh process that builds GPT, GPT-J and an RL module, serves from
+    the paged engine and runs a forward without grad never imports
+    ``torch._dynamo`` or sympy (seconds of a GPU worker's start): modules
+    built on the meta device are materialized without ``to_empty``, the
+    embeddings skip their own init draw, and a block runs unchecked when
+    there is no backward."""
+    code = (
+        "import sys, torch\n"
+        "from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams\n"
+        "from ray_tpu_torch.models.gpt import GPTConfig, gpt_forward, gpt_init\n"
+        "from ray_tpu_torch.models.gptj import GPTJConfig, gptj_init\n"
+        "cfg = GPTConfig(vocab_size=128, seq_len=64, d_model=64, n_layers=2, n_heads=1, dtype='float32')\n"
+        "p = gpt_init(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+        "gptj_init(GPTJConfig(vocab_size=64, d_model=16, n_layers=1, n_heads=2, rotary_dim=4), torch.Generator(), 'cpu')\n"
+        "eng = LLMEngine(cfg, p, EngineConfig(max_slots=2, num_blocks=16, block_size=4, max_blocks_per_seq=8,\n"
+        "                                     prefill_chunk=8), device='cpu')\n"
+        "eng.warmup(); eng.generate([1, 2, 3], SamplingParams(max_tokens=3, temperature=0.0))\n"
+        "with torch.no_grad():\n"
+        "    gpt_forward(cfg, p, torch.zeros(1, 8, dtype=torch.long))\n"
+        "assert cfg.remat and p.embed.weight.requires_grad\n"
+        "from ray_tpu_torch.rl.rl_module import ActorCriticModule, RLModuleSpec\n"
+        "from ray_tpu_torch.rl.spaces import Box, Discrete\n"
+        "ActorCriticModule(RLModuleSpec(Box(-1, 1, shape=(4,)), Discrete(2))).init(torch.Generator(), 'cpu')\n"
+        "loaded = sorted(m for m in sys.modules if m.startswith(('torch._dynamo', 'sympy')))\n"
+        "print(loaded[:5]); sys.exit(1 if loaded else 0)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_rl_and_rlhf_entry_points_without_device_need_cuda(monkeypatch):
     """A learner, an env runner, an RL module and a rollout worker with no
     device mean the card: without a GPU they raise, never sampling or
@@ -313,8 +393,9 @@ def test_chip_smoke_sends_its_runtime_code_by_value():
     """On the card ``chip_smoke.py`` runs as ``__main__``, so the functions
     and classes it hands the runtime's workers (phase 23's GPU task, phase
     25's train loop and collective member, phase 28's trainable and train
-    loop, phase 29's rollout worker and reward, phase 32's actor) travel by cloudpickle's value path, which must be able to carry
-    every global they name."""
+    loop, phase 29's rollout worker and reward, phase 32's actor, phase
+    33's workflow steps and virtual actor) travel by cloudpickle's value
+    path, which must be able to carry every global they name."""
     code = (
         "import sys, cloudpickle\n"
         "sys.path.insert(0, '.')\n"
@@ -322,7 +403,8 @@ def test_chip_smoke_sends_its_runtime_code_by_value():
         "cloudpickle.register_pickle_by_value(cs)\n"
         "for obj in (cs.train_loop_406m, cs.CollectiveMember, cs.k1_in_a_gpu_task, cs.GPTEngineHost,\n"
         "            cs.gpt_124m_trainable, cs.gpt_124m_train_loop, cs.CardRolloutWorker, cs.low_id_reward,\n"
-        "            cs.CLIEngineHost):\n"
+        "            cs.CLIEngineHost, cs.wf_prompts, cs.wf_generate, cs.wf_score, cs.wf_summarize,\n"
+        "            cs.wf_finish, cs.RunLedger, cs.wf_dag()):\n"
         "    cloudpickle.dumps(obj)\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}
@@ -375,6 +457,20 @@ def test_engine_without_device_needs_cuda(monkeypatch):
     again = params_from_jax(tree, cfg, "cpu")
     for (name, a), b in zip(params.named_parameters(), again.parameters()):
         assert b.device.type == "cpu" and torch.equal(a, b), name
+
+
+def test_kv_block_pool_without_device_needs_cuda(monkeypatch):
+    """``KVBlockPool``, exported from ``llm``, means the card without a
+    device, as every entry point does: without a GPU it raises, and it is
+    built on the CPU only when asked."""
+    from ray_tpu_torch.llm import CacheConfig, KVBlockPool
+
+    cfg = CacheConfig(num_blocks=4, block_size=2, max_blocks_per_seq=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KVBlockPool(cfg, n_layers=1, n_heads=1, head_dim=4)
+    pool = KVBlockPool(cfg, n_layers=1, n_heads=1, head_dim=4, device="cpu")
+    assert pool.k.device.type == "cpu" and pool.v.device.type == "cpu"
 
 
 def test_gptj_init_refuses_a_generator_on_another_device(monkeypatch):

@@ -236,12 +236,12 @@ def test_drafter_factory_and_gpt_draft_config(draft_params):
 def test_prefix_cache_paths_match_reference():
     """The same inserts and matches on both sides leave the same
     most-recently-used root-to-leaf paths."""
-    def build(cfg_cls, pool_cls, cache_cls):
+    def build(cfg_cls, pool_cls, cache_cls, **device):
         pool = pool_cls(cfg_cls(num_blocks=24, block_size=4, max_blocks_per_seq=8),
-                        n_layers=1, n_heads=1, head_dim=4)
+                        n_layers=1, n_heads=1, head_dim=4, **device)
         return pool, cache_cls(pool)
 
-    sides = [build(CacheConfig, KVBlockPool, PrefixCache),
+    sides = [build(CacheConfig, KVBlockPool, PrefixCache, device="cpu"),
              build(RefCacheConfig, RefKVBlockPool, RefPrefixCache)]
     head = _prompt(8, seed=50)
     seqs = [head + _prompt(8, seed=51), head + _prompt(6, seed=52), _prompt(12, seed=53),
