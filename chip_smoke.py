@@ -31,8 +31,11 @@ and an ``ActorPool``) over a GPT-124M serving job; and ``python -m
 ray_tpu_torch`` (``start``, ``up``, ``down``, ``status`` and the state
 commands) with a GPT-124M actor on the CLI's head and on a GPU node that
 the autoscaler buys on demand; and a durable GPT-124M workflow whose driver
-is killed after its decode step and which a fresh driver resumes. Phases,
-each of which raises on failure:
+is killed after its decode step and which a fresh driver resumes; and the
+406M shape trained on a device mesh (``ray_tpu_torch.parallel``) over an
+NCCL group of one card, through the one-process step and a
+``TorchTrainer`` worker, with a sharded checkpoint. Phases, each of which
+raises on failure:
 
 1. device: name, compute capability, power limit;
 2. build: the three kernel sources, in parallel, and their ``-Xptxas -v`` register /
@@ -50,8 +53,8 @@ each of which raises on failure:
    greedy and seeded-sampled requests; checks the pool audit, the kernel's
    launch count and every greedy token against the dense forward;
 7. decode profile: device busy time of a steady 8-slot decode step by
-   kernel, against its wall time without the profiler, and the host time
-   of the step's Gumbel noise;
+   kernel (``PROFILE_STEPS`` steps), against its wall time without the
+   profiler, and the host time of the step's Gumbel noise;
 8. K2 (paged verify attention) vs its plain version, fp32 and bf16, head
    dims 64, 128 and 256, windows 1-9, 16, 17 and 33 (an inactive slot, a
    window straddling a block edge, one straddling a split edge, one past
@@ -357,7 +360,26 @@ each of which raises on failure:
     context, the build and the step; (c) the same weights and prompts
     through the engine and the forward in this process: the workflow's
     tokens equal bit for bit, its scores within ``TOL[bf16]`` relative to
-    max(1, |ref|).
+    max(1, |ref|);
+34. GPT-406M on a device mesh (``ray_tpu_torch.parallel``): (e) first,
+    ``fit_report(TRAIN_406M, n_devices=8, batch=8)`` on the card, rank 0 of
+    an fsdp-8 step under a fake process group: ``argument_bytes`` equals
+    the rule table's local shards (parameters and two Adam moments),
+    ``per_chip_bytes`` (``max_memory_allocated`` over the step) lies above
+    it and below the card's memory, and no group is left; then an NCCL
+    mesh of one card (``make_mesh(MeshConfig())``): (a) phase 17's model
+    and batch through ``build_train_step(..., mesh)`` and the one-device
+    step, a step of each in turns, 4 each: every parameter and Adam moment
+    a ``DTensor`` on the mesh, both runs' losses equal to phase 17's bit
+    for bit, step time, tokens/s, MFU and peak memory of each; (b) K3/K4/K5
+    24 each a mesh step and the plain attention never called; (c)
+    ``mesh_allreduce`` of integer-valued fp32 on the card equal to
+    ``sum/prod/amin/amax(0)`` exactly, for each ``ReduceOp``; (d) a
+    ``TorchTrainer`` GPU worker under ``TorchConfig(init_distributed=True)``
+    trains the 406M width at 4 layers on its own NCCL mesh for 2 steps and
+    reports ``save_pytree_checkpoint`` of the sharded state; a second
+    ``fit`` restores it into a fresh sharded state and takes one step, its
+    loss equal bit for bit to this process's third step of the same run.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it has
 the card's name and power limit, the one before that the kernels' record.
@@ -389,6 +411,7 @@ from types import SimpleNamespace
 import h11  # noqa: F401
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -430,7 +453,10 @@ from ray_tpu_torch.ops.paged_attention import (
     paged_verify_attention_cuda,
     verify_partials_torch,
 )
-from ray_tpu_torch.parallel import adamw, build_train_step
+from ray_tpu_torch.ops import attention as attention_mod
+from ray_tpu_torch.ops import flash_attention as flash_mod
+from ray_tpu_torch.parallel import MeshConfig, adamw, build_train_step, make_mesh
+from ray_tpu_torch.parallel.sharding import param_mesh
 from ray_tpu_torch.rl import PPOConfig, SampleBatch
 from ray_tpu_torch.rl.algorithm import ENV_RUNNER_GPUS
 from ray_tpu_torch.rl.algorithms.ppo import ppo_loss
@@ -1120,6 +1146,12 @@ def noise_host_ms(eng: LLMEngine, reqs) -> tuple[float, float]:
     return ms(temp), ms([0.0] * len(reqs))
 
 
+#: the steps phases 7, 12 and 20 time without the profiler, and as many with
+#: it (10 until phase 34 came: the profiler's processing of its events took
+#: most of those phases' 17-25 s)
+PROFILE_STEPS = 3
+
+
 def profile_steps(eng: LLMEngine, steps: int, before_step=lambda: None):
     """``steps`` engine steps timed without the profiler (the wall time an
     idle share is read against: the profiler slows the host), then ``steps``
@@ -1189,7 +1221,7 @@ def profile_decode(eng: LLMEngine, card: str, label: str = "decode profile") -> 
     after a 512-token prompt (half greedy, half sampled); device time by
     kernel against the step's wall time without the profiler."""
     reqs = steady_batch(eng, 64)
-    steps = 10
+    steps = PROFILE_STEPS
     wall_ms, prof_wall_ms, kernels = profile_steps(eng, steps)
     if not all(r.state == RUNNING for r in reqs):
         raise AssertionError("decode profile: a request finished inside the timed steps")
@@ -1459,7 +1491,7 @@ def profile_verify(eng: LLMEngine, card: str, label: str = "verify profile") -> 
     step's wall time without the profiler."""
     eng._drafter = ConfidentDrafter(eng.cfg.spec_k)
     reqs = steady_batch(eng, 256)
-    steps = 10
+    steps = PROFILE_STEPS
     before = dict(eng.runner.launches)
 
     def hold_off_backoff():
@@ -5582,11 +5614,17 @@ def ops_cli(card: str, tmp: str, env: dict, decode_count: int) -> None:
     metrics.sample_series_now()
     metrics.flush()
     try:
-        procs = [subprocess.Popen([sys.executable, "-m", "ray_tpu_torch.obs", *c], stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True,
+        procs = [subprocess.Popen([sys.executable, "-X", "faulthandler", "-m", "ray_tpu_torch.obs", *c],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                                   env=dict(env, RAY_TPU_OTLP_ENDPOINT=stub.url) if c[0] == "export" else env)
                  for c in cmds]
-        outs = [p.communicate(timeout=300)[0] for p in procs]
+        deadline, outs = time.monotonic() + 300, []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+            except subprocess.TimeoutExpired:
+                p.send_signal(signal.SIGABRT)  # faulthandler prints where each of its threads waits
+                outs.append(p.communicate(timeout=30)[0])
     finally:
         stub.close()
     took = time.perf_counter() - t0
@@ -5891,13 +5929,22 @@ def cli_wait_line(proc: subprocess.Popen, log: str, needle: str, timeout: float 
 
 
 def cli_run(env: dict, *args, timeout: float = 120) -> str:
-    """``python -m ray_tpu_torch <args>`` to its end; fails unless it exits 0."""
-    p = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args], capture_output=True, text=True, env=env,
-                       timeout=timeout)
+    """``python -m ray_tpu_torch <args>`` to its end; fails unless it exits 0
+    within ``timeout``. One still running then gets SIGABRT, so faulthandler
+    prints where each of its threads waits."""
+    p = subprocess.Popen([sys.executable, "-X", "faulthandler", "-m", "ray_tpu_torch", *args],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        p.send_signal(signal.SIGABRT)
+        out, err = p.communicate(timeout=30)
+        raise AssertionError(f"ray_tpu_torch {' '.join(args)} still running after {timeout} s:\n{out[-2000:]}\n"
+                             f"{err[-6000:]}") from None
     if p.returncode != 0:
-        raise AssertionError(f"ray_tpu_torch {' '.join(args)} exited {p.returncode}:\n{p.stdout[-2000:]}\n"
-                             f"{p.stderr[-3000:]}")
-    return p.stdout
+        raise AssertionError(f"ray_tpu_torch {' '.join(args)} exited {p.returncode}:\n{out[-2000:]}\n"
+                             f"{err[-3000:]}")
+    return out
 
 
 def cli_doc(out: str):
@@ -6495,6 +6542,320 @@ def workflow_on_card(card: str) -> dict:
                 seconds=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------------------
+# phase 34: GPT-406M on a device mesh
+# ---------------------------------------------------------------------------
+
+MESH34_STEPS = 4  # (a): steps 0-3 of phase 17's run, on the mesh
+CKPT34_CFG = dataclasses.replace(TRAIN_406M, n_layers=4)  # (d): the 406M width at 4 layers
+CKPT34_STEPS = 2  # (d): the first fit's steps before its checkpoint; the second fit takes one more
+
+
+class PlainAttentionCount:
+    """Counts calls of the plain attention paths (the einsum and the flash
+    path's plain forward and backward) while it is entered: on the card a
+    mesh step must call none of them."""
+
+    def __enter__(self):
+        self.calls = 0
+        self.saved = [(attention_mod, "_xla_attention"), (flash_mod, "flash_fwd_reference"),
+                      (flash_mod, "flash_bwd_reference")]
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in self.saved]
+        for mod, name, fn in self.saved:
+            setattr(mod, name, self._counting(fn))
+        return self
+
+    def _counting(self, fn):
+        def call(*args, **kwargs):
+            self.calls += 1
+            return fn(*args, **kwargs)
+
+        return call
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def mesh_state_check(state, mesh, label: str) -> None:
+    """Every parameter and every Adam moment a ``DTensor`` on the mesh's
+    parameter axes, the moments placed as their parameter."""
+    from torch.distributed.tensor import DTensor
+
+    pmesh = param_mesh(mesh)
+    bad = [n for n, p in state.params.named_parameters()
+           if not (isinstance(p, DTensor) and p.device_mesh == pmesh)]
+    for p, s in state.opt_state.state.items():
+        for key in ("exp_avg", "exp_avg_sq"):
+            m = s[key]
+            if not (isinstance(m, DTensor) and m.device_mesh == pmesh and m.placements == p.placements):
+                bad.append(key)
+    if bad:
+        raise AssertionError(f"{label}: not DTensors on the mesh with their parameter's placements: {bad[:5]}")
+
+
+def step_timed(step_fn, state, tokens):
+    """One step, its host time ending in the loss's sync, and its peak
+    memory above nothing (the state included)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, loss = step_fn(state, tokens)
+    loss = loss.item()
+    return state, loss, (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated()
+
+
+def mesh_train_406m(card: str, phase17: dict, mesh) -> dict:
+    """(a) and (b): phase 17's model (seed 0) and batch, one state trained
+    by the one-device step and one by ``build_train_step(..., mesh)`` on an
+    NCCL mesh of one card, a step of each in turns (step 0 warms both up).
+    The mesh's losses equal phase 17's bit for bit (one rank: the same
+    kernels in the same order; the gathers, reductions and scaling of a
+    one-rank mesh change no value), the plain state's too; K3/K4/K5 launch
+    24 times each a mesh step and the plain attention never."""
+    cfg = TRAIN_406M
+    tokens = torch.from_numpy(train_406m_tokens()).cuda()
+    init_p, step_p = build_train_step(lambda p, t: gpt_loss(cfg, p, t), adamw(1e-4))
+    init_m, step_m = build_train_step(lambda p, t: gpt_loss(cfg, p, t, mesh), adamw(1e-4), mesh)
+    plain = init_p(gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0)))
+    t0 = time.perf_counter()
+    sharded = init_m(gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0)))
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    mesh_state_check(sharded, mesh, "(a)")
+    runs = {"plain": dict(losses=[], ms=[], peak=[]), "mesh": dict(losses=[], ms=[], peak=[])}
+    launches, plain_calls = [0, 0, 0], 0
+    for i in range(MESH34_STEPS):
+        plain, loss, ms, peak = step_timed(step_p, plain, tokens)
+        runs["plain"]["losses"].append(loss)
+        runs["plain"]["ms"].append(ms)
+        runs["plain"]["peak"].append(peak)
+        before = flash_launches()
+        with PlainAttentionCount() as counted:
+            sharded, loss, ms, peak = step_timed(step_m, sharded, tokens)
+        launches = [a + b - c for a, b, c in zip(launches, flash_launches(), before)]
+        plain_calls += counted.calls
+        runs["mesh"]["losses"].append(loss)
+        runs["mesh"]["ms"].append(ms)
+        runs["mesh"]["peak"].append(peak)
+    want17 = phase17["losses"][:MESH34_STEPS]
+    L, d, V, s = cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.seq_len
+    flops_per_token = 6 * (12 * L * d * d + d * V) + 6 * L * s * d
+    for name, r in runs.items():
+        ms = float(np.mean(r["ms"][1:]))
+        tok_s = TRAIN_B * s / (ms / 1e3)
+        print(f"(a) {name} step [{card}]: {ms:.3f} ms (steps {[f'{x:.1f}' for x in r['ms']]}, step 0 the warm-up), "
+              f"{tok_s:.0f} tokens/s, MFU {flops_per_token * tok_s / PEAK_OPS_PER_S[torch.bfloat16]:.4f}; peak "
+              f"memory {max(r['peak']) / 1e9:.2f} GB (the state included); losses "
+              f"{[f'{x:.6f}' for x in r['losses']]}")
+    mesh_ms, plain_ms = np.mean(runs["mesh"]["ms"][1:]), np.mean(runs["plain"]["ms"][1:])
+    print(f"(a) mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} over {dist.get_backend()} (world "
+          f"{dist.get_world_size()}); parameters and Adam moments DTensors on {param_mesh(mesh)}, sharded in "
+          f"{shard_s:.3f} s; mesh / plain step {mesh_ms / plain_ms:.4f}; losses equal to phase 17's bit for bit: "
+          f"mesh {runs['mesh']['losses'] == want17}, plain {runs['plain']['losses'] == want17}")
+    want = expected_flash_launches(cfg, MESH34_STEPS)
+    print(f"(b) K3/K4/K5 launches over the {MESH34_STEPS} mesh steps {tuple(launches)} = {want} expected "
+          f"(phase 17's per step); plain attention calls {plain_calls}")
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"(a) the mesh's group runs {dist.get_backend()}, not nccl")
+    if runs["mesh"]["losses"] != want17 or runs["plain"]["losses"] != want17:
+        raise AssertionError(f"(a) losses mesh {runs['mesh']['losses']}, plain {runs['plain']['losses']} differ "
+                             f"from phase 17's {want17} (one rank does the same arithmetic: bit equality)")
+    if tuple(launches) != want or plain_calls != 0:
+        raise AssertionError(f"(b) K3/K4/K5 launched {launches} times (expected {want}), the plain attention "
+                             f"{plain_calls} times (expected 0)")
+    return dict(launches=dict(zip(("K3", "K4", "K5"), launches)), mesh_ms=float(mesh_ms),
+                plain_ms=float(plain_ms))
+
+
+def mesh_allreduce_exact(card: str, mesh) -> None:
+    """(c): ``mesh_allreduce`` of integer-valued fp32 on the card over the
+    one-card mesh, for each ``ReduceOp``, equal to torch's own reduction
+    over axis 0 exactly."""
+    from ray_tpu_torch.collective import ReduceOp, mesh_allreduce
+
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    x = torch.randint(1, 3, (16, 4096), generator=gen, device="cuda").float()
+    x = x * torch.where(torch.rand(x.shape, generator=gen, device="cuda") < 0.5, -1.0, 1.0)
+    want = {ReduceOp.SUM: x.sum(0), ReduceOp.PRODUCT: x.prod(0), ReduceOp.MIN: x.amin(0),
+            ReduceOp.MAX: x.amax(0)}
+    got = {op: mesh_allreduce(x, mesh, op=op) for op in ReduceOp}
+    default = mesh_allreduce(x)
+    equal = {op.name: bool(torch.equal(got[op], want[op]) and got[op].is_cuda) for op in ReduceOp}
+    print(f"(c) mesh_allreduce of a (16, 4096) fp32 tensor of +-1 and +-2 on the card [{card}]: equal to "
+          f"x.sum/prod/min/max(0) exactly {equal}; the default mesh's sum {bool(torch.equal(default, want[ReduceOp.SUM]))}")
+    if not all(equal.values()) or not torch.equal(default, want[ReduceOp.SUM]):
+        raise AssertionError(f"(c) mesh_allreduce differs from torch's reductions: {equal}")
+
+
+def mesh_checkpoint_loop(config: dict) -> None:
+    """(d)'s train loop, run by a ``TorchTrainer`` worker on the card:
+    ``CKPT34_CFG`` (seed 0) on a mesh of ``make_mesh()`` (the worker's NCCL
+    group of one), phase 17's batch. Without ``config["restore"]`` it takes
+    ``CKPT34_STEPS`` steps and reports ``save_pytree_checkpoint`` of the
+    sharded train state; with it, it restores that checkpoint into a fresh
+    sharded state (``load_pytree_checkpoint(target=...)``) and takes one
+    step."""
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.parallel import train_state_dict
+    from ray_tpu_torch.train.integrations import load_pytree_checkpoint, save_pytree_checkpoint
+
+    cfg = CKPT34_CFG
+    mesh = make_mesh(MeshConfig())
+    init_fn, step_fn = build_train_step(lambda p, t: gpt_loss(cfg, p, t, mesh), adamw(1e-4), mesh)
+    state = init_fn(gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0)))
+    tokens = torch.from_numpy(train_406m_tokens()).cuda()
+    out = dict(backend=dist.get_backend(), world=dist.get_world_size(),
+               dtensors=all(isinstance(p, DTensor) for p in state.params.parameters()))
+    reset_flash_launches()
+    saved = None
+    if config.get("restore"):
+        t0 = time.perf_counter()
+        restored = load_pytree_checkpoint(config["restore"], target=train_state_dict(state))
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        state = state._replace(step=restored["step"])
+        state, loss = step_fn(state, tokens)
+        out.update(losses=[loss.item()], step=state.step)
+    else:
+        losses = []
+        for _ in range(CKPT34_STEPS):
+            state, loss = step_fn(state, tokens)
+            losses.append(loss.item())
+        t0 = time.perf_counter()
+        saved = save_pytree_checkpoint(train_state_dict(state), config["path"])
+        out["save_s"] = time.perf_counter() - t0
+        out["bytes"] = sum(f.stat().st_size for f in Path(config["path"]).rglob("*") if f.is_file())
+        out.update(losses=losses, step=state.step)
+    out["launches"] = list(flash_launches())
+    train.report(out, checkpoint=saved)
+
+
+def mesh_checkpoint_here(mesh) -> tuple:
+    """(d)'s reference in this process: the worker's model on this
+    process's mesh, ``CKPT34_STEPS + 1`` steps; (losses, K3/K4/K5
+    launches)."""
+    cfg = CKPT34_CFG
+    init_fn, step_fn = build_train_step(lambda p, t: gpt_loss(cfg, p, t, mesh), adamw(1e-4), mesh)
+    state = init_fn(gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0)))
+    tokens = torch.from_numpy(train_406m_tokens()).cuda()
+    before, losses = flash_launches(), []
+    for _ in range(CKPT34_STEPS + 1):
+        state, loss = step_fn(state, tokens)
+        losses.append(loss.item())
+    return losses, tuple(a - b for a, b in zip(flash_launches(), before))
+
+
+def mesh_checkpoint_through_trainer(card: str, mesh) -> dict:
+    """(d): one ``TorchTrainer`` GPU worker under ``TorchConfig(
+    init_distributed=True)`` trains ``CKPT34_CFG`` on its own mesh and
+    reports a DCP checkpoint of the sharded state; a second ``fit``
+    restores it into a fresh sharded state and takes one step, whose loss
+    equals this process's third step bit for bit (the same kernels,
+    weights and card)."""
+    from ray_tpu_torch import train
+
+    here, here_launches = mesh_checkpoint_here(mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ray_tpu_torch.init()
+    storage = tempfile.mkdtemp(prefix="phase34_")
+    try:
+        def fit(name, **config):
+            t0 = time.perf_counter()
+            result = train.TorchTrainer(
+                mesh_checkpoint_loop, train_loop_config=config,
+                scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+                backend_config=train.TorchConfig(init_distributed=True),
+                run_config=train.RunConfig(name=name, storage_path=storage),
+            ).fit()
+            if result.error is not None:
+                raise AssertionError(f"(d) {name}: {result.error}")
+            return result, time.perf_counter() - t0
+
+        first, first_s = fit("save", path=os.path.join(storage, "stage"))
+        second, second_s = fit("restore", restore=first.checkpoint.path)
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+        ray_tpu_torch.shutdown()
+    a, b = first.metrics, second.metrics
+    got = a["losses"] + b["losses"]
+    per_step = expected_flash_launches(CKPT34_CFG, 1)
+    print(f"(d) TorchTrainer(ScalingConfig(num_workers=1, use_gpu=True), TorchConfig(init_distributed=True)) "
+          f"[{card}]: the worker's mesh over {a['backend']} (world {a['world']}), DTensor parameters "
+          f"{a['dtensors']}; fit 1 ({first_s:.1f} s): {CKPT34_STEPS} steps of the 406M width at "
+          f"{CKPT34_CFG.n_layers} layers, a DCP checkpoint of {a['bytes'] / 1e9:.3f} GB saved in {a['save_s']:.2f} "
+          f"s; fit 2 ({second_s:.1f} s): restored in {b['load_s']:.2f} s into a fresh sharded state, one step; "
+          f"losses {[f'{x:.6f}' for x in got]} against this process's {[f'{x:.6f}' for x in here]}: "
+          f"{'equal bit for bit' if got == here else 'DIFFERENT'}; K3/K4/K5 launches {a['launches']}, "
+          f"{b['launches']} in the workers, {here_launches} here")
+    if a["backend"] != "nccl" or b["backend"] != "nccl" or a["world"] != 1 or not (a["dtensors"] and b["dtensors"]):
+        raise AssertionError(f"(d) the workers' meshes: {a}, {b}")
+    if got != here or b["step"] != CKPT34_STEPS + 1:
+        raise AssertionError(f"(d) the restored run's losses {got} (step {b['step']}) differ from this process's {here}")
+    launches = tuple(x + y for x, y in zip(a["launches"], b["launches"]))
+    want = tuple(n * (CKPT34_STEPS + 1) for n in per_step)
+    if launches != want or here_launches != want:
+        raise AssertionError(f"(d) K3/K4/K5 launched {launches} times in the workers, {here_launches} here, "
+                             f"expected {want}")
+    return dict(trainer=launches, here=here_launches, bytes=a["bytes"], save_s=a["save_s"], load_s=b["load_s"])
+
+
+def fit_proof_on_card(card: str) -> dict:
+    """(e): ``fit_report(TRAIN_406M, n_devices=8, batch=8)`` on the card:
+    rank 0 of an fsdp-8 step under a fake process group. ``argument_bytes``
+    equals the count from the rule table's local shards (parameters and two
+    Adam moments, a dim over fsdp holding 1/8 of its rows), and
+    ``per_chip_bytes`` is measured, above it and below the card's memory."""
+    from ray_tpu_torch.parallel.fit_proof import fit_report
+    from ray_tpu_torch.parallel.sharding import spec_for_path
+
+    want = 0
+    for name, p in GPT(TRAIN_406M, device="meta").named_parameters():
+        fsdp = any(e == "fsdp" or (isinstance(e, tuple) and "fsdp" in e) for e in spec_for_path(name))
+        want += p.numel() // (8 if fsdp else 1) * p.element_size() * 3
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = flash_launches()
+    t0 = time.perf_counter()
+    rep = fit_report(TRAIN_406M, n_devices=8, batch=8)
+    took = time.perf_counter() - t0
+    launches = tuple(a - b for a, b in zip(flash_launches(), before))
+    print(f"(e) fit_report(TRAIN_406M, n_devices=8, batch=8) on the card [{card}] ({took:.1f} s): "
+          f"{json.dumps(rep)}; argument bytes from the rule table's local shards {want}; K3/K4/K5 launches "
+          f"{launches}")
+    if rep["argument_bytes"] != want:
+        raise AssertionError(f"(e) argument_bytes {rep['argument_bytes']} != the local shards' {want}")
+    if not (rep.get("per_chip_bytes") and rep["argument_bytes"] < rep["per_chip_bytes"] < rep["card_memory_bytes"]):
+        raise AssertionError(f"(e) per_chip_bytes {rep.get('per_chip_bytes')} not measured between "
+                             f"argument_bytes and the card's memory")
+    if dist.is_initialized():
+        raise AssertionError("(e) fit_report left its fake process group behind")
+    return dict(report=rep, launches=launches)
+
+
+def mesh_on_card(card: str, phase17: dict) -> dict:
+    """Phase 34: GPT-406M on a device mesh: (e) the fit proof first (its
+    fake process group must be this process's only one), then an NCCL mesh
+    of one card for (a)-(d)."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    proof = fit_proof_on_card(card)
+    mesh = make_mesh(MeshConfig())
+    try:
+        trained = mesh_train_406m(card, phase17, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh_allreduce_exact(card, mesh)
+        ckpt = mesh_checkpoint_through_trainer(card, mesh)
+    finally:
+        dist.destroy_process_group()
+    return dict(trained=trained, ckpt=ckpt, proof=proof, seconds=time.perf_counter() - t_phase)
+
+
 def share_bytecode() -> str:
     """Gives this process and every process it starts (workers, drivers,
     CLI processes: they inherit the environment) one bytecode cache in the
@@ -6675,6 +7036,10 @@ def main() -> int:
           f"with torch {sp['worker']:.2f} s, CUDA context {sp['cuda']:.2f} s, build {sp['build']:.2f} s, step "
           f"{sp['step']:.2f} s)")
 
+    phase("34 GPT-406M on a device mesh")
+    meshed = mesh_on_card(card, trained)
+    print(f"phase 34 [{card}]: {meshed['seconds']:.1f} s")
+
     kernels = [
         dict(
             name="paged_decode_attention",
@@ -6730,7 +7095,11 @@ def main() -> int:
                    "gpt_124m_tuner_over_trainer": tuned["inner"][i],
                    "gpt_124m_rlhf_learner": rl["flash"][i],
                    "gpt_124m_actor_pool": (ops["k3"], 0, 0)[i],
-                   "gpt_124m_workflow": (wf["k3"], 0, 0)[i]}
+                   "gpt_124m_workflow": (wf["k3"], 0, 0)[i],
+                   "gpt_406m_mesh_train_step": meshed["trained"]["launches"][kernel],
+                   "gpt_406m_mesh_checkpoint_trainer": meshed["ckpt"]["trainer"][i],
+                   "gpt_406m_mesh_checkpoint_here": meshed["ckpt"]["here"][i],
+                   "gpt_406m_fit_report": meshed["proof"]["launches"][i]}
         kernels.append(dict(
             name=kernel_name,
             route="cuda",

@@ -30,11 +30,13 @@ Ported so far:
 - observability: ``util.metrics``, ``util.tracing``, ``util.phases``,
   ``util.waterfall``, ``util.slo``, ``util.state`` and ``_private.events``,
   their cluster halves included;
-- GPT training on one device — the model (``models.gpt``), causal attention
-  with hand-written flash forward and backward kernels (``ops.attention``,
+- GPT training — the model (``models.gpt``), causal attention with
+  hand-written flash forward and backward kernels (``ops.attention``,
   ``ops.flash_attention``), the fused cross-entropy (``ops.fused_ce``) and
-  the AdamW train step (``parallel``); GPT-J's training loss
-  (``models.gptj.gptj_loss``);
+  the AdamW train step (``parallel``), on one device or sharded over a
+  ``DeviceMesh`` (``parallel``: data, ZeRO-3 and tensor parallelism under a
+  rule table, a GPipe pipeline, multislice meshes, the fit proof); GPT-J's
+  training loss (``models.gptj.gptj_loss``);
 - Train (``train``): ``TorchTrainer`` over a worker group of actors (one
   card each with ``use_gpu``), sessions with ``report``, checkpoints of
   train states, restart from the latest checkpoint after a worker dies,

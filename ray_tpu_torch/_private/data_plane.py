@@ -32,6 +32,7 @@ name prefix at shutdown).
 
 from __future__ import annotations
 
+import socket
 import threading
 import time
 from multiprocessing.connection import Client, Listener
@@ -57,7 +58,8 @@ class DataServer:
     """Serves this host's shm objects to remote pullers."""
 
     def __init__(self, authkey: bytes, host: str = "0.0.0.0"):
-        self._listener = Listener((host, 0), authkey=authkey)
+        # a large backlog, as the head's listeners have (head.start)
+        self._listener = Listener((host, 0), backlog=socket.SOMAXCONN, authkey=authkey)
         self.port = self._listener.address[1]
         self.bytes_served = 0
         self._shutdown = False

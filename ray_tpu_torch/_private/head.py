@@ -35,6 +35,7 @@ from __future__ import annotations
 import itertools
 import os
 import queue
+import socket
 import threading
 import time
 from collections import deque
@@ -879,7 +880,12 @@ class Head:
     def start(self):
         from multiprocessing.connection import Listener
 
-        self._listener = Listener(self.socket_path, family="AF_UNIX", authkey=self.authkey)
+        # multiprocessing's default backlog is 1: with the hmac handshake
+        # run in the accept thread, a burst of connects (CLI commands or
+        # drivers started side by side) overflows it, and on TCP a client
+        # whose ACK was dropped waits for the challenge forever
+        self._listener = Listener(self.socket_path, family="AF_UNIX", backlog=socket.SOMAXCONN,
+                                  authkey=self.authkey)
         t = threading.Thread(
             target=self._accept_loop, args=(self._listener, False),
             name="head-accept", daemon=True,
@@ -918,7 +924,7 @@ class Head:
         shm)."""
         from multiprocessing.connection import Listener
 
-        self._tcp_listener = Listener((host, port), authkey=self.authkey)
+        self._tcp_listener = Listener((host, port), backlog=socket.SOMAXCONN, authkey=self.authkey)
         self.tcp_address = self._tcp_listener.address
         if self.data_server is None:
             from ray_tpu_torch._private.data_plane import DataServer

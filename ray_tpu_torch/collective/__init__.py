@@ -1,6 +1,6 @@
 """ray_tpu_torch.collective — collectives among actors over the host plane
 (copy of ``ray_tpu/collective/``). See ``collective.py`` for the backend
-story; ``mesh_allreduce`` raises until the multichip slice."""
+story; ``mesh_allreduce`` reduces a device tensor over a ``DeviceMesh``."""
 
 from ray_tpu_torch.collective.collective import (  # noqa: F401
     allgather,

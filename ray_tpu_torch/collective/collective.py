@@ -10,8 +10,11 @@ API parity with the reference's ``ray.util.collective``
   ``torch.Tensor``s, each given back as the type it came in — move through a
   named coordinator actor + the shared-memory object plane. This replaces
   Gloo.
-* CUDA tensors raise: their collectives are NCCL's, which arrive with the
-  multichip slice (ROADMAP.md, queue A8), as does ``mesh_allreduce``.
+* CUDA tensors raise, as device arrays do in the reference
+  (``ray_tpu/collective/collective.py:1-18``): collectives inside a step
+  come from the sharding (``ray_tpu_torch.parallel``), and a one-off
+  reduction of a device tensor is ``mesh_allreduce`` over a
+  ``DeviceMesh`` (NCCL on the card, gloo on the CPU).
 
 Each participating process keeps a per-group sequence counter; collectives on
 a group must be called in the same order by all members (same contract as
@@ -68,8 +71,9 @@ def init_collective_group(
     actor/task). Reference: ``collective.py:120``."""
     if backend != "host":
         raise NotImplementedError(
-            f"collective backend {backend!r} is not ported: only 'host' is; NCCL comes "
-            "with the multichip slice (ROADMAP.md, queue A8)"
+            f"collective backend {backend!r} does not exist: the reference has only 'host'. "
+            "Device tensors reduce through a device mesh: collectives inside a step come "
+            "from ray_tpu_torch.parallel's sharding, a one-off reduction is mesh_allreduce"
         )
     if rank < 0 or rank >= world_size:
         raise ValueError(f"rank {rank} out of range for world_size {world_size}")
@@ -132,8 +136,8 @@ def _host(tensor) -> "np.ndarray":
         if tensor.device.type != "cpu":
             raise ValueError(
                 f"the host collective backend takes CPU tensors, got one on {tensor.device}: "
-                "device collectives go through NCCL, which comes with the multichip slice "
-                "(ROADMAP.md, queue A8)"
+                "device tensors reduce through a device mesh (ray_tpu_torch.parallel; "
+                "a one-off reduction is mesh_allreduce)"
             )
         if tensor.dtype == torch.bfloat16:
             return tensor.detach().float().numpy()
@@ -360,9 +364,30 @@ def recv(tensor, src_rank: int, group_name: str = "default", timeout: float = 60
 
 
 def mesh_allreduce(x, mesh=None, op=ReduceOp.SUM):
-    """Reduce a device array across the devices of a local mesh (reference
-    ``collective.py:315``): not ported yet."""
-    raise NotImplementedError(
-        "mesh_allreduce needs a device mesh, which comes with the multichip slice "
-        "(ROADMAP.md, queue A8)"
-    )
+    """Reduce ``x`` over its axis 0 with its rows spread over the devices of
+    a mesh's first axis (reference ``collective.py:315``): each rank reduces
+    its rows, then one collective over that axis (NCCL on the card, gloo on
+    the CPU) combines them. Every rank passes the same ``x`` and gets the
+    result. The default mesh is ``make_mesh(MeshConfig(dp=-1, fsdp=1, tp=1,
+    sp=1))`` on ``x``'s device type (the card for a numpy array). For
+    collectives *inside* a training step, shard the parameters instead
+    (``ray_tpu_torch.parallel``)."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from ray_tpu_torch.parallel.sharding import local_slices
+
+    if mesh is None:
+        kind = x.device.type if isinstance(x, torch.Tensor) else None
+        mesh = make_mesh(MeshConfig(dp=-1, fsdp=1, tp=1, sp=1), devices=kind)
+    op = ReduceOp(op) if not isinstance(op, ReduceOp) else op
+    x = torch.as_tensor(x).to(mesh.device_type)
+    first = mesh.mesh_dim_names[0]
+    rows = x[local_slices(x.shape, (first,), mesh)]
+    reduce = {ReduceOp.SUM: torch.sum, ReduceOp.PRODUCT: torch.prod, ReduceOp.MIN: torch.amin,
+              ReduceOp.MAX: torch.amax}[op]
+    part = reduce(rows, 0).contiguous()
+    if mesh.size(0) > 1:
+        dist.all_reduce(part, op=getattr(dist.ReduceOp, op.name), group=mesh.get_group(first))
+    return part

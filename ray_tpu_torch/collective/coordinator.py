@@ -5,8 +5,8 @@ The reference rendezvouses NCCL communicators through a named actor holding
 the unique id (``util/collective/collective_group/nccl_collective_group.py:
 28-77`` NCCLUniqueIDStore) and moves host-side payloads over gloo
 (``gloo_collective_group.py``). Host-side collectives here flow through
-this named ASYNC actor; device tensors wait for the multichip slice's NCCL
-path (ROADMAP.md, queue A8).
+this named ASYNC actor; device tensors reduce over a device mesh instead
+(``collective.mesh_allreduce``, ``ray_tpu_torch.parallel``).
 
 Round 2 had members busy-polling ``try_*`` methods every 2ms and funneling
 every byte through the coordinator. Now:

@@ -30,16 +30,29 @@ Rematerialization (``cfg.remat``) checkpoints each block under one of the
 reference's five policies (``models._remat``): ``"full"`` and ``"dots"``
 run the flash forward (K3) again in the backward; ``"attn"``, ``"attn_qkv"``
 and ``"big"`` keep its out and lse, and ``"attn_qkv"`` the qkv projection
-(``kept_linear``), ``"big"`` the gelu output (``kept_gelu``) besides. Ring
-attention (``attn_impl="ring"``) and the experts sharded over an ``ep``
-mesh axis are not ported (ROADMAP.md, queue A8).
+(``kept_linear``), ``"big"`` the gelu output (``kept_gelu``) besides.
+
+``mesh=`` (a ``parallel.mesh.make_mesh`` mesh; the parameters sharded onto
+it by ``parallel.sharding.shard_params``) runs this rank's share of the
+reference's SPMD program: the tokens are this rank's batch slice, each
+block all-gathers its parameters on use (``sharding.local``), and under
+``tp`` each rank holds ``n_heads / tp`` heads: the qkv and MLP-in products
+are column-parallel, the out-projections row-parallel with one all-reduce
+each (``sharding.reduce_from``). The activations are the local shards the
+reference's constraints name (``ray_tpu/models/gpt.py:178-245``): batch
+over ``(dp, fsdp)``, qkv and the MLP's middle over ``tp``, the residual
+stream whole. Attention runs on each rank's shard
+(``ops.flash_attention.flash_attention_sharded``). Ring attention
+(``attn_impl="ring"``, an ``sp`` axis) and experts over an ``ep`` axis are
+not ported (ROADMAP.md, queue A8.6-A8.7).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import Optional
+from types import SimpleNamespace
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -48,10 +61,13 @@ import torch.nn.functional as F
 
 from ray_tpu_torch.device import materialize, resolve_device
 from ray_tpu_torch.models._remat import check_policy, kept_gelu, kept_linear, remat_block
-from ray_tpu_torch.models.gptj import LayerNorm, _attend_cached, embedding
+from ray_tpu_torch.models.gptj import LayerNorm, _attend_cached, _layernorm, embedding
 from ray_tpu_torch.models.sampling import pick_tokens
 from ray_tpu_torch.ops.attention import causal_attention
+from ray_tpu_torch.ops.flash_attention import flash_attention_sharded
 from ray_tpu_torch.ops.fused_ce import fused_softmax_cross_entropy
+from ray_tpu_torch.parallel.mesh import axis_size
+from ray_tpu_torch.parallel.sharding import copy_to, full_value, local, reduce_from
 
 #: ``moe_dispatch``: "index" moves each kept assignment's row by its
 #: (expert, slot); "einsum" is the reference's one-hot dispatch and combine
@@ -64,7 +80,7 @@ class GPTConfig:
 
     ``scan_unroll`` is accepted and has no effect: the reference unrolls its
     ``lax.scan`` over layers, and eager PyTorch runs the layers as a Python
-    loop. ``attn_impl="ring"`` raises (ROADMAP.md, queue A8)."""
+    loop. ``attn_impl="ring"`` raises (ROADMAP.md, queue A8.7)."""
 
     vocab_size: int = 50_304
     seq_len: int = 1024
@@ -105,9 +121,21 @@ class GPTConfig:
 def _check_supported(cfg: GPTConfig) -> None:
     if cfg.attn_impl == "ring":
         raise NotImplementedError(
-            "ring attention (attn_impl='ring') is not ported yet: ROADMAP.md, queue A8"
+            "ring attention (attn_impl='ring') is not ported yet: ROADMAP.md, queue A8.7 "
+            "(the slice after MoE over ep, A8.6)"
         )
     check_policy(cfg)
+
+
+def _check_mesh(cfg: GPTConfig, mesh) -> None:
+    for axis, what in (("sp", "ring attention over an sp axis (queue A8.7)"),
+                       ("ep", "experts over an ep axis (queue A8.6)")):
+        if axis_size(mesh, axis) > 1:
+            raise NotImplementedError(f"a mesh with {axis} > 1 needs {what}, which is not "
+                                      "ported yet (ROADMAP.md, the next A8 slice)")
+    tp = axis_size(mesh, "tp")
+    if cfg.n_heads % tp:
+        raise ValueError(f"n_heads={cfg.n_heads} does not divide over tp={tp}")
 
 
 class GPTBlock(nn.Module):
@@ -228,17 +256,18 @@ def params_from_jax(tree: dict, cfg: GPTConfig, device=None) -> GPT:
 
 def params_to_numpy(model: GPT) -> dict:
     """The inverse of ``params_from_jax``: the reference's tree of fp32
-    numpy arrays (layers stacked in a leading L axis, kernels (in, out))."""
+    numpy arrays (layers stacked in a leading L axis, kernels (in, out)).
+    Parameters sharded over a mesh are gathered (every rank calls it)."""
     tree: dict = {}
     stacks: dict = {}
     for param, path, layer, transposed in _param_map(model):
-        a = param.detach().float().cpu().numpy()
+        a = full_value(param, fused_qkv=path[1:2] == ("attn_qkv",)).float().cpu().numpy()
         a = a.T if transposed else a
         if layer is None:
             node = tree
             for key in path[:-1]:
                 node = node.setdefault(key, {})
-            node[path[-1]] = np.ascontiguousarray(a)
+            node[path[-1]] = np.array(a)  # a copy: a CPU parameter's numpy view would follow later steps
         else:
             stacks.setdefault(path, []).append(a)
     for path, per_layer in stacks.items():
@@ -254,30 +283,73 @@ def _linear(x, lin: nn.Linear):
     return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
 
 
-def _attn_in(cfg: GPTConfig, x, layer: GPTBlock):
-    """ln1 and the qkv projection: (q, k, v), each (b, heads, s, head_dim)."""
+def _row_linear(x, lin, mesh):
+    """``_linear`` of a row-parallel product: under ``tp`` each rank's
+    partial product is summed over the tp group before the bias."""
+    if mesh is None or axis_size(mesh, "tp") == 1:
+        return _linear(x, lin)
+    return reduce_from(F.linear(x, lin.weight.to(x.dtype)), mesh, "tp") + lin.bias.to(x.dtype)
+
+
+def _tp_input(h, mesh):
+    """A column-parallel product's input: its gradient summed over tp."""
+    return h if mesh is None else copy_to(h, mesh, "tp")
+
+
+class _LocalLinear(NamedTuple):
+    weight: torch.Tensor
+    bias: torch.Tensor
+
+
+class _LocalLayerNorm(NamedTuple):
+    scale: torch.Tensor
+    bias: torch.Tensor
+
+    def __call__(self, x):
+        return _layernorm(x, self.scale, self.bias)
+
+
+def _on_mesh(layer: GPTBlock):
+    """The block's parameters as this rank computes with them
+    (``sharding.local``: gathered over every axis but tp). Built inside the
+    block, so a rematerialized block gathers them again in the backward
+    (ZeRO-3)."""
+    out = {name: _LocalLayerNorm(local(m.scale), local(m.bias))
+           for name, m in (("ln1", layer.ln1), ("ln2", layer.ln2))}
+    names = ("attn_qkv", "attn_out") + (() if hasattr(layer, "router") else ("mlp_in", "mlp_out"))
+    out.update({name: _LocalLinear(local(getattr(layer, name).weight), local(getattr(layer, name).bias))
+                for name in names})
+    if hasattr(layer, "router"):  # whole on every rank: the experts run replicated over tp
+        out.update({name: local(getattr(layer, name), tp_local=False)
+                    for name in ("router", "moe_in", "moe_out")})
+    return SimpleNamespace(**out)
+
+
+def _attn_in(cfg: GPTConfig, x, layer: GPTBlock, mesh=None):
+    """ln1 and the qkv projection: (q, k, v), each (b, heads, s, head_dim)
+    (the rank's ``n_heads / tp`` heads on a mesh)."""
     b, s, d = x.shape
-    h = layer.ln1(x)
+    h = _tp_input(layer.ln1(x), mesh)
     lin = layer.attn_qkv
     qkv = kept_linear(h, lin.weight.to(h.dtype), lin.bias.to(h.dtype), "qkv")
-    q, k, v = qkv.split(d, dim=-1)
+    q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
 
     def heads(t):
-        return t.view(b, s, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+        return t.view(b, s, -1, cfg.head_dim).transpose(1, 2)
 
     return heads(q), heads(k), heads(v)
 
 
-def _attn_out(x, att, layer: GPTBlock):
+def _attn_out(x, att, layer: GPTBlock, mesh=None):
     """The out-projection's residual."""
     b, s, d = x.shape
-    return x + _linear(att.transpose(1, 2).reshape(b, s, d), layer.attn_out)
+    return x + _row_linear(att.transpose(1, 2).reshape(b, s, -1), layer.attn_out, mesh)
 
 
-def _mlp(x, layer: GPTBlock):
+def _mlp(x, layer: GPTBlock, mesh=None):
     """The dense MLP's residual."""
-    mid = kept_gelu(_linear(layer.ln2(x), layer.mlp_in), "mlp_mid")
-    return x + _linear(mid, layer.mlp_out)
+    mid = kept_gelu(_linear(_tp_input(layer.ln2(x), mesh), layer.mlp_in), "mlp_mid")
+    return x + _row_linear(mid, layer.mlp_out, mesh)
 
 
 def _moe_route(cfg: GPTConfig, flat, router):
@@ -348,60 +420,80 @@ def _moe_mlp(cfg: GPTConfig, x, layer: GPTBlock, dispatch: str = "index"):
     return out.reshape(b, s, d), aux
 
 
-def _block(cfg: GPTConfig, x, layer: GPTBlock, moe_dispatch: str = "index"):
+def _attention(cfg: GPTConfig, q, k, v, mesh):
+    """Causal attention of the block's heads; on a mesh the flash kernels
+    run on this rank's shard (batch over dp x fsdp, heads over tp), as the
+    reference's ``flash_attention_sharded`` does."""
+    want_flash = cfg.attn_impl == "flash" or (cfg.attn_impl == "auto" and q.is_cuda)
+    if mesh is not None and want_flash:
+        return flash_attention_sharded(q, k, v, mesh)
+    return causal_attention(q, k, v, impl=cfg.attn_impl)
+
+
+def _block(cfg: GPTConfig, x, layer: GPTBlock, moe_dispatch: str = "index", mesh=None):
     """One block: (output, MoE aux loss, 0 for a dense block)."""
-    q, k, v = _attn_in(cfg, x, layer)
-    x = _attn_out(x, causal_attention(q, k, v, impl=cfg.attn_impl), layer)
+    if mesh is not None:
+        layer = _on_mesh(layer)
+    q, k, v = _attn_in(cfg, x, layer, mesh)
+    x = _attn_out(x, _attention(cfg, q, k, v, mesh), layer, mesh)
     if cfg.n_experts > 0:
         out, aux = _moe_mlp(cfg, layer.ln2(x), layer, moe_dispatch)
         return x + out, aux
-    return _mlp(x, layer), x.new_zeros((), dtype=torch.float32)
+    return _mlp(x, layer, mesh), x.new_zeros((), dtype=torch.float32)
 
 
-def gpt_hidden(cfg: GPTConfig, params: GPT, tokens: torch.Tensor, *,
+def gpt_hidden(cfg: GPTConfig, params: GPT, tokens: torch.Tensor, mesh=None, *,
                moe_dispatch: str = "index"):
     """tokens (batch, seq) int → (final hidden (batch, seq, d_model) in the
     activation dtype, the MoE aux loss averaged over the layers, fp32; 0
     for a dense model). The lm head is applied by the caller.
-    ``moe_dispatch`` picks ``_moe_mlp``'s form."""
+    ``moe_dispatch`` picks ``_moe_mlp``'s form. With ``mesh`` the tokens
+    are this rank's batch slice and the result its hidden state."""
     _check_supported(cfg)
+    if mesh is not None:
+        _check_mesh(cfg, mesh)
     dt = cfg.torch_dtype
     s = tokens.shape[1]
     # gather fp32 rows, then cast
-    x = F.embedding(tokens, params.embed.weight).to(dt)
-    x = x + params.pos_embed.weight[:s].to(dt)
+    x = F.embedding(tokens, local(params.embed.weight, tp_local=False)).to(dt)
+    x = x + local(params.pos_embed.weight)[:s].to(dt)
     auxes = []
     for layer in params.blocks:
-        x, aux = remat_block(cfg, x, partial(_block, cfg, layer=layer, moe_dispatch=moe_dispatch))
+        x, aux = remat_block(cfg, x, partial(_block, cfg, layer=layer, moe_dispatch=moe_dispatch,
+                                             mesh=mesh))
         auxes.append(aux)
-    return params.ln_f(x), torch.stack(auxes).mean()
+    return _layernorm(x, local(params.ln_f.scale), local(params.ln_f.bias)), torch.stack(auxes).mean()
 
 
-def gpt_forward(cfg: GPTConfig, params: GPT, tokens: torch.Tensor, *,
+def gpt_forward(cfg: GPTConfig, params: GPT, tokens: torch.Tensor, mesh=None, *,
                 return_aux: bool = False, moe_dispatch: str = "index"):
     """tokens (batch, seq) int → logits (batch, seq, vocab) fp32;
-    ``return_aux=True`` also returns the mean MoE aux loss."""
-    hidden, aux = gpt_hidden(cfg, params, tokens, moe_dispatch=moe_dispatch)
-    logits = hidden.float() @ params.lm_head.weight.t()
+    ``return_aux=True`` also returns the mean MoE aux loss. With ``mesh``,
+    this rank's batch slice."""
+    hidden, aux = gpt_hidden(cfg, params, tokens, mesh, moe_dispatch=moe_dispatch)
+    logits = hidden.float() @ local(params.lm_head.weight, tp_local=False).t()
     return (logits, aux) if return_aux else logits
 
 
-def gpt_loss(cfg: GPTConfig, params: GPT, tokens: torch.Tensor, *,
+def gpt_loss(cfg: GPTConfig, params: GPT, tokens: torch.Tensor, mesh=None, *,
              moe_dispatch: str = "index") -> torch.Tensor:
     """Next-token cross-entropy, mean over (batch, seq - 1), plus
     ``cfg.moe_aux_weight`` x the aux loss for a mixture of experts. With
     ``cfg.fused_loss`` the (tokens, vocab) logits go through the fused
-    cross-entropy in ``cfg.ce_chunks`` vocab chunks."""
-    hidden, aux = gpt_hidden(cfg, params, tokens[:, :-1], moe_dispatch=moe_dispatch)
+    cross-entropy in ``cfg.ce_chunks`` vocab chunks. With ``mesh``, the
+    mean over this rank's batch slice (``parallel.build_train_step`` averages
+    the slices)."""
+    hidden, aux = gpt_hidden(cfg, params, tokens[:, :-1], mesh, moe_dispatch=moe_dispatch)
     targets = tokens[:, 1:]
+    head = local(params.lm_head.weight, tp_local=False)
     if cfg.fused_loss:
         b, s, d = hidden.shape
         losses = fused_softmax_cross_entropy(
-            hidden.reshape(b * s, d), params.lm_head.weight.t(), targets.reshape(-1), cfg.ce_chunks
+            hidden.reshape(b * s, d), head.t(), targets.reshape(-1), cfg.ce_chunks
         )
         loss = losses.mean()
     else:
-        logits = hidden.float() @ params.lm_head.weight.t()
+        logits = hidden.float() @ head.t()
         logp = torch.log_softmax(logits, dim=-1)
         loss = -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
     if cfg.n_experts > 0:

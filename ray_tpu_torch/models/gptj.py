@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 from functools import partial
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -41,6 +42,7 @@ from ray_tpu_torch.models._remat import check_policy, remat_block
 from ray_tpu_torch.models.sampling import pick_tokens
 from ray_tpu_torch.ops.attention import causal_attention
 from ray_tpu_torch.ops.fused_ce import fused_softmax_cross_entropy_bias
+from ray_tpu_torch.parallel.sharding import local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,36 +273,61 @@ def gptj_forward(cfg: GPTJConfig, params: GPTJ, tokens: torch.Tensor) -> torch.T
 REMAT_POLICIES = ("full", "dots", "attn")
 
 
-def _train_block(cfg: GPTJConfig, x, layer: GPTJBlock, positions):
-    return _block(cfg, x, layer, positions, cfg.attn_impl)[0]
+def _whole(p):
+    """A parameter gathered whole on every rank (``sharding.local`` over
+    every axis); a plain tensor passes through."""
+    return local(p, tp_local=False)
 
 
-def gptj_hidden(cfg: GPTJConfig, params: GPTJ, tokens: torch.Tensor) -> torch.Tensor:
+def _on_mesh(layer: GPTJBlock):
+    """The block's parameters gathered whole on this rank, as the block's
+    calls see them. Built inside the block, so a rematerialized block
+    gathers them again in the backward (ZeRO-3). GPT-J runs whole over tp
+    in this slice (the tp-parallel block is ``models.gpt``'s)."""
+    w = {n: _whole(getattr(layer, n).weight) for n in ("q", "k", "v", "attn_out", "mlp_in", "mlp_out")}
+    scale, bias = _whole(layer.ln1.scale), _whole(layer.ln1.bias)
+    b_in, b_out = _whole(layer.mlp_in.bias), _whole(layer.mlp_out.bias)
+    return SimpleNamespace(
+        ln1=lambda x: _layernorm(x, scale, bias),
+        q=lambda h: F.linear(h, w["q"]), k=lambda h: F.linear(h, w["k"]), v=lambda h: F.linear(h, w["v"]),
+        attn_out=lambda a: F.linear(a, w["attn_out"]),
+        mlp=lambda h: F.linear(F.gelu(F.linear(h, w["mlp_in"], b_in), approximate="tanh"), w["mlp_out"], b_out),
+    )
+
+
+def _train_block(cfg: GPTJConfig, x, layer: GPTJBlock, positions, mesh=None):
+    return _block(cfg, x, layer if mesh is None else _on_mesh(layer), positions, cfg.attn_impl)[0]
+
+
+def gptj_hidden(cfg: GPTJConfig, params: GPTJ, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
     """tokens (b, s) int → final hidden (b, s, d) in the activation dtype,
     differentiable, each block checkpointed under ``cfg.remat_policy``
-    (``models._remat``)."""
+    (``models._remat``). With ``mesh`` (parameters sharded onto it by
+    ``parallel.sharding.shard_params``) the tokens are this rank's batch
+    slice, and each block gathers its parameters on use."""
     check_policy(cfg, REMAT_POLICIES)
-    x = params.embed(tokens)
+    x = F.embedding(tokens, _whole(params.embed.weight))
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     for layer in params.blocks:
-        x = remat_block(cfg, x, partial(_train_block, cfg, layer=layer, positions=positions))
-    return params.ln_f(x)
+        x = remat_block(cfg, x, partial(_train_block, cfg, layer=layer, positions=positions, mesh=mesh))
+    return _layernorm(x, _whole(params.ln_f.scale), _whole(params.ln_f.bias))
 
 
-def gptj_loss(cfg: GPTJConfig, params: GPTJ, tokens: torch.Tensor) -> torch.Tensor:
+def gptj_loss(cfg: GPTJConfig, params: GPTJ, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
     """Next-token cross-entropy, mean over (b, s - 1). With
     ``cfg.fused_loss`` the (tokens, vocab) logits go through the fused
-    cross-entropy with the lm head's bias, in ``cfg.ce_chunks`` chunks."""
-    hidden = gptj_hidden(cfg, params, tokens[:, :-1])
+    cross-entropy with the lm head's bias, in ``cfg.ce_chunks`` chunks.
+    With ``mesh``, the mean over this rank's batch slice."""
+    hidden = gptj_hidden(cfg, params, tokens[:, :-1], mesh)
     targets = tokens[:, 1:]
-    head = params.lm_head
+    weight, bias = _whole(params.lm_head.weight), _whole(params.lm_head.bias)
     if cfg.fused_loss:
         b, s, d = hidden.shape
         losses = fused_softmax_cross_entropy_bias(
-            hidden.reshape(b * s, d), head.weight.t(), head.bias, targets.reshape(-1), cfg.ce_chunks
+            hidden.reshape(b * s, d), weight.t(), bias, targets.reshape(-1), cfg.ce_chunks
         )
         return losses.mean()
-    logits = hidden.float() @ head.weight.t() + head.bias
+    logits = hidden.float() @ weight.t() + bias
     logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
 

@@ -314,3 +314,50 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
     out = FlashAttention.apply(merge(q), merge(k), merge(v))
     return out.view(b, h, s, d)
+
+
+# ---------------------------------------------------------------------------
+# on a device mesh
+# ---------------------------------------------------------------------------
+
+
+def flash_shardable(batch: int, heads: int, mesh) -> bool:
+    """True when (batch, heads) divide the mesh's (dp*fsdp, tp) axes — the
+    precondition for ``flash_attention_sharded``."""
+    from ray_tpu_torch.parallel.mesh import axis_size
+
+    dp = axis_size(mesh, "dp") * axis_size(mesh, "fsdp")
+    return batch % dp == 0 and heads % axis_size(mesh, "tp") == 0
+
+
+def flash_attention_sharded(q, k, v, mesh):
+    """Flash attention on a dp/fsdp/tp mesh: each rank runs the kernels
+    (K3, and K4/K5 in the backward) on its own shard — batch over
+    ``(dp, fsdp)``, heads over ``tp``, seq and head_dim whole — as the
+    reference shard_maps its Pallas kernel. Attention has no cross-batch or
+    cross-head communication, so nothing is gathered.
+
+    ``DTensor`` q, k, v (global (batch, heads, seq, head_dim)) are
+    redistributed to that layout, their local shards attended, and the
+    result returned as a ``DTensor`` in it; the caller checks
+    ``flash_shardable`` first, as the reference's does. Plain tensors are
+    this rank's shards already (the GPT block's, under ``models.gpt``'s
+    ``mesh=``) and are attended as they are."""
+    from ray_tpu_torch.parallel.sharding import is_dtensor, placements
+
+    if not is_dtensor(q):
+        return flash_attention(q, k, v)
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.parallel.mesh import axis_size
+
+    b, h = q.shape[:2]
+    if not flash_shardable(b, h, mesh):
+        raise ValueError(
+            f"batch {b} / heads {h} don't divide mesh axes "
+            f"dp*fsdp={axis_size(mesh, 'dp') * axis_size(mesh, 'fsdp')}, tp={axis_size(mesh, 'tp')}"
+        )
+    spec = placements((("dp", "fsdp"), "tp", None, None), mesh)
+    q, k, v = (t.redistribute(mesh, spec) for t in (q, k, v))
+    out = flash_attention(q.to_local(), k.to_local(), v.to_local())
+    return DTensor.from_local(out, mesh, spec, run_check=False, shape=q.shape, stride=q.stride())

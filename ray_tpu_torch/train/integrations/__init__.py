@@ -1,12 +1,11 @@
-"""Framework integrations for ray_tpu_torch.train (copy of
-``ray_tpu/train/integrations/``): the HuggingFace weight loaders.
+"""Framework integrations for ray_tpu_torch.train (port of
+``ray_tpu/train/integrations/``): the HuggingFace weight loaders, sharded
+checkpoints through ``torch.distributed.checkpoint`` (``orbax.py``, named
+after the reference's module) and any ``nn.Module`` on the sharded step
+(``module_bridge.py``, the reference's ``flax_bridge``).
 
-The reference's ``orbax`` (sharded, async pytree checkpoints) and
-``flax_bridge`` (any linen module on the sharded step) wrap JAX libraries.
-Their counterparts need the multichip slice's sharding
-(``torch.distributed.checkpoint``; an ``nn.Module`` step over FSDP2), so
-reaching one of their names raises ``NotImplementedError`` (ROADMAP.md,
-queue A8). ``train.save_pytree``/``save_state`` keep one worker's state.
+The reference's flax names belong to a JAX library; reaching one here
+raises ``AttributeError`` naming its counterpart.
 """
 
 from ray_tpu_torch.train.integrations.huggingface import (  # noqa: F401
@@ -15,18 +14,27 @@ from ray_tpu_torch.train.integrations.huggingface import (  # noqa: F401
     load_hf_gpt2,
     load_hf_gptj,
 )
-
-#: the reference's names from ``orbax.py`` and ``flax_bridge.py``
-_NOT_PORTED = (
-    "save_pytree_checkpoint", "load_pytree_checkpoint", "orbax",
-    "build_flax_train_step", "flax_sharding_rules", "flax_bridge",
+from ray_tpu_torch.train.integrations.module_bridge import (  # noqa: F401
+    build_module_train_step,
+    module_sharding_rules,
 )
+from ray_tpu_torch.train.integrations.orbax import (  # noqa: F401
+    load_pytree_checkpoint,
+    save_pytree_checkpoint,
+)
+
+#: the reference's flax names and their counterparts here
+_RENAMED = {
+    "build_flax_train_step": "build_module_train_step",
+    "flax_sharding_rules": "module_sharding_rules",
+    "flax_bridge": "module_bridge",
+}
 
 
 def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"ray_tpu_torch.train.integrations.{name} is not ported yet (ROADMAP.md, "
-            "queue A8: it needs the multichip slice's sharded checkpoints and steps)"
+    if name in _RENAMED:
+        raise AttributeError(
+            f"ray_tpu_torch.train.integrations has no {name!r}: the reference's flax bridge is "
+            f"ported for torch modules as {_RENAMED[name]!r}"
         )
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -12,6 +12,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -170,6 +171,42 @@ def test_status_list_and_grafana(tmp_path):
         head.terminate()
         assert head.wait(timeout=30) == 0
         stop(head, node)
+
+
+def test_a_burst_of_connects_all_attach():
+    """Clients that connect to ``start --head``'s TCP port at one instant
+    (CLI commands run side by side) each finish the handshake: with a
+    listen backlog of 1, some waited for the challenge for good."""
+    from ray_tpu_torch._private.config import DEFAULT_AUTHKEY
+    from ray_tpu_torch._private.worker_main import connect_head
+
+    head, address = start_head("--num-cpus", "1")
+    n, conns, errors = 16, [], []
+    gate = threading.Barrier(n)
+
+    def attach():
+        try:
+            gate.wait(timeout=30)
+            conns.append(connect_head(address, DEFAULT_AUTHKEY, retries=1))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    # daemon threads: a client stuck in the handshake must not hold the
+    # interpreter at exit
+    threads = [threading.Thread(target=attach, daemon=True) for _ in range(n)]
+    try:
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 20
+        for t in threads:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+        stuck = sum(t.is_alive() for t in threads)
+        assert not stuck, f"{stuck} of {n} clients still in the handshake after 20 s"
+        assert not errors and len(conns) == n, errors
+    finally:
+        for c in list(conns):
+            c.close()
+        stop(head)
 
 
 def test_node_agent_leaves_when_its_head_is_gone():

@@ -1,8 +1,9 @@
 """The port's host collectives against the reference's tests: a mirror of
 ``tests/test_collective.py`` run on ``ray_tpu_torch.collective`` (members
 are actors; each joins a group and performs the same sequence of
-collectives), plus CPU ``torch.Tensor``s in and out, and the refusals: a
-device tensor, the NCCL backend and ``mesh_allreduce``. The ring is held
+collectives), plus CPU ``torch.Tensor``s in and out, the refusals (a
+device tensor, the NCCL backend, ``mesh_allreduce`` of a host array
+without a card) and ``mesh_allreduce`` on a CPU tensor. The ring is held
 correct without the reference's wall-clock bar (ROADMAP.md §C)."""
 
 import numpy as np
@@ -101,8 +102,9 @@ class Member:
         }
 
     def do_device_tensor(self):
-        """A tensor off the CPU (a meta tensor stands in for a CUDA one on
-        this machine): every collective refuses it, naming NCCL."""
+        """A tensor off the CPU (a meta tensor stands in for a CUDA one
+        where there is no card): every collective refuses it, naming the
+        device mesh's way (``ray_tpu_torch.parallel``, ``mesh_allreduce``)."""
         import torch
 
         from ray_tpu_torch import collective as col
@@ -182,7 +184,8 @@ def test_torch_tensors_in_and_out(members):
 
 def test_a_device_tensor_raises(members):
     for errors in ray_tpu_torch.get([m.do_device_tensor.remote() for m in members]):
-        assert all(e is not None and "NCCL" in e and "A8" in e for e in errors), errors
+        assert all(e is not None and "ray_tpu_torch.parallel" in e and "mesh_allreduce" in e
+                   for e in errors), errors
     # the group is still in step after the refusals
     test_allreduce(members)
 
@@ -258,10 +261,36 @@ def test_no_client_side_polling():
 
 
 def test_nccl_and_mesh_allreduce_raise(_shared_cluster):
+    """The reference has one backend, "host": ``backend="nccl"`` raises,
+    naming ``mesh_allreduce``; ``mesh_allreduce`` of a host array means the
+    card: without one it raises too and starts no group."""
+    import torch.distributed as dist
+
     from ray_tpu_torch import collective as col
 
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         col.mesh_allreduce(np.ones(4))
-    with pytest.raises(NotImplementedError, match="A8"):
+    assert not dist.is_initialized()
+    with pytest.raises(NotImplementedError, match="mesh_allreduce"):
         col.init_collective_group(2, 0, backend="nccl", group_name="nccl")
     assert not col.is_group_initialized("nccl")
+
+
+def test_mesh_allreduce_reduces_a_cpu_tensor():
+    """On a CPU tensor ``mesh_allreduce`` reduces over a gloo mesh of this
+    process (a group of one, destroyed here): the reference's function,
+    ``x`` reduced over axis 0 (many ranks: tests/test_torch_parallel.py)."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import collective as col
+
+    x = torch.tensor([[1.0, -2.0, 3.0], [4.0, 5.0, -6.0], [7.0, 1.0, 2.0]])
+    try:
+        got = {op: col.mesh_allreduce(x, op=op) for op in col.ReduceOp}
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got[col.ReduceOp.SUM], x.sum(0))
+    assert torch.equal(got[col.ReduceOp.PRODUCT], x.prod(0))
+    assert torch.equal(got[col.ReduceOp.MIN], x.amin(0))
+    assert torch.equal(got[col.ReduceOp.MAX], x.amax(0))

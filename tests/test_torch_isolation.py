@@ -1,5 +1,5 @@
 """The port stands alone: ray_tpu_torch and the chip scripts (chip_smoke.py,
-chip_mutants.py, chip_flash_probe.py, chip_start_probe.py) import nothing of JAX or of the JAX package, and the port's entry points never fall back to
+chip_mutants.py, chip_flash_probe.py, chip_start_probe.py, chip_cuts.py, chip_mesh.py) import nothing of JAX or of the JAX package, and the port's entry points never fall back to
 the CPU when the card is missing. No port file names a ``ray_tpu.`` module in
 a string (the runtime spawns its workers and template by module name, which
 an import scan cannot see), and a worker under ``ray_tpu_torch.init()`` loads
@@ -20,7 +20,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ray_tpu"}
 
 
 def _port_files():
-    chip = ("chip_smoke.py", "chip_mutants.py", "chip_flash_probe.py", "chip_start_probe.py")
+    chip = ("chip_smoke.py", "chip_mutants.py", "chip_flash_probe.py", "chip_start_probe.py", "chip_cuts.py",
+            "chip_mesh.py")
     return sorted((REPO / "ray_tpu_torch").rglob("*.py")) + [REPO / name for name in chip]
 
 
@@ -59,6 +60,10 @@ def test_importing_the_port_loads_no_jax():
         "import ray_tpu_torch.serve, ray_tpu_torch.serve.llm, ray_tpu_torch.serve._private.proxy\n"
         "import ray_tpu_torch.serve._private.grpc_proxy, ray_tpu_torch.serve._private.controller\n"
         "import ray_tpu_torch._private.chaos, ray_tpu_torch.obs, ray_tpu_torch.llm.loadgen\n"
+        "import ray_tpu_torch.parallel.mesh, ray_tpu_torch.parallel.sharding, ray_tpu_torch.parallel.pipeline\n"
+        "import ray_tpu_torch.parallel.multislice, ray_tpu_torch.parallel.fit_proof\n"
+        "import ray_tpu_torch.parallel._multislice_worker, ray_tpu_torch.collective.collective\n"
+        "import ray_tpu_torch.train.integrations.orbax, ray_tpu_torch.train.integrations.module_bridge\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
@@ -529,6 +534,31 @@ def test_training_entry_points_without_device_need_cuda(monkeypatch):
         init_fn(params)
     state = init_fn(params, "cpu")
     assert state.step == 0 and all(p.device.type == "cpu" for p in state.params.parameters())
+
+
+def test_make_mesh_without_device_needs_cuda():
+    """``make_mesh()`` with no device means the card: without one it raises
+    and starts no process group (never a CPU group in its place); the same
+    for ``mesh_allreduce`` of a host array. In a fresh process, so no group
+    could outlive the test."""
+    code = (
+        "import sys, torch, torch.distributed as dist\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "from ray_tpu_torch.parallel import make_mesh\n"
+        "from ray_tpu_torch.collective import mesh_allreduce\n"
+        "for call in (make_mesh, lambda: mesh_allreduce([1.0, 2.0])):\n"
+        "    try:\n"
+        "        call()\n"
+        "        sys.exit('no error')\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'no CUDA device' in str(e), e\n"
+        "    assert not dist.is_initialized()\n"
+        "print('ok')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
 
 
 def test_iter_torch_batches_without_device_needs_cuda(monkeypatch):
