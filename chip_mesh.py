@@ -11,11 +11,12 @@ Starts ``WORLD`` processes, one per rank, joined by one process group at
 1. runs the one-device step (``build_train_step`` without a mesh) of the
    GPT on its own card from the same weights (seed 0) and batch (numpy
    seed 13) — the reference the meshes are held against — and again on
-   rank 0's slice of the batch alone (``BATCH / WORLD`` sequences): its
-   time is a rank's share of the work, and its parameters are what a mesh
-   that lost its batch reduction would hold on rank 0;
+   rank 0's slice of the batch alone (a ``WORLD``-th of the sequences):
+   its time is a rank's share of the work, and its parameters are what a
+   mesh that lost its batch reduction would hold on rank 0;
 2. for each mesh of ``MESHES`` (dp 4; dp 2 x fsdp 2; fsdp 4; fsdp 2 x tp
-   2) builds ``make_mesh``, shards the same weights, takes ``STEPS`` steps
+   2; sp 4 and sp 2 x dp 2, where attention is ring attention over sp)
+   builds ``make_mesh``, shards the same weights, takes ``STEPS`` steps
    and checks that every rank reports the same loss, that it agrees with
    the one-device step's within ``TOL`` relative (bf16 activations: the
    ranks' partial sums round in another order; the bf16 limit is 12x the
@@ -24,21 +25,27 @@ Starts ``WORLD`` processes, one per rank, joined by one process group at
    they lie nearer the one-device step's than the slice-alone step's do
    (``NEAR`` of that distance); times the steps after the first (host
    clock ending in the loss's sync) and reads the peak memory;
-3. checks ``mesh_allreduce`` of integer-valued fp32 over the first mesh
+3. does 1 and 2 for the mixture-of-experts GPT on ``MOE_MESHES`` (ep 2 x
+   dp 2, ep 4, ep 2 x tp 2) in fp32, so that no bf16 rounding tie flips a
+   top-k choice and the fp32 limit holds, then times the one-device step
+   and each mesh's in bf16;
+4. checks ``mesh_allreduce`` of integer-valued fp32 over the first mesh
    axis against torch's own reductions, exactly, for each ``ReduceOp``;
-4. runs ``pipeline_apply`` over a ``pp`` axis of every rank (send and
+5. runs ``pipeline_apply`` over a ``pp`` axis of every rank (send and
    receive between neighbours) against the layers applied in sequence,
    forward and gradients, within ``TOL[float32]``.
 
 The full run uses the 406M configuration of bench.py (vocab 50304, seq
 1024, d 1024, 24 layers, 16 heads, remat "attn", bf16) at a global batch of
-32 sequences. Rank 0 prints a JSON summary as its last line; the launcher
-exits non-zero when any rank fails.
+32 sequences, and ``chip_smoke.py`` phase 27 (b)'s MoE GPT-124M (8 experts
+top-2, capacity 1.25, remat "full") at 16. Rank 0 prints a JSON summary as
+its last line; the launcher exits non-zero when any rank fails.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import socket
@@ -49,9 +56,12 @@ import time
 TOL = {"float32": 2e-5, "bfloat16": 1e-3}
 NEAR = 0.5
 WORLD = 4
-MESHES = {"dp4": dict(dp=4, fsdp=1, tp=1), "dp2_fsdp2": dict(dp=2, fsdp=2, tp=1),
-          "fsdp4": dict(dp=1, fsdp=4, tp=1), "fsdp2_tp2": dict(dp=1, fsdp=2, tp=2)}
+AXES = ("dp", "fsdp", "ep", "sp", "tp")
+MESHES = {"dp4": dict(dp=4), "dp2_fsdp2": dict(dp=2, fsdp=2), "fsdp4": dict(fsdp=4),
+          "fsdp2_tp2": dict(fsdp=2, tp=2), "sp4": dict(sp=4), "sp2_dp2": dict(sp=2, dp=2)}
+MOE_MESHES = {"ep2_dp2": dict(ep=2, dp=2), "ep4": dict(ep=4), "ep2_tp2": dict(ep=2, tp=2)}
 BATCH = 32
+MOE_BATCH = 16
 STEPS = 4
 TIMEOUT = 900.0
 
@@ -64,6 +74,15 @@ def model_config(tiny: bool):
                          attn_impl="flash")
     return GPTConfig(vocab_size=50_304, seq_len=1024, d_model=1024, n_layers=24, n_heads=16,
                      remat_policy="attn", ce_chunks=1)
+
+
+def moe_config(tiny: bool, dtype: str):
+    from ray_tpu_torch.models.gpt import GPTConfig
+
+    if tiny:
+        return GPTConfig(vocab_size=256, seq_len=64, d_model=64, n_layers=2, n_heads=4, dtype=dtype,
+                         attn_impl="flash", n_experts=4)
+    return GPTConfig(n_experts=8, dtype=dtype)  # GPT-124M, 8 experts top-2, capacity 1.25, remat "full"
 
 
 def profile_line(prof, total: float, enqueued: float) -> str:
@@ -118,19 +137,16 @@ def rank_main(args) -> None:
     dist.init_process_group("gloo" if cpu else "nccl", init_method=args.init, rank=args.rank,
                             world_size=WORLD)
     cfg = model_config(args.tiny)
-    tol = TOL[cfg.dtype]
-    tokens = torch.from_numpy(np.random.RandomState(13).randint(0, cfg.vocab_size, (BATCH, cfg.seq_len + 1)))
-    tokens = tokens.to(dev)
 
     def sync():
         if not cpu:
             torch.cuda.synchronize(dev)
 
-    def params():
+    def params(cfg):
         gen = torch.Generator(device=dev.type).manual_seed(0)
         return gpt_init(cfg, gen, device=dev)
 
-    def run(step_fn, state, label, batch=tokens):
+    def run(step_fn, state, label, batch):
         """``STEPS`` steps: (losses, ms, state). With ``--profile`` every
         rank then takes one more step, which rank 0 traces: its host time,
         top host ops, and on the card the device timeline's busy time
@@ -166,49 +182,92 @@ def rank_main(args) -> None:
         for n, p in state.params.named_parameters():
             yield n, full_value(p, fused_qkv="attn_qkv" in n).float()
 
-    out = {"device": "cpu" if cpu else torch.cuda.get_device_name(dev), "world": WORLD,
-           "batch": BATCH, "config": {k: getattr(cfg, k) for k in ("vocab_size", "seq_len", "d_model",
-                                                                   "n_layers", "n_heads", "dtype")}}
-    init_fn, step_fn = build_train_step(lambda p, t: gpt_loss(cfg, p, t), adamw(1e-4))
-    ref = {}
-    for name, batch in (("one_device", tokens), ("one_device_slice", tokens[:BATCH // WORLD])):
+    def tokens_of(cfg, batch):
+        rng = np.random.RandomState(13)
+        return torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, cfg.seq_len + 1))).to(dev)
+
+    def mesh_of(axes):
+        return make_mesh(MeshConfig(**{a: axes.get(a, 1) for a in AXES}), devices=dev.type)
+
+    def memory_reset():
         if not cpu:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
-        losses, ms, state = run(step_fn, init_fn(params(), dev), name, batch)
-        out[name] = dict(batch=batch.shape[0], losses=losses, ms=ms,
-                         peak_gb=None if cpu else torch.cuda.max_memory_allocated(dev) / 1e9)
-        ref[name] = {n: v.clone() for n, v in whole(state)}
+
+    def peak_gb():
+        return None if cpu else torch.cuda.max_memory_allocated(dev) / 1e9
+
+    def config_of(cfg):
+        return {k: getattr(cfg, k) for k in ("vocab_size", "seq_len", "d_model", "n_layers", "n_heads", "dtype",
+                                             "n_experts")}
+
+    def parity(group, cfg, tokens, meshes, failures) -> dict:
+        """1 and 2: the one-device step, the slice alone, then each mesh
+        against them."""
+        tol = TOL[cfg.dtype]
+        res = {"config": config_of(cfg), "batch": tokens.shape[0]}
+        init_fn, step_fn = build_train_step(lambda p, t: gpt_loss(cfg, p, t), adamw(1e-4))
+        ref = {}
+        for name, batch in (("one_device", tokens), ("one_device_slice", tokens[:tokens.shape[0] // WORLD])):
+            memory_reset()
+            losses, ms, state = run(step_fn, init_fn(params(cfg), dev), f"{group} {name}", batch)
+            res[name] = dict(batch=batch.shape[0], losses=losses, ms=ms, peak_gb=peak_gb())
+            ref[name] = {n: v.clone() for n, v in whole(state)}
+            del state
+        plain = res["one_device"]["losses"]
+        lost = sum((ref["one_device_slice"][n] - v).double().square().sum() for n, v in ref["one_device"].items())
+        res["one_device_slice"]["distance"] = lost = lost.sqrt().item()
+        del ref["one_device_slice"]
+        for name, axes in meshes.items():
+            mesh = mesh_of(axes)
+            mcfg = cfg if axes.get("sp", 1) == 1 else dataclasses.replace(cfg, attn_impl="auto")  # ring over sp
+            init_m, step_m = build_train_step(lambda p, t, c=mcfg, m=mesh: gpt_loss(c, p, t, m), adamw(1e-4), mesh)
+            memory_reset()
+            losses, ms, state = run(step_m, init_m(params(cfg)), f"{group} {name}", tokens)
+            peak = peak_gb()
+            sq = torch.zeros((), dtype=torch.float64, device=dev)
+            bits = torch.zeros((), dtype=torch.int64, device=dev)
+            for n, v in whole(state):
+                sq += (v - ref["one_device"][n]).double().square().sum()
+                bits += v.view(torch.int32).sum(dtype=torch.int64)
+            del state
+            every = [None] * WORLD
+            dist.all_gather_object(every, (losses, bits.item()))
+            gap = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+            res[name] = dict(losses=losses, ms=ms, gap=gap, same_on_every_rank=all(e == every[0] for e in every),
+                             distance=sq.sqrt().item(), peak_gb=peak)
+            if not res[name]["same_on_every_rank"] or gap > tol:
+                failures.append(f"{name}: (losses, parameter bit-sum) {every} against the one-device step's "
+                                f"losses {plain} (limit {tol})")
+            if res[name]["distance"] > NEAR * lost:
+                failures.append(f"{name}: parameters {res[name]['distance']:.6g} from the one-device step's, "
+                                f"the slice alone's {lost:.6g} (limit {NEAR} of it)")
+        return res
+
+    def timing(group, cfg, tokens, meshes) -> dict:
+        """3's times: the one-device step and each mesh's, no parity."""
+        res = {"config": config_of(cfg), "batch": tokens.shape[0]}
+        init_fn, step_fn = build_train_step(lambda p, t: gpt_loss(cfg, p, t), adamw(1e-4))
+        memory_reset()
+        losses, ms, state = run(step_fn, init_fn(params(cfg), dev), f"{group} one_device", tokens)
+        res["one_device"] = dict(losses=losses, ms=ms, peak_gb=peak_gb())
         del state
-    plain = out["one_device"]["losses"]
-    lost = sum((ref["one_device_slice"][n] - v).double().square().sum() for n, v in ref["one_device"].items())
-    out["one_device_slice"]["distance"] = lost = lost.sqrt().item()
-    del ref["one_device_slice"]
+        for name, axes in meshes.items():
+            mesh = mesh_of(axes)
+            init_m, step_m = build_train_step(lambda p, t, m=mesh: gpt_loss(cfg, p, t, m), adamw(1e-4), mesh)
+            memory_reset()
+            losses, ms, state = run(step_m, init_m(params(cfg)), f"{group} {name}", tokens)
+            res[name] = dict(losses=losses, ms=ms, peak_gb=peak_gb())
+            del state
+        return res
+
+    out = {"device": "cpu" if cpu else torch.cuda.get_device_name(dev), "world": WORLD}
     failures = []
-    for name, axes in MESHES.items():
-        mesh = make_mesh(MeshConfig(sp=1, **axes), devices=dev.type)
-        init_m, step_m = build_train_step(lambda p, t, mesh=mesh: gpt_loss(cfg, p, t, mesh), adamw(1e-4), mesh)
-        if not cpu:
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(dev)
-        losses, ms, state = run(step_m, init_m(params()), name)
-        peak = None if cpu else torch.cuda.max_memory_allocated(dev) / 1e9
-        sq, bits = torch.zeros((), dtype=torch.float64, device=dev), torch.zeros((), dtype=torch.int64, device=dev)
-        for n, v in whole(state):
-            sq += (v - ref["one_device"][n]).double().square().sum()
-            bits += v.view(torch.int32).sum(dtype=torch.int64)
-        del state
-        every = [None] * WORLD
-        dist.all_gather_object(every, (losses, bits.item()))
-        gap = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
-        out[name] = dict(losses=losses, ms=ms, gap=gap, same_on_every_rank=all(e == every[0] for e in every),
-                         distance=sq.sqrt().item(), peak_gb=peak)
-        if not out[name]["same_on_every_rank"] or gap > tol:
-            failures.append(f"{name}: (losses, parameter bit-sum) {every} against the one-device step's "
-                            f"losses {plain} (limit {tol})")
-        if out[name]["distance"] > NEAR * lost:
-            failures.append(f"{name}: parameters {out[name]['distance']:.6g} from the one-device step's, "
-                            f"the slice alone's {lost:.6g} (limit {NEAR} of it)")
+    out["gpt_406m"] = parity("gpt_406m", cfg, tokens_of(cfg, BATCH), MESHES, failures)
+    moe32 = moe_config(args.tiny, "float32")
+    out["moe_fp32"] = parity("moe_fp32", moe32, tokens_of(moe32, MOE_BATCH), MOE_MESHES, failures)
+    moe16 = moe_config(args.tiny, "bfloat16")
+    out["moe_bf16"] = timing("moe_bf16", moe16, tokens_of(moe16, MOE_BATCH), MOE_MESHES)
 
     mesh = make_mesh(MeshConfig(), devices=dev.type)
     gen = torch.Generator(device=dev.type).manual_seed(34)

@@ -3578,10 +3578,10 @@ def fp32_training_identity() -> None:
             raise AssertionError(f"fp32 training {policy}: flash and xla paths disagree")
 
 
-def qkv_grads(cfg: GPTConfig, params, tokens):
-    """``gpt_loss`` and its gradient for each layer's qkv weight: (loss,
-    [(3 d, d) fp32 per layer])."""
-    loss = gpt_loss(cfg, params, tokens)
+def qkv_grads(cfg: GPTConfig, params, tokens, mesh=None):
+    """``gpt_loss`` (on ``mesh``, if given) and its gradient for each
+    layer's qkv weight: (loss, [(3 d, d) fp32 per layer])."""
+    loss = gpt_loss(cfg, params, tokens, mesh)
     return loss.item(), torch.autograd.grad(loss, [b.attn_qkv.weight for b in params.blocks])
 
 
@@ -3623,6 +3623,7 @@ def train_406m(card: str) -> dict:
     xla_loss, xla_grads = qkv_grads(dataclasses.replace(cfg, attn_impl="xla", remat_policy="full"),
                                     params, tokens)
     gaps = qkv_grad_gaps(flash_grads, xla_grads, cfg.d_model)
+    xla_qkv_grads = [g.cpu() for g in xla_grads]  # phase 34 (g) holds ring attention's against them
     del flash_grads, xla_grads
     print(f"406M step 0 qkv weight gradients, flash vs xla, largest relative gap over layers: "
           + ", ".join(f"{n} {g:.3g}" for n, g in gaps.items()) + f" (limit {QKV_GRAD_GAP})")
@@ -3748,7 +3749,7 @@ def train_406m(card: str) -> dict:
     print(f"  fused CE forward + backward {cuda_ms(ce_step, 5, warmup=1):.3f} ms per step "
           f"({TRAIN_B * s} tokens x vocab {V}, {cfg.ce_chunks} chunk; CUDA events, alone)")
     return dict(launches=dict(zip(("K3", "K4", "K5"), launches)), losses=losses[:steps + 1],
-                step_ms=step_ms, n_params=n_params)
+                step_ms=step_ms, n_params=n_params, xla_qkv_grads=xla_qkv_grads, xla_loss=xla_loss)
 
 
 # ---------------------------------------------------------------------------
@@ -6547,6 +6548,8 @@ def workflow_on_card(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 MESH34_STEPS = 4  # (a): steps 0-3 of phase 17's run, on the mesh
+MOE34_STEPS = 3  # (f): phase 27 (b)'s MoE GPT-124M on the mesh and plain, in turns
+RING34_TIMED = 2  # (g): ring and flash mesh steps timed in turns, after a warm-up step of each
 CKPT34_CFG = dataclasses.replace(TRAIN_406M, n_layers=4)  # (d): the 406M width at 4 layers
 CKPT34_STEPS = 2  # (d): the first fit's steps before its checkpoint; the second fit takes one more
 
@@ -6836,10 +6839,116 @@ def fit_proof_on_card(card: str) -> dict:
     return dict(report=rep, launches=launches)
 
 
+def mesh_moe(card: str, mesh) -> dict:
+    """(f): ``MOE27`` (GPT-124M, 8 experts top-2, capacity 1.25, remat
+    "full", bf16; phase 27 (b)'s) from seed 0 and phase 27 (b)'s batch (8 x
+    1024), one state trained by the one-device step and one by
+    ``build_train_step(..., mesh)``, ``MOE34_STEPS`` steps each in turns.
+    On one rank the routing's all-gathers and sums over the token axes, the
+    experts' gather over ep and the gradient reductions move nothing, so
+    the losses equal the plain step's bit for bit; K3/K4/K5 launch as
+    ``expected_flash_launches`` says a mesh step."""
+    cfg = MOE27
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = gpt27_tokens(28)
+    init_p, step_p = build_train_step(lambda p, t: gpt_loss(cfg, p, t), adamw(1e-4))
+    init_m, step_m = build_train_step(lambda p, t: gpt_loss(cfg, p, t, mesh), adamw(1e-4), mesh)
+    plain = init_p(gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0)))
+    sharded = init_m(gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0)))
+    mesh_state_check(sharded, mesh, "(f)")
+    runs = {"plain": dict(losses=[], ms=[], peak=[]), "mesh": dict(losses=[], ms=[], peak=[])}
+    launches = [0, 0, 0]
+    for _ in range(MOE34_STEPS):
+        plain, loss, ms, peak = step_timed(step_p, plain, tokens)
+        for key, value in (("losses", loss), ("ms", ms), ("peak", peak)):
+            runs["plain"][key].append(value)
+        before = flash_launches()
+        sharded, loss, ms, peak = step_timed(step_m, sharded, tokens)
+        launches = [a + b - c for a, b, c in zip(launches, flash_launches(), before)]
+        for key, value in (("losses", loss), ("ms", ms), ("peak", peak)):
+            runs["mesh"][key].append(value)
+    want = expected_flash_launches(cfg, MOE34_STEPS)
+    mesh_ms, plain_ms = np.mean(runs["mesh"]["ms"][1:]), np.mean(runs["plain"]["ms"][1:])
+    for name, r in runs.items():
+        ms = float(np.mean(r["ms"][1:]))
+        print(f"(f) MoE GPT-124M {name} step [{card}]: {ms:.3f} ms (steps {[f'{x:.1f}' for x in r['ms']]}, step 0 "
+              f"the warm-up), {GPT27_B * cfg.seq_len / (ms / 1e3):.0f} tokens/s; peak memory "
+              f"{max(r['peak']) / 1e9:.2f} GB (both states included); losses {[repr(x) for x in r['losses']]}")
+    equal = runs["mesh"]["losses"] == runs["plain"]["losses"]
+    print(f"(f) MOE27 ({cfg.n_experts} experts top-{cfg.experts_per_token}, capacity {cfg.capacity_factor}, batch "
+          f"{GPT27_B} x {cfg.seq_len}) on the mesh over {dist.get_backend()}: mesh / plain step "
+          f"{mesh_ms / plain_ms:.4f}; losses equal to the plain step's bit for bit: {equal}; K3/K4/K5 launches over "
+          f"the {MOE34_STEPS} mesh steps {tuple(launches)} = {want} expected")
+    if not equal:
+        raise AssertionError(f"(f) MoE losses mesh {runs['mesh']['losses']} differ from the plain step's "
+                             f"{runs['plain']['losses']} (one rank does the same arithmetic: bit equality)")
+    if tuple(launches) != want:
+        raise AssertionError(f"(f) K3/K4/K5 launched {launches} times over the MoE mesh steps, expected {want}")
+    return dict(launches=tuple(launches), mesh_ms=float(mesh_ms), plain_ms=float(plain_ms))
+
+
+def mesh_ring(card: str, phase17: dict, mesh) -> dict:
+    """(g): phase 17's configuration with ``attn_impl="ring"`` on the mesh
+    (one rank: one hop of fp32 partials, no rotation), seed 0 and phase
+    17's batch. Step 0's qkv weight gradients lie within ``QKV_GRAD_GAP``
+    of phase 17's einsum-path gradients (the loss cannot see attention);
+    then a warm-up step and ``RING34_TIMED`` steps each of the ring and the
+    flash mesh step, in turns. K3-K5 launch 0 times on the ring's path."""
+    cfg = dataclasses.replace(TRAIN_406M, attn_impl="ring")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = torch.from_numpy(train_406m_tokens()).cuda()
+    params = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    before = flash_launches()
+    loss0, grads = qkv_grads(cfg, params, tokens, mesh)
+    grads_launches = tuple(b - a for a, b in zip(before, flash_launches()))
+    gaps = qkv_grad_gaps(grads, [w.cuda() for w in phase17["xla_qkv_grads"]], cfg.d_model)
+    del grads
+    init_r, step_r = build_train_step(lambda p, t: gpt_loss(cfg, p, t, mesh), adamw(1e-4), mesh)
+    init_f, step_f = build_train_step(lambda p, t: gpt_loss(TRAIN_406M, p, t, mesh), adamw(1e-4), mesh)
+    ring = init_r(params)
+    flash = init_f(gpt_init(TRAIN_406M, torch.Generator(device="cuda").manual_seed(0)))
+    runs = {"ring": dict(losses=[], ms=[], peak=[]), "flash": dict(losses=[], ms=[], peak=[])}
+    ring_launches = [0, 0, 0]
+    for _ in range(1 + RING34_TIMED):
+        mark = flash_launches()
+        ring, loss, ms, peak = step_timed(step_r, ring, tokens)
+        ring_launches = [a + b - c for a, b, c in zip(ring_launches, flash_launches(), mark)]
+        for key, value in (("losses", loss), ("ms", ms), ("peak", peak)):
+            runs["ring"][key].append(value)
+        flash, loss, ms, peak = step_timed(step_f, flash, tokens)
+        for key, value in (("losses", loss), ("ms", ms), ("peak", peak)):
+            runs["flash"][key].append(value)
+    ring_ms, flash_ms = np.mean(runs["ring"]["ms"][1:]), np.mean(runs["flash"]["ms"][1:])
+    for name, r in runs.items():
+        print(f"(g) 406M {name} mesh step [{card}]: {np.mean(r['ms'][1:]):.3f} ms (steps "
+              f"{[f'{x:.1f}' for x in r['ms']]}, step 0 the warm-up); peak memory {max(r['peak']) / 1e9:.2f} GB (both "
+              f"states included); losses {[f'{x:.6f}' for x in r['losses']]}")
+    print(f"(g) ring attention (attn_impl=\"ring\", {axis_sizes(mesh)}: one hop) at the 406M shape, batch {TRAIN_B}: "
+          f"step 0 loss {loss0:.6f} (phase 17's einsum path {phase17['xla_loss']:.6f}); qkv weight gradients against "
+          f"phase 17's einsum path, largest relative gap over layers: "
+          + ", ".join(f"{n} {g:.3g}" for n, g in gaps.items()) + f" (limit {QKV_GRAD_GAP}); ring / flash mesh step "
+          f"{ring_ms / flash_ms:.4f} (+{ring_ms - flash_ms:.1f} ms); K3/K4/K5 launches on the ring's path "
+          f"{tuple(ring_launches)} in its steps, {tuple(grads_launches)} in its step-0 gradients (expected 0)")
+    if not all(g <= QKV_GRAD_GAP for g in gaps.values()):
+        raise AssertionError(f"(g) ring attention's qkv gradients differ from the einsum path's: {gaps}")
+    if any(ring_launches) or any(grads_launches):
+        raise AssertionError(f"(g) K3-K5 launched on the ring's path: {ring_launches}, {grads_launches}")
+    if not all(np.isfinite(runs["ring"]["losses"])):
+        raise AssertionError(f"(g) non-finite ring losses {runs['ring']['losses']}")
+    return dict(ring_ms=float(ring_ms), flash_ms=float(flash_ms), gaps=gaps)
+
+
+def axis_sizes(mesh) -> dict:
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
 def mesh_on_card(card: str, phase17: dict) -> dict:
     """Phase 34: GPT-406M on a device mesh: (e) the fit proof first (its
     fake process group must be this process's only one), then an NCCL mesh
-    of one card for (a)-(d)."""
+    of one card for (a)-(d), the MoE GPT-124M (f) and ring attention
+    (g)."""
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -6851,9 +6960,14 @@ def mesh_on_card(card: str, phase17: dict) -> dict:
         torch.cuda.empty_cache()
         mesh_allreduce_exact(card, mesh)
         ckpt = mesh_checkpoint_through_trainer(card, mesh)
+        t0 = time.perf_counter()
+        moe = mesh_moe(card, mesh)
+        t1 = time.perf_counter()
+        ring = mesh_ring(card, phase17, mesh)
+        print(f"phase 34 [{card}]: (f) {t1 - t0:.1f} s, (g) {time.perf_counter() - t1:.1f} s")
     finally:
         dist.destroy_process_group()
-    return dict(trained=trained, ckpt=ckpt, proof=proof, seconds=time.perf_counter() - t_phase)
+    return dict(trained=trained, ckpt=ckpt, proof=proof, moe=moe, ring=ring, seconds=time.perf_counter() - t_phase)
 
 
 def share_bytecode() -> str:
@@ -7099,7 +7213,8 @@ def main() -> int:
                    "gpt_406m_mesh_train_step": meshed["trained"]["launches"][kernel],
                    "gpt_406m_mesh_checkpoint_trainer": meshed["ckpt"]["trainer"][i],
                    "gpt_406m_mesh_checkpoint_here": meshed["ckpt"]["here"][i],
-                   "gpt_406m_fit_report": meshed["proof"]["launches"][i]}
+                   "gpt_406m_fit_report": meshed["proof"]["launches"][i],
+                   "gpt_124m_moe_mesh_train_step": meshed["moe"]["launches"][i]}
         kernels.append(dict(
             name=kernel_name,
             route="cuda",

@@ -32,6 +32,7 @@ name prefix at shutdown).
 
 from __future__ import annotations
 
+import os
 import socket
 import threading
 import time
@@ -46,6 +47,46 @@ from ray_tpu_torch._private import events
 EVENT_NAMES = ("core.object.p2p_pull",)
 
 
+#: seconds a client that connected has to answer the hmac challenge
+HANDSHAKE_TIMEOUT_S = 20.0
+
+
+def authenticate(conn, authkey: bytes) -> None:
+    """The server's half of multiprocessing's hmac handshake on an accepted
+    connection, as ``Listener.accept`` runs it, within
+    ``HANDSHAKE_TIMEOUT_S``. The listeners accept without it
+    (``authkey=None``) and each connection's own thread runs it, so one
+    client that connects and stays silent holds up no other connect. The
+    deadline covers the whole handshake: when it passes, a watchdog shuts
+    the socket down, so a client that stops mid-message fails the read
+    too. Raises (``AuthenticationError``, ``OSError``, ``EOFError``) for a
+    client to drop."""
+    from multiprocessing.connection import answer_challenge, deliver_challenge
+
+    sock = socket.socket(fileno=os.dup(conn.fileno()))
+    lock, done = threading.Lock(), False
+
+    def expire() -> None:
+        with lock:
+            if not done:
+                try:
+                    sock.shutdown(socket.SHUT_RDWR)
+                except OSError:  # the client has gone already
+                    pass
+
+    watchdog = threading.Timer(HANDSHAKE_TIMEOUT_S, expire)
+    watchdog.daemon = True
+    watchdog.start()
+    try:
+        deliver_challenge(conn, authkey)
+        answer_challenge(conn, authkey)
+    finally:
+        with lock:
+            done = True
+        watchdog.cancel()
+        sock.close()
+
+
 def _chunk_bytes() -> int:
     from ray_tpu_torch._private.config import GLOBAL_CONFIG
 
@@ -58,8 +99,10 @@ class DataServer:
     """Serves this host's shm objects to remote pullers."""
 
     def __init__(self, authkey: bytes, host: str = "0.0.0.0"):
-        # a large backlog, as the head's listeners have (head.start)
-        self._listener = Listener((host, 0), backlog=socket.SOMAXCONN, authkey=authkey)
+        # a large backlog, as the head's listeners have (head.start); the
+        # handshake runs in each connection's thread (``authenticate``)
+        self._authkey = authkey
+        self._listener = Listener((host, 0), backlog=socket.SOMAXCONN)
         self.port = self._listener.address[1]
         self.bytes_served = 0
         self._shutdown = False
@@ -86,6 +129,10 @@ class DataServer:
         from ray_tpu_torch._private.shm_store import ShmReader
 
         try:
+            try:
+                authenticate(conn, self._authkey)
+            except Exception:  # noqa: BLE001 - a silent, slow or wrong client: drop it
+                return
             while True:
                 try:
                     msg = conn.recv()

@@ -880,12 +880,13 @@ class Head:
     def start(self):
         from multiprocessing.connection import Listener
 
-        # multiprocessing's default backlog is 1: with the hmac handshake
-        # run in the accept thread, a burst of connects (CLI commands or
-        # drivers started side by side) overflows it, and on TCP a client
-        # whose ACK was dropped waits for the challenge forever
-        self._listener = Listener(self.socket_path, family="AF_UNIX", backlog=socket.SOMAXCONN,
-                                  authkey=self.authkey)
+        # multiprocessing's default backlog is 1: a burst of connects (CLI
+        # commands or drivers started side by side) overflows it, and on TCP
+        # a client whose ACK was dropped waits for the challenge forever.
+        # The listeners take no authkey: the hmac handshake runs in each
+        # connection's thread under a deadline (``_serve_conn``), so one
+        # client that connects and stays silent holds up no other
+        self._listener = Listener(self.socket_path, family="AF_UNIX", backlog=socket.SOMAXCONN)
         t = threading.Thread(
             target=self._accept_loop, args=(self._listener, False),
             name="head-accept", daemon=True,
@@ -924,7 +925,7 @@ class Head:
         shm)."""
         from multiprocessing.connection import Listener
 
-        self._tcp_listener = Listener((host, port), backlog=socket.SOMAXCONN, authkey=self.authkey)
+        self._tcp_listener = Listener((host, port), backlog=socket.SOMAXCONN)  # handshake: _serve_conn
         self.tcp_address = self._tcp_listener.address
         if self.data_server is None:
             from ray_tpu_torch._private.data_plane import DataServer
@@ -946,10 +947,8 @@ class Head:
             except (OSError, EOFError):
                 return
             except Exception as e:
-                # A client that died mid-handshake (AuthenticationError) or
-                # sent garbage must not kill the accept loop — that would
-                # silently stop ALL future worker registration. Drop the
-                # connection and keep accepting.
+                # an accept error must not kill the accept loop — that would
+                # silently stop ALL future worker registration
                 warn_throttled("head accept loop", e)
                 continue
             t = threading.Thread(
@@ -963,6 +962,14 @@ class Head:
         for all workers, like the reference raylet's single io_service) —
         a thread per worker makes every one of them a GIL competitor and
         measurably caps task throughput."""
+        from ray_tpu_torch._private.data_plane import authenticate
+
+        try:
+            authenticate(conn, self.authkey)
+        except Exception as e:  # noqa: BLE001 - a silent, slow or wrong client: drop it
+            warn_throttled("head handshake", e)
+            conn.close()
+            return
         worker: Optional[WorkerHandle] = None
         agent_node: Optional[NodeID] = None
         session: Optional[ClientSession] = None

@@ -34,17 +34,28 @@ and ``"big"`` keep its out and lse, and ``"attn_qkv"`` the qkv projection
 
 ``mesh=`` (a ``parallel.mesh.make_mesh`` mesh; the parameters sharded onto
 it by ``parallel.sharding.shard_params``) runs this rank's share of the
-reference's SPMD program: the tokens are this rank's batch slice, each
-block all-gathers its parameters on use (``sharding.local``), and under
-``tp`` each rank holds ``n_heads / tp`` heads: the qkv and MLP-in products
-are column-parallel, the out-projections row-parallel with one all-reduce
-each (``sharding.reduce_from``). The activations are the local shards the
-reference's constraints name (``ray_tpu/models/gpt.py:178-245``): batch
-over ``(dp, fsdp)``, qkv and the MLP's middle over ``tp``, the residual
-stream whole. Attention runs on each rank's shard
-(``ops.flash_attention.flash_attention_sharded``). Ring attention
-(``attn_impl="ring"``, an ``sp`` axis) and experts over an ``ep`` axis are
-not ported (ROADMAP.md, queue A8.6-A8.7).
+reference's SPMD program, every mesh axis of it:
+
+* the tokens are this rank's batch slice (rows over ``(dp, fsdp)``, whole
+  within an ``sp``, ``ep`` or ``tp`` group), and the rank takes its chunk
+  ``[off, off + seq / sp)`` of the positions, which it keeps end to end;
+* each block all-gathers its parameters on use (``sharding.local``);
+* under ``tp`` each rank holds ``n_heads / tp`` heads: the qkv and MLP-in
+  products are column-parallel, the out-projections row-parallel with one
+  all-reduce each (``sharding.reduce_from``), and so are the experts' two
+  products (their middle over tp, as the reference's ``P("ep", None,
+  "tp")``);
+* attention is ring attention over ``sp`` (``attn_impl="ring"``, or
+  ``"auto"`` on a mesh with ``sp > 1``: ``ops.ring_attention``), else the
+  flash kernels on each rank's shard
+  (``ops.flash_attention.flash_attention_sharded``);
+* under ``ep`` each rank computes its ``n_experts / ep`` experts on the
+  tokens its group shares, and the experts' output rows are all-gathered
+  over ep before the combine (``_moe_mlp``); routing is the reference's
+  one-device routing over the global batch (``_moe_route``).
+
+The activations are the local shards the reference's constraints name
+(``ray_tpu/models/gpt.py:178-245``).
 """
 
 from __future__ import annotations
@@ -66,8 +77,10 @@ from ray_tpu_torch.models.sampling import pick_tokens
 from ray_tpu_torch.ops.attention import causal_attention
 from ray_tpu_torch.ops.flash_attention import flash_attention_sharded
 from ray_tpu_torch.ops.fused_ce import fused_softmax_cross_entropy
+from ray_tpu_torch.ops.ring_attention import ring_attention_sharded
 from ray_tpu_torch.parallel.mesh import axis_size
-from ray_tpu_torch.parallel.sharding import copy_to, full_value, local, reduce_from
+from ray_tpu_torch.parallel.sharding import (TOKEN_AXES, copy_to, full_value, gather_from, local, psum,
+                                             reduce_from)
 
 #: ``moe_dispatch``: "index" moves each kept assignment's row by its
 #: (expert, slot); "einsum" is the reference's one-hot dispatch and combine
@@ -80,7 +93,7 @@ class GPTConfig:
 
     ``scan_unroll`` is accepted and has no effect: the reference unrolls its
     ``lax.scan`` over layers, and eager PyTorch runs the layers as a Python
-    loop. ``attn_impl="ring"`` raises (ROADMAP.md, queue A8.7)."""
+    loop. ``attn_impl="ring"`` needs a mesh (``gpt_hidden``'s ``mesh=``)."""
 
     vocab_size: int = 50_304
     seq_len: int = 1024
@@ -95,7 +108,7 @@ class GPTConfig:
     fused_loss: bool = True
     #: vocab chunk count for the fused loss (None = auto)
     ce_chunks: Optional[int] = None
-    attn_impl: str = "auto"           # auto|xla|flash (ring: not ported)
+    attn_impl: str = "auto"           # auto|xla|flash|ring (see _attention)
     scan_unroll: int = 1
     #: mixture of experts (0 = dense MLP): top-``experts_per_token``
     #: routing, ``capacity_factor`` x the even share of assignments per
@@ -119,23 +132,30 @@ class GPTConfig:
 
 
 def _check_supported(cfg: GPTConfig) -> None:
-    if cfg.attn_impl == "ring":
-        raise NotImplementedError(
-            "ring attention (attn_impl='ring') is not ported yet: ROADMAP.md, queue A8.7 "
-            "(the slice after MoE over ep, A8.6)"
-        )
     check_policy(cfg)
 
 
 def _check_mesh(cfg: GPTConfig, mesh) -> None:
-    for axis, what in (("sp", "ring attention over an sp axis (queue A8.7)"),
-                       ("ep", "experts over an ep axis (queue A8.6)")):
-        if axis_size(mesh, axis) > 1:
-            raise NotImplementedError(f"a mesh with {axis} > 1 needs {what}, which is not "
-                                      "ported yet (ROADMAP.md, the next A8 slice)")
-    tp = axis_size(mesh, "tp")
+    tp, ep = axis_size(mesh, "tp"), axis_size(mesh, "ep")
     if cfg.n_heads % tp:
         raise ValueError(f"n_heads={cfg.n_heads} does not divide over tp={tp}")
+    if cfg.n_experts and cfg.n_experts % ep:
+        raise ValueError(f"n_experts={cfg.n_experts} does not divide over ep={ep}")
+
+
+def _coord(mesh, axis: str) -> int:
+    """This rank's position on ``mesh``'s ``axis`` (0 on an axis of one)."""
+    return mesh.get_local_rank(axis) if axis_size(mesh, axis) > 1 else 0
+
+
+def _seq_chunk(mesh, s: int) -> tuple[int, int]:
+    """This rank's chunk of ``s`` positions, ``(offset, length)``: the
+    ``sp`` coordinate's contiguous ``s / sp`` of them (all of them off a
+    mesh)."""
+    sp = 1 if mesh is None else axis_size(mesh, "sp")
+    if s % sp:
+        raise ValueError(f"a sequence of {s} positions does not divide over sp={sp}")
+    return (0 if mesh is None else _coord(mesh, "sp")) * (s // sp), s // sp
 
 
 class GPTBlock(nn.Module):
@@ -311,17 +331,17 @@ class _LocalLayerNorm(NamedTuple):
 
 def _on_mesh(layer: GPTBlock):
     """The block's parameters as this rank computes with them
-    (``sharding.local``: gathered over every axis but tp). Built inside the
-    block, so a rematerialized block gathers them again in the backward
-    (ZeRO-3)."""
+    (``sharding.local``: gathered over every axis but tp, and the experts
+    but ep and tp). Built inside the block, so a rematerialized block
+    gathers them again in the backward (ZeRO-3)."""
     out = {name: _LocalLayerNorm(local(m.scale), local(m.bias))
            for name, m in (("ln1", layer.ln1), ("ln2", layer.ln2))}
     names = ("attn_qkv", "attn_out") + (() if hasattr(layer, "router") else ("mlp_in", "mlp_out"))
     out.update({name: _LocalLinear(local(getattr(layer, name).weight), local(getattr(layer, name).bias))
                 for name in names})
-    if hasattr(layer, "router"):  # whole on every rank: the experts run replicated over tp
-        out.update({name: local(getattr(layer, name), tp_local=False)
-                    for name in ("router", "moe_in", "moe_out")})
+    if hasattr(layer, "router"):  # the router whole; the rank's experts, their middle over tp
+        out["router"] = local(layer.router, keep=())
+        out.update({name: local(getattr(layer, name), keep=("ep", "tp")) for name in ("moe_in", "moe_out")})
     return SimpleNamespace(**out)
 
 
@@ -352,18 +372,51 @@ def _mlp(x, layer: GPTBlock, mesh=None):
     return x + _row_linear(mid, layer.mlp_out, mesh)
 
 
-def _moe_route(cfg: GPTConfig, flat, router):
+def _earlier_counts(counts, mesh):
+    """The assignments to each expert before each of this rank's rows in
+    the global token order. ``counts`` (rows, E): each local row's
+    assignments to each expert (in the rank's chunk of positions). The
+    global order is the reference's one-device order: the global batch's
+    rows, split over ``(dp, fsdp)`` (dp outermost), then the positions,
+    split over ``sp``. So a rank all-gathers every (row, chunk)'s counts and
+    takes an exclusive prefix sum in that order. (rows, E) long."""
+    if mesh is None or all(axis_size(mesh, a) == 1 for a in TOKEN_AXES):
+        return counts.cumsum(0) - counts
+    rows, E = counts.shape
+    every = gather_from(counts[:, None], mesh, "sp", dim=1)            # (rows, sp, E)
+    every = gather_from(gather_from(every, mesh, "fsdp"), mesh, "dp")  # (B, sp, E)
+    flat = every.reshape(-1, E)
+    before = (flat.cumsum(0) - flat).view(every.shape)
+    row0 = (_coord(mesh, "dp") * axis_size(mesh, "fsdp") + _coord(mesh, "fsdp")) * rows
+    return before[row0:row0 + rows, _coord(mesh, "sp")]
+
+
+def _capacity(cfg: GPTConfig, n: int, mesh) -> tuple[int, int]:
+    """(the global token count of ``n`` tokens a rank, the capacity per
+    expert it gives)."""
+    if mesh is not None:
+        for a in TOKEN_AXES:
+            n *= axis_size(mesh, a)
+    return n, max(1, int(cfg.capacity_factor * cfg.experts_per_token * n / cfg.n_experts))
+
+
+def _moe_route(cfg: GPTConfig, flat, router, rows: int = 1, mesh=None):
     """Top-k routing with a capacity per expert, as the reference's
-    ``_moe_mlp`` (``ray_tpu/models/gpt.py:124-175``). ``flat`` (n, d).
-    Returns ``(gate_w (n, k) fp32, expert (n*k,), slot (n*k,), keep (n*k,)
-    bool, aux)``, assignments token-major. Within an expert, slots go to
-    assignments in that order (a cumsum over it), and those at or past the
-    capacity drop. ``aux`` is the Switch load-balancing loss, ``E *
+    ``_moe_mlp`` (``ray_tpu/models/gpt.py:124-175``) routes on one device.
+    ``flat`` (n, d): this rank's ``rows`` rows of tokens (all of them off a
+    mesh). Returns ``(gate_w (n, k) fp32, expert (n*k,), slot (n*k,), keep
+    (n*k,) bool, aux)``, assignments token-major. The capacity comes from
+    the global token count (``_capacity``). Within an expert, slots go to
+    assignments in the global token-major order (``_earlier_counts`` and a
+    cumsum over each row), and those at or past the capacity drop. ``aux``
+    is the Switch load-balancing loss over the global batch, ``E *
     sum(frac * mean_prob) * k``, where ``frac`` (kept assignments per
-    expert) carries no gradient."""
+    expert) carries no gradient: both factors are summed over the token
+    axes (``psum``) before their product, so every rank holds the
+    reference's value."""
     n = flat.shape[0]
     E, k = cfg.n_experts, cfg.experts_per_token
-    cap = max(1, int(cfg.capacity_factor * k * n / E))
+    n_all, cap = _capacity(cfg, n, mesh)
     probs = torch.softmax((flat @ router.to(flat.dtype)).float(), dim=-1)  # (n, E)
     # a stable sort puts the lower expert first among equal probabilities,
     # as lax.top_k does (torch.topk promises no order of ties)
@@ -371,45 +424,66 @@ def _moe_route(cfg: GPTConfig, flat, router):
     gate_w, gate_idx = gate_w[:, :k], gate_idx[:, :k]
     gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
     expert = gate_idx.reshape(n * k)
-    onehot = F.one_hot(expert, E).float()                       # (nk, E)
-    slot = ((torch.cumsum(onehot, dim=0) - 1.0) * onehot).sum(-1)
+    onehot = F.one_hot(expert, E)                               # (nk, E)
+    per_row = onehot.view(rows, -1, E)
+    within = per_row.cumsum(1)
+    before = _earlier_counts(within[:, -1], mesh)
+    slot = ((within - 1 + before[:, None]) * per_row).sum(-1).reshape(n * k)
     keep = slot < cap
-    frac = (onehot * keep[:, None]).mean(0)
-    aux = E * torch.sum(frac * probs.mean(0)) * k
-    return gate_w, expert, slot.long(), keep, aux
+    kept, prob_sum = (onehot * keep[:, None]).sum(0).float(), probs.sum(0)
+    if mesh is not None:
+        kept, prob_sum = psum(kept, mesh, TOKEN_AXES), psum(prob_sum, mesh, TOKEN_AXES)
+    aux = E * torch.sum(kept / (n_all * k) * (prob_sum / n_all)) * k
+    return gate_w, expert, slot, keep, aux
 
 
-def _moe_mlp(cfg: GPTConfig, x, layer: GPTBlock, dispatch: str = "index"):
+def _moe_mlp(cfg: GPTConfig, x, layer: GPTBlock, dispatch: str = "index", mesh=None):
     """Mixture-of-experts MLP: (out (b, s, d) in x's dtype, aux fp32).
     ``dispatch="index"`` gathers each expert's ``(E, cap, d)`` input by slot
     and sums each token's at most k gated expert outputs in fp32;
     ``"einsum"`` is the reference's one-hot form, an ``(n, E, cap)``
     dispatch and combine tensor (O(n·E·cap) memory, the plain version the
     index form is held against). Both cast the gate weights to x's dtype
-    first, as the reference's combine does."""
+    first, as the reference's combine does.
+
+    On a mesh the slots are global (``_moe_route``), so a rank's inputs
+    fill the rows its tokens own. An ep rank computes its ``E / ep``
+    experts on the tokens its group shares (exact: an expert acts row by
+    row); the output rows are all-gathered over ep and every member
+    combines them whole, so the router, gates and aux stay replicated. The
+    experts' input gradient is summed over ep (each rank's holds its own
+    experts' part) and over tp (each rank's holds its middle's)."""
     b, s, d = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     n = b * s
-    cap = max(1, int(cfg.capacity_factor * k * n / E))
     dt = x.dtype
     flat = x.reshape(n, d)
-    gate_w, expert, slot, keep, aux = _moe_route(cfg, flat, layer.router)
+    _, cap = _capacity(cfg, n, mesh)
+    gate_w, expert, slot, keep, aux = _moe_route(cfg, flat, layer.router, b, mesh)
+    ep = 1 if mesh is None else axis_size(mesh, "ep")
+    n_local, e0 = E // ep, (0 if ep == 1 else _coord(mesh, "ep") * (E // ep))
+    xin = flat if mesh is None else copy_to(copy_to(flat, mesh, "ep"), mesh, "tp")
     if dispatch == "index":
-        # kept assignment -> row expert * cap + slot; the dropped ones all
-        # point at a last row that reads zeros and is never read back
+        # kept assignment -> row expert * cap + slot; the dropped ones (and
+        # another ep rank's) all point at a last row that reads zeros and
+        # is never read back
         row = torch.where(keep, expert * cap + slot, E * cap)
+        mine = row if ep == 1 else torch.where(
+            keep & (expert >= e0) & (expert < e0 + n_local), row - e0 * cap, n_local * cap)
         token = torch.arange(n * k, device=x.device) // k
-        owner = torch.full((E * cap + 1,), n, dtype=torch.long, device=x.device)
-        owner[row] = token
-        expert_in = F.pad(flat, (0, 0, 0, 1))[owner[: E * cap]].view(E, cap, d)
+        owner = torch.full((n_local * cap + 1,), n, dtype=torch.long, device=x.device)
+        owner[mine] = token
+        expert_in = F.pad(xin, (0, 0, 0, 1))[owner[: n_local * cap]].view(n_local, cap, d)
     elif dispatch == "einsum":
         pos_oh = F.one_hot(slot.clamp_max(cap - 1), cap).float() * keep[:, None]
         disp = (F.one_hot(expert, E).float()[:, :, None] * pos_oh[:, None, :]).view(n, k, E, cap)
-        expert_in = torch.einsum("nec,nd->ecd", disp.sum(1).to(dt), flat)
+        expert_in = torch.einsum("nec,nd->ecd", disp.sum(1)[:, e0:e0 + n_local].to(dt), xin)
     else:
         raise ValueError(f"moe dispatch must be one of {MOE_DISPATCH}, got {dispatch!r}")
     h = F.gelu(torch.bmm(expert_in, layer.moe_in.to(dt)), approximate="tanh")
-    expert_out = torch.bmm(h, layer.moe_out.to(dt))              # (E, cap, d)
+    expert_out = torch.bmm(h, layer.moe_out.to(dt))              # (E / ep, cap, d)
+    if mesh is not None:
+        expert_out = gather_from(reduce_from(expert_out, mesh, "tp"), mesh, "ep")
     if dispatch == "index":
         rows = torch.cat([expert_out.reshape(E * cap, d), expert_out.new_zeros(1, d)])
         gates = gate_w.to(dt).float().reshape(n * k, 1) * keep[:, None]
@@ -420,14 +494,31 @@ def _moe_mlp(cfg: GPTConfig, x, layer: GPTBlock, dispatch: str = "index"):
     return out.reshape(b, s, d), aux
 
 
-def _attention(cfg: GPTConfig, q, k, v, mesh):
-    """Causal attention of the block's heads; on a mesh the flash kernels
-    run on this rank's shard (batch over dp x fsdp, heads over tp), as the
-    reference's ``flash_attention_sharded`` does."""
+def _local_attention(cfg: GPTConfig, q, k, v, mesh):
     want_flash = cfg.attn_impl == "flash" or (cfg.attn_impl == "auto" and q.is_cuda)
     if mesh is not None and want_flash:
         return flash_attention_sharded(q, k, v, mesh)
     return causal_attention(q, k, v, impl=cfg.attn_impl)
+
+
+def _attention(cfg: GPTConfig, q, k, v, mesh):
+    """Causal attention of the block's heads, chosen as the reference
+    chooses (``ray_tpu/models/gpt.py:205-243``): ring attention over sp for
+    ``attn_impl="ring"``, or ``"auto"`` on a mesh with sp > 1; otherwise
+    the flash kernels (the einsum for ``"xla"``, or ``"auto"`` on the CPU),
+    on a mesh on this rank's shard (batch over dp x fsdp, heads over tp).
+    With sp > 1 they take the sequence whole, as the reference's flash
+    shard_map does: q, k and v are gathered over sp, and the rank keeps its
+    chunk of the output."""
+    sp = 1 if mesh is None else axis_size(mesh, "sp")
+    if mesh is not None and (cfg.attn_impl == "ring" or (cfg.attn_impl == "auto" and sp > 1)):
+        return ring_attention_sharded(q, k, v, mesh)
+    if sp == 1:
+        return _local_attention(cfg, q, k, v, mesh)
+    s = q.shape[2]
+    whole = (gather_from(t, mesh, "sp", dim=2, grad="sum") for t in (q, k, v))
+    off = _coord(mesh, "sp") * s
+    return _local_attention(cfg, *whole, mesh)[:, :, off:off + s]
 
 
 def _block(cfg: GPTConfig, x, layer: GPTBlock, moe_dispatch: str = "index", mesh=None):
@@ -437,7 +528,7 @@ def _block(cfg: GPTConfig, x, layer: GPTBlock, moe_dispatch: str = "index", mesh
     q, k, v = _attn_in(cfg, x, layer, mesh)
     x = _attn_out(x, _attention(cfg, q, k, v, mesh), layer, mesh)
     if cfg.n_experts > 0:
-        out, aux = _moe_mlp(cfg, layer.ln2(x), layer, moe_dispatch)
+        out, aux = _moe_mlp(cfg, layer.ln2(x), layer, moe_dispatch, mesh)
         return x + out, aux
     return _mlp(x, layer, mesh), x.new_zeros((), dtype=torch.float32)
 
@@ -448,15 +539,24 @@ def gpt_hidden(cfg: GPTConfig, params: GPT, tokens: torch.Tensor, mesh=None, *,
     activation dtype, the MoE aux loss averaged over the layers, fp32; 0
     for a dense model). The lm head is applied by the caller.
     ``moe_dispatch`` picks ``_moe_mlp``'s form. With ``mesh`` the tokens
-    are this rank's batch slice and the result its hidden state."""
+    are this rank's batch slice, all of their positions, and the result the
+    hidden state of the rank's chunk of the positions (``_seq_chunk``); the
+    aux loss is the global batch's on every rank."""
     _check_supported(cfg)
+    if cfg.attn_impl == "ring" and mesh is None:
+        raise ValueError(
+            "attn_impl='ring' needs a device mesh with an 'sp' axis; pass "
+            "mesh= (or use attn_impl='auto', which picks ring only when the "
+            "mesh shards sequence)"
+        )
     if mesh is not None:
         _check_mesh(cfg, mesh)
     dt = cfg.torch_dtype
-    s = tokens.shape[1]
+    off, s = _seq_chunk(mesh, tokens.shape[1])
+    tokens = tokens[:, off:off + s]
     # gather fp32 rows, then cast
-    x = F.embedding(tokens, local(params.embed.weight, tp_local=False)).to(dt)
-    x = x + local(params.pos_embed.weight)[:s].to(dt)
+    x = F.embedding(tokens, local(params.embed.weight, keep=())).to(dt)
+    x = x + local(params.pos_embed.weight)[off:off + s].to(dt)
     auxes = []
     for layer in params.blocks:
         x, aux = remat_block(cfg, x, partial(_block, cfg, layer=layer, moe_dispatch=moe_dispatch,
@@ -469,9 +569,9 @@ def gpt_forward(cfg: GPTConfig, params: GPT, tokens: torch.Tensor, mesh=None, *,
                 return_aux: bool = False, moe_dispatch: str = "index"):
     """tokens (batch, seq) int → logits (batch, seq, vocab) fp32;
     ``return_aux=True`` also returns the mean MoE aux loss. With ``mesh``,
-    this rank's batch slice."""
+    this rank's batch slice, its chunk of the positions under sp."""
     hidden, aux = gpt_hidden(cfg, params, tokens, mesh, moe_dispatch=moe_dispatch)
-    logits = hidden.float() @ local(params.lm_head.weight, tp_local=False).t()
+    logits = hidden.float() @ local(params.lm_head.weight, keep=()).t()
     return (logits, aux) if return_aux else logits
 
 
@@ -481,11 +581,13 @@ def gpt_loss(cfg: GPTConfig, params: GPT, tokens: torch.Tensor, mesh=None, *,
     ``cfg.moe_aux_weight`` x the aux loss for a mixture of experts. With
     ``cfg.fused_loss`` the (tokens, vocab) logits go through the fused
     cross-entropy in ``cfg.ce_chunks`` vocab chunks. With ``mesh``, the
-    mean over this rank's batch slice (``parallel.build_train_step`` averages
-    the slices)."""
+    mean over this rank's tokens: its batch slice, its chunk of the
+    positions under sp (``parallel.build_train_step`` averages the ranks'
+    means)."""
     hidden, aux = gpt_hidden(cfg, params, tokens[:, :-1], mesh, moe_dispatch=moe_dispatch)
-    targets = tokens[:, 1:]
-    head = local(params.lm_head.weight, tp_local=False)
+    off, s = _seq_chunk(mesh, tokens.shape[1] - 1)
+    targets = tokens[:, 1:][:, off:off + s]
+    head = local(params.lm_head.weight, keep=())
     if cfg.fused_loss:
         b, s, d = hidden.shape
         losses = fused_softmax_cross_entropy(

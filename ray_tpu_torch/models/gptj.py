@@ -276,7 +276,7 @@ REMAT_POLICIES = ("full", "dots", "attn")
 def _whole(p):
     """A parameter gathered whole on every rank (``sharding.local`` over
     every axis); a plain tensor passes through."""
-    return local(p, tp_local=False)
+    return local(p, keep=())
 
 
 def _on_mesh(layer: GPTJBlock):

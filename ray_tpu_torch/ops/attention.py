@@ -12,8 +12,9 @@ Two interchangeable paths behind one signature:
 ``auto`` takes flash for CUDA tensors and the einsum for CPU tensors, the
 reference's own choice off the TPU. The flash kernels mask a ragged sequence
 edge themselves, so on the card ``auto`` never falls back to the einsum: a
-head dim the kernels lack raises. The reference's ``ring`` path
-(sequence-parallel over a mesh) is not ported (ROADMAP.md).
+head dim the kernels lack raises. Sequence-parallel ring attention is
+``ops.ring_attention``, which the model picks when the mesh shards the
+sequence (``models.gpt``).
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ def causal_attention(
     if impl not in ("auto", "xla", "flash"):
         raise ValueError(
             f"unknown attention impl {impl!r}; expected 'auto', 'xla' or 'flash' "
-            "(ring attention is not ported: ROADMAP.md)"
+            "(sequence-parallel ring attention is ops.ring_attention, selected "
+            "by the model layer when the mesh shards sequence)"
         )
     if impl == "xla" or (impl == "auto" and not q.is_cuda):
         return _xla_attention(q, k, v)

@@ -6,6 +6,10 @@
   live as ``DTensor`` shards, all-gathered per block on use,
   reduce-scattered in the backward;
 * tensor parallel (Megatron) → ``tp``, on the weight matrices;
+* expert parallel → ``ep``: each rank computes its share of a mixture of
+  experts on the tokens its group shares;
+* sequence parallel → ``sp``: each rank its chunk of the positions, ring
+  attention (``ops.ring_attention``) across the chunks;
 * pipeline parallel → ``pipeline_apply`` over a ``pp`` axis (GPipe).
 
 One ``DeviceMesh`` (``make_mesh``) and one rule table (``sharding``) drive

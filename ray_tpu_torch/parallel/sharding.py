@@ -15,7 +15,9 @@ names (sharded over their product, the first outermost). Conventions
   embedding vocab dim — parameters and Adam state live scattered and are
   all-gathered per layer on use (``local``; ZeRO-3), their gradients
   reduce-scattered back;
-* activations: batch over ``("dp", "fsdp")``.
+* ``ep`` shards the experts' leading dim (``moe_in``, ``moe_out``): each
+  ep rank computes its experts on the tokens its group shares;
+* activations: batch over ``("dp", "fsdp")``, sequence over ``sp``.
 
 ``nn.Linear`` keeps its weight as (out, in) where the reference's kernels
 are (in, out), so a weight rule's two dims are the reference's swapped, and
@@ -62,11 +64,16 @@ _RULES = [
     (r"^lm_head\.weight$", ("fsdp", "tp")),                   # (vocab, d_model)
 ]
 
-#: the axes a batch is split over, and the axes that hold whole copies of a
-#: gradient contribution (their sum is the gradient)
+#: the axes a batch's rows are split over (``batch_spec``): an sp group
+#: shares its rows, and each member takes its chunk of their positions
 BATCH_AXES = ("dp", "fsdp")
-#: the axes the rule table shards parameters over in this slice (ep and sp
-#: must be 1: ``models.gpt`` refuses more)
+#: the axes whose members hold different tokens (rows over dp and fsdp,
+#: positions over sp): a parameter's gradient is a partial sum over them,
+#: and a rank's loss a mean over its share (``train_step.make_step_fn``)
+TOKEN_AXES = BATCH_AXES + ("sp",)
+#: the axes every parameter mesh keeps, of one rank or more; any other
+#: axis joins it when it has more than one rank (``param_mesh``): ep, where
+#: the experts are sharded over it
 PARAM_AXES = ("dp", "fsdp", "tp")
 
 
@@ -90,7 +97,9 @@ def param_sharding_rules(params: torch.nn.Module) -> dict:
 
 
 def batch_spec() -> tuple:
-    """(batch, seq) token batches: batch sharded over dp+fsdp, seq whole."""
+    """(batch, seq) token batches: batch sharded over dp+fsdp, seq whole
+    (the model takes its sp chunk of the positions itself, as the
+    reference's constraints do)."""
     return (BATCH_AXES,)
 
 
@@ -169,7 +178,8 @@ def _is_fused_qkv(path: str) -> bool:
 
 def param_mesh(mesh):
     """The part of ``mesh`` parameters live on: ``PARAM_AXES`` and any other
-    axis of more than one rank. DTensor's sharding propagation enumerates
+    axis of more than one rank (ep on an expert-parallel mesh; sp, over
+    which parameters are whole). DTensor's sharding propagation enumerates
     placements over every mesh dim, so two more dims of size 1 made a
     process's first step on the CPU take 10.2 s instead of 0.6 s."""
     names = tuple(a for a in mesh.mesh_dim_names if a in PARAM_AXES or axis_size(mesh, a) > 1)
@@ -229,11 +239,11 @@ def _reduce_scatter(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor
 class _Gather(torch.autograd.Function):
     """A parameter's local shard made whole over some mesh axes. ``plan``
     holds, in mesh order, ``(kind, dim, group, size, rank)``: "gather"
-    all-gathers along ``dim`` and reduce-scatters the gradient back (a batch
-    axis: each rank's gradient is a partial sum); "chunk" all-gathers and
-    takes the rank's chunk of the gradient back (an axis whose members
+    all-gathers along ``dim`` and reduce-scatters the gradient back (a
+    token axis: each rank's gradient is a partial sum); "chunk" all-gathers
+    and takes the rank's chunk of the gradient back (an axis whose members
     compute the same gradient); "reduce" moves nothing forward and
-    all-reduces the gradient (a batch axis holding the parameter whole).
+    all-reduces the gradient (a token axis holding the parameter whole).
     The backward undoes the gathers first, in mesh order, and all-reduces
     last, so a "reduce" axis (dp under dp x fsdp) moves the shard and not
     the whole gradient. The collectives are the process group's own:
@@ -264,14 +274,15 @@ class _Gather(torch.autograd.Function):
         return grad, None
 
 
-def local(p, tp_local: bool = True) -> torch.Tensor:
+def local(p, keep: tuple = ("tp",)) -> torch.Tensor:
     """The value of parameter ``p`` a rank computes with: a ``DTensor``
-    all-gathered over every axis but ``tp`` (over ``tp`` too when not
-    ``tp_local``), as a plain tensor whose gradient is reduced, or
-    reduce-scattered, over the batch axes into ``p.grad`` in ``p``'s
-    placements by the backward (ZeRO-3's gather and reduce-scatter, once a
-    use). An axis of one rank moves nothing either way: a one-card mesh
-    launches no collective for its parameters. A plain tensor passes
+    all-gathered over every axis but those in ``keep`` that shard it (by
+    default tp: a block's tp-parallel products take their shard; the
+    experts keep their ep shard too), as a plain tensor whose gradient is
+    reduced, or reduce-scattered, over the token axes into ``p.grad`` in
+    ``p``'s placements by the backward (ZeRO-3's gather and reduce-scatter,
+    once a use). An axis of one rank moves nothing either way: a one-card
+    mesh launches no collective for its parameters. A plain tensor passes
     through."""
     if not is_dtensor(p):
         return p
@@ -279,11 +290,11 @@ def local(p, tp_local: bool = True) -> torch.Tensor:
     plan = []
     for i, (name, pl) in enumerate(zip(mesh.mesh_dim_names, p.placements)):
         size = mesh.size(i)
-        if size == 1 or (pl.is_shard() and tp_local and name == "tp"):
+        if size == 1 or (pl.is_shard() and name in keep):
             continue
         if pl.is_shard():
-            kind = "gather" if name in BATCH_AXES else "chunk"
-        elif name in BATCH_AXES:
+            kind = "gather" if name in TOKEN_AXES else "chunk"
+        elif name in TOKEN_AXES:
             kind = "reduce"
         else:
             continue  # whole on an axis whose members compute the same gradient
@@ -291,6 +302,19 @@ def local(p, tp_local: bool = True) -> torch.Tensor:
                      mesh.get_local_rank(i)))
     shard = p.to_local()
     return _Gather.apply(shard, tuple(plan)) if plan else shard
+
+
+def gather_from(x: torch.Tensor, mesh, axis: str, dim: int = 0, grad: str = "chunk") -> torch.Tensor:
+    """``x`` all-gathered over ``mesh``'s ``axis`` along ``dim``, the
+    members' pieces in axis order. The backward hands each member its piece
+    of the gradient: ``grad="chunk"`` takes it as it is (the members
+    compute the same gradient of the whole), ``grad="sum"`` sums it over
+    the members first (each holds a partial gradient)."""
+    size = axis_size(mesh, axis)
+    if size == 1:
+        return x
+    kind = {"chunk": "chunk", "sum": "gather"}[grad]
+    return _Gather.apply(x, ((kind, dim, mesh.get_group(axis), size, mesh.get_local_rank(axis)),))
 
 
 class _CopyTo(torch.autograd.Function):
@@ -329,6 +353,16 @@ class _ReduceFrom(torch.autograd.Function):
         return grad, None
 
 
+def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` summed over ``mesh``'s ``axes`` (those it has of more than one
+    rank), its gradient summed over them too: every member puts the sum
+    into its own loss, and the step averages the members' gradients, so
+    each member's share of the sum gets the whole loss's gradient."""
+    for a in axes:
+        x = copy_to(reduce_from(x, mesh, a), mesh, a)
+    return x
+
+
 def copy_to(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """``x`` unchanged; its gradient summed over ``mesh``'s ``axis``."""
     if axis_size(mesh, axis) == 1:
@@ -363,10 +397,10 @@ class _Apply(torch.nn.Module):
 
 def apply_gathered(module: torch.nn.Module, fn, *args, **kwargs):
     """``fn(module, *args, **kwargs)`` with every parameter of ``module``
-    gathered whole for the call (``local(p, tp_local=False)``): any module,
+    gathered whole for the call (``local(p, keep=())``): any module,
     whatever its rule table, runs on a mesh, each rank computing with the
     whole weights on its batch slice; the gradients go back to the shards.
     The whole model is gathered at once (the GPT forward under ``mesh=``
     gathers one block at a time)."""
-    values = {f"module.{name}": local(p, tp_local=False) for name, p in module.named_parameters()}
+    values = {f"module.{name}": local(p, keep=()) for name, p in module.named_parameters()}
     return torch.func.functional_call(_Apply(module, fn), values, args, kwargs)

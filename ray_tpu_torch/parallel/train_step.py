@@ -13,12 +13,14 @@ same values: ``init_fn`` turns each parameter into a ``DTensor`` under the
 rule table (``parallel.sharding``) and builds the optimizer's state at once,
 so Adam's moments are ``DTensor``s with their parameter's placements, as
 ``_opt_shardings`` makes them in the reference. ``step_fn`` takes this
-rank's ``(dp, fsdp)`` slice of the global batch; ``loss_fn`` returns the
-mean over that slice, its backward is scaled by ``1 / (dp * fsdp)``, and
-the gathers of ``sharding.local`` sum the slices' gradients into each
-parameter's shard. The returned loss is the mean over the global batch, the
-same on every rank (the slices' means averaged: equal to the reference's
-mean over the global batch to fp32 rounding).
+rank's ``(dp, fsdp)`` slice of the global batch (an ``sp`` group shares its
+rows, and the model takes each member's chunk of the positions);
+``loss_fn`` returns the mean over the rank's tokens, its backward is scaled
+by ``1 / (dp * fsdp * sp)``, and the gathers of ``sharding.local`` sum the
+ranks' gradients into each parameter's shard. The returned loss is the
+mean over the global batch, the same on every rank (the ranks' means
+averaged: equal to the reference's mean over the global batch to fp32
+rounding).
 
 ``profile_step_fn`` wraps a step with the device-step profiler, as the
 reference's does.
@@ -33,7 +35,7 @@ import torch
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.parallel.mesh import axis_size
 from ray_tpu_torch.parallel.sharding import (
-    BATCH_AXES,
+    TOKEN_AXES,
     _is_fused_qkv,
     batch_spec,
     global_put,  # noqa: F401  (the reference exports it from here)
@@ -222,8 +224,10 @@ def _local_batch(batch, mesh):
 
 
 def global_mean(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The mean of a scalar over every rank of ``mesh`` (a tp or sp group's
-    members hold equal values, so this is the mean over the batch slices)."""
+    """The mean of a scalar over every rank of ``mesh``. A tp or ep group's
+    members hold equal values, and every member of the token axes (dp,
+    fsdp, sp) its mean over an equal share of the tokens, so this is the
+    mean over the global batch."""
     if mesh.size() == 1:
         return x
     from torch.distributed.tensor import DTensor, Partial
@@ -239,7 +243,7 @@ def make_step_fn(loss_fn, mesh=None):
     optimizer (the reference's ``make_step_fn`` takes the optax one)."""
     shards = 1
     if mesh is not None:
-        for axis in BATCH_AXES:
+        for axis in TOKEN_AXES:
             shards *= axis_size(mesh, axis)
 
     def step(state: TrainState, batch):

@@ -209,6 +209,99 @@ def test_a_burst_of_connects_all_attach():
         stop(head)
 
 
+def _attaches_within(connect, seconds: float) -> tuple:
+    """``connect()`` in a daemon thread (a client stuck in the handshake
+    must not hold the interpreter at exit): (whether it returned within
+    ``seconds``, its connection, its error)."""
+    got = {}
+
+    def run():
+        try:
+            got["conn"] = connect()
+        except Exception as e:  # noqa: BLE001 - reported by the caller
+            got["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(seconds)
+    return not t.is_alive(), got.get("conn"), got.get("error")
+
+
+def test_a_silent_client_stalls_no_connect():
+    """A raw socket that connects to ``start --head``'s TCP port and sends
+    nothing holds up no other client: the hmac handshake runs in each
+    connection's thread under a deadline. With the handshake in the accept
+    thread, that thread waited on the silent client, and every later
+    driver, CLI and worker connect waited behind it, with no timeout."""
+    import socket
+
+    from ray_tpu_torch._private.config import DEFAULT_AUTHKEY
+    from ray_tpu_torch._private.worker_main import connect_head
+
+    head, address = start_head("--num-cpus", "1")
+    host, port = address.rsplit(":", 1)
+    silent = socket.create_connection((host, int(port)))
+    conn = None
+    try:
+        time.sleep(0.5)  # the head has accepted the silent client
+        done, conn, error = _attaches_within(lambda: connect_head(address, DEFAULT_AUTHKEY, retries=1), 5.0)
+        assert done, "a connect waited 5 s behind a client that sent nothing"
+        assert error is None and conn is not None, error
+    finally:
+        silent.close()
+        if conn is not None:
+            conn.close()
+        stop(head)
+
+
+def test_a_silent_client_stalls_no_data_plane_pull():
+    """The data server's listener too: a silent socket holds up no puller."""
+    import socket
+    from multiprocessing.connection import Client
+
+    from ray_tpu_torch._private.data_plane import DataServer
+
+    key = b"k" * 32
+    server = DataServer(key, "127.0.0.1")
+    silent = socket.create_connection(("127.0.0.1", server.port))
+    conn = None
+    try:
+        time.sleep(0.2)
+        done, conn, error = _attaches_within(lambda: Client(("127.0.0.1", server.port), authkey=key), 5.0)
+        assert done, "a pull's connect waited 5 s behind a client that sent nothing"
+        assert error is None and conn is not None, error
+    finally:
+        silent.close()
+        if conn is not None:
+            conn.close()
+        server.shutdown()
+
+
+def test_a_client_that_stops_mid_header_is_dropped_at_the_deadline(monkeypatch):
+    """The handshake's deadline covers every read, not only the first
+    byte: a client that sends half of its answer's length header and stops
+    is disconnected once ``HANDSHAKE_TIMEOUT_S`` has passed."""
+    import socket
+
+    from ray_tpu_torch._private import data_plane
+
+    monkeypatch.setattr(data_plane, "HANDSHAKE_TIMEOUT_S", 0.5)
+    server = data_plane.DataServer(b"k" * 32, "127.0.0.1")
+    stalled = socket.create_connection(("127.0.0.1", server.port))
+    try:
+        stalled.settimeout(10.0)
+        stalled.sendall(b"\x00\x00")
+        received = b""
+        while chunk := stalled.recv(4096):  # the challenge, then the end
+            received += chunk
+        assert received, "the server sent no challenge"
+    except socket.timeout:
+        raise AssertionError("a client that stopped mid-header held its connection 10 s") from None
+    finally:
+        stalled.close()
+        server.shutdown()
+
+
 def test_node_agent_leaves_when_its_head_is_gone():
     """After the head's SIGTERM the node agent exits on its own, once its
     reconnect grace (``head_reconnect_grace_s``) has run out."""

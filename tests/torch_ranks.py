@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import signal
 import subprocess
 import sys
 from pathlib import Path
@@ -21,31 +22,46 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 
 
+class Ranks:
+    """``n`` started processes of this file running one body; ``wait()``
+    returns their results (the caller may work meanwhile)."""
+
+    def __init__(self, n: int, body: str, payload, tmp, timeout: float = 240.0):
+        self.n, self.body, self.tmp, self.timeout = n, body, Path(tmp), timeout
+        self.tmp.mkdir(parents=True, exist_ok=True)
+        (self.tmp / "payload.pkl").write_bytes(pickle.dumps(payload))
+        (self.tmp / "store").unlink(missing_ok=True)  # a FileStore must start empty
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]),
+               "OMP_NUM_THREADS": "1"}
+        self.logs = [open(self.tmp / f"rank{r}.log", "w+") for r in range(n)]
+        self.procs = [subprocess.Popen([sys.executable, __file__, body, str(r), str(n), str(self.tmp)],
+                                       env=env, stdout=self.logs[r], stderr=subprocess.STDOUT, cwd=str(REPO))
+                      for r in range(n)]
+
+    def wait(self) -> list:
+        try:
+            for p in self.procs:
+                p.wait(timeout=self.timeout)
+        finally:
+            for p in self.procs:
+                if p.poll() is None:  # hung: its threads' stacks into its log, then gone
+                    p.send_signal(signal.SIGABRT)
+                    try:
+                        p.wait(timeout=5)
+                    except subprocess.TimeoutExpired:
+                        p.kill()
+            for f in self.logs:
+                f.close()
+        bad = [r for r, p in enumerate(self.procs) if p.returncode != 0]
+        if bad:
+            log = (self.tmp / f"rank{bad[0]}.log").read_text()
+            raise RuntimeError(f"rank {bad[0]} of {self.n} ({self.body}) exited {self.procs[bad[0]].returncode}:"
+                               f"\n{log[-6000:]}")
+        return [pickle.loads((self.tmp / f"out{r}.pkl").read_bytes()) for r in range(self.n)]
+
+
 def run_ranks(n: int, body: str, payload, tmp, timeout: float = 240.0) -> list:
-    tmp = Path(tmp)
-    tmp.mkdir(parents=True, exist_ok=True)
-    (tmp / "payload.pkl").write_bytes(pickle.dumps(payload))
-    (tmp / "store").unlink(missing_ok=True)  # a FileStore must start empty
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]),
-           "OMP_NUM_THREADS": "1"}
-    logs = [open(tmp / f"rank{r}.log", "w+") for r in range(n)]
-    procs = [subprocess.Popen([sys.executable, __file__, body, str(r), str(n), str(tmp)], env=env,
-                              stdout=logs[r], stderr=subprocess.STDOUT, cwd=str(REPO))
-             for r in range(n)]
-    try:
-        for p in procs:
-            p.wait(timeout=timeout)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-        for f in logs:
-            f.close()
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if bad:
-        log = (tmp / f"rank{bad[0]}.log").read_text()
-        raise RuntimeError(f"rank {bad[0]} of {n} ({body}) exited {procs[bad[0]].returncode}:\n{log[-6000:]}")
-    return [pickle.loads((tmp / f"out{r}.pkl").read_bytes()) for r in range(n)]
+    return Ranks(n, body, payload, tmp, timeout).wait()
 
 
 # ---------------------------------------------------------------------------
@@ -308,15 +324,112 @@ def flash_sharded(rank: int, payload) -> dict:
                           fa.flash_shardable(2, 3, mesh)]}
 
 
+def gpt_mesh_cases(rank: int, payload) -> dict:
+    """test_torch_moe_mesh.py and test_torch_ring_attention.py: each case
+    of ``payload["cases"]`` on the mesh of its ranks (``axes`` of
+    ``MeshConfig``), a GPT of ``cfg`` from the reference's tree
+    ``trees[tree]`` and the batch ``tokens[tokens]``. ``what``: "forward"
+    (on sharded parameters: the rank's logits of ``gpt_forward`` with the
+    first row and position they start at, the aux, and the global mean of
+    ``gpt_loss``), "sgd" (one SGD step, lr 0.1: the loss and the whole
+    parameters), "bytes" (per-rank parameter and AdamW moment bytes) or
+    "adam" (``steps`` AdamW steps, lr 1e-3: the losses)."""
+    import torch
+
+    from ray_tpu_torch.models.gpt import GPTConfig, gpt_forward, gpt_loss, params_from_jax, params_to_numpy
+    from ray_tpu_torch.parallel import MeshConfig, adamw, build_train_step, make_mesh
+    from ray_tpu_torch.parallel.mesh import axis_size
+    from ray_tpu_torch.parallel.sharding import batch_spec, local_slices, shard_params
+    from ray_tpu_torch.parallel.train_step import global_mean
+
+    out = {}
+    for case in payload["cases"]:
+        mesh = make_mesh(MeshConfig(**case["axes"]), devices=("cpu", case["ranks"]))
+        if rank not in case["ranks"]:
+            continue
+        cfg = GPTConfig(**case["cfg"])
+        params = params_from_jax(payload["trees"][case["tree"]], cfg, "cpu")
+        tokens = torch.from_numpy(payload["tokens"][case["tokens"]])
+
+        def loss_fn(p, t, cfg=cfg, mesh=mesh):
+            return gpt_loss(cfg, p, t, mesh)
+
+        if case["what"] == "forward":
+            shard_params(params, mesh)
+            rows = local_slices(tokens.shape, batch_spec(), mesh)[0]
+            with torch.no_grad():
+                logits, aux = gpt_forward(cfg, params, tokens[rows, :-1], mesh, return_aux=True)
+                loss = global_mean(loss_fn(params, tokens[rows]), mesh)
+            sp = axis_size(mesh, "sp")
+            off = (mesh.get_local_rank("sp") if sp > 1 else 0) * (cfg.seq_len // sp)
+            res = dict(logits=logits.numpy(), at=(rows.start or 0, off), aux=aux.item(), loss=loss.item())
+        elif case["what"] == "sgd":
+            init_fn, step_fn = build_train_step(loss_fn, lambda ps: torch.optim.SGD(ps, lr=0.1), mesh)
+            state, loss = step_fn(init_fn(params), tokens)
+            res = dict(loss=loss.item(), params=params_to_numpy(state.params))
+        elif case["what"] == "bytes":
+            state = build_train_step(loss_fn, adamw(1e-2), mesh)[0](params)
+            moments = [s[k] for s in state.opt_state.state.values() for k in ("exp_avg", "exp_avg_sq")]
+            res = dict(param_bytes=_local_bytes(state.params.parameters()), moment_bytes=_local_bytes(moments))
+        else:
+            init_fn, step_fn = build_train_step(loss_fn, adamw(1e-3), mesh)
+            state, losses = init_fn(params), []
+            for _ in range(case["steps"]):
+                state, loss = step_fn(state, tokens)
+                losses.append(loss.item())
+            res = dict(losses=losses)
+        out[case["name"]] = res
+    return out
+
+
+def ring_cases(rank: int, payload) -> dict:
+    """test_torch_ring_attention.py: ``ring_attention_sharded`` for each
+    case ``(name, ranks, axes)`` of ``payload["cases"]`` on the mesh of its
+    ranks, on q, k, v placed batch over (dp, fsdp), heads over tp, seq
+    over sp: the output and the gradients of ``(out * w).sum()``,
+    gathered."""
+    import torch
+
+    from ray_tpu_torch.ops.ring_attention import ring_attention_sharded
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    from ray_tpu_torch.parallel.sharding import global_put
+
+    out = {}
+    for name, ranks, axes in payload["cases"]:
+        mesh = make_mesh(MeshConfig(**axes), devices=("cpu", ranks))
+        if rank not in ranks:
+            continue
+        data = payload["data"][name]
+        spec = (("dp", "fsdp"), "tp", "sp", None)
+        q, k, v = (global_put(torch.from_numpy(data[n]), mesh, spec).requires_grad_() for n in "qkv")
+        att = ring_attention_sharded(q, k, v, mesh)
+        (att.to_local() * torch.from_numpy(data["w"])).sum().backward()  # each rank its shard's terms
+        out[name] = {"out": att.full_tensor().detach().numpy(), "placements": [str(p) for p in att.placements],
+                     "grads": [t.grad.full_tensor().numpy() for t in (q, k, v)]}
+    return out
+
+
 BODIES = {"parallel_modes": parallel_modes, "flash_sharded": flash_sharded, "pipeline_cases": pipeline_cases,
           "checkpoint_save": checkpoint_save, "checkpoint_restore": checkpoint_restore,
-          "module_bridge_steps": module_bridge_steps}
+          "module_bridge_steps": module_bridge_steps, "gpt_mesh_cases": gpt_mesh_cases,
+          "ring_cases": ring_cases}
+
+
+def several(rank: int, payload) -> list:
+    """Each ``(body, payload)`` of ``payload`` in turn, in one launch."""
+    return [BODIES[name](rank, p) for name, p in payload]
+
+
+BODIES["several"] = several
 
 
 def _main(body: str, rank: int, world: int, tmp: str) -> None:
+    import faulthandler
+
     import torch
     import torch.distributed as dist
 
+    faulthandler.enable()
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
                            rank=rank, world_size=world)
