@@ -34,8 +34,9 @@ the autoscaler buys on demand; and a durable GPT-124M workflow whose driver
 is killed after its decode step and which a fresh driver resumes; and the
 406M shape trained on a device mesh (``ray_tpu_torch.parallel``) over an
 NCCL group of one card, through the one-process step and a
-``TorchTrainer`` worker, with a sharded checkpoint. Phases, each of which
-raises on failure:
+``TorchTrainer`` worker, with a sharded checkpoint; and GPT-J-6B through
+the tensor-parallel engine's runner at tp 1 on an NCCL group of one.
+Phases, each of which raises on failure:
 
 1. device: name, compute capability, power limit;
 2. build: the three kernel sources, in parallel, and their ``-Xptxas -v`` register /
@@ -217,7 +218,9 @@ raises on failure:
     assignments per layer, K3/K4/K5 launches, step ms, tokens/s, peak
     memory;
 28. Tune over Train (``ray_tpu_torch.tune``), ``init()`` with the card as
-    one ``GPU``, dense GPT-124M (remat "attn", batch 8) as the trainable:
+    one ``GPU`` and ``preload_python_modules`` ``TUNE_PRELOAD`` (every
+    trial and trainer worker forks from a template that imported them
+    once), dense GPT-124M (remat "attn", batch 8) as the trainable:
     (a) ``Tuner`` with ``ASHAScheduler(max_t=3, grace_period=2,
     reduction_factor=2)``, 4 trials of lr from ``loguniform(1e-5, 1e-3)``
     (seed 28) at ``with_resources({"CPU": 1, "GPU": 0.5})``, two at a time
@@ -379,7 +382,19 @@ raises on failure:
     trains the 406M width at 4 layers on its own NCCL mesh for 2 steps and
     reports ``save_pytree_checkpoint`` of the sharded state; a second
     ``fit`` restores it into a fresh sharded state and takes one step, its
-    loss equal bit for bit to this process's third step of the same run.
+    loss equal bit for bit to this process's third step of the same run;
+35. the tensor-parallel engine's runner at tp 1 (``llm.multichip``):
+    GPT-J-6B on phase 6's weights (adopted, no second copy) through
+    ``TensorParallelPagedModelRunner`` and ``ShardedKVBlockPool`` on a
+    private ``ProcessGroupNCCL`` of one rank (no follower), beside the plain
+    engine on the same weights: 8 requests (prompts of 192-480 ids from
+    numpy seed 35, 32 new tokens; 4 greedy, 4 seeded with seed 42), plain
+    and at ``spec_k=4``; the tp runner's tokens and logprobs equal the plain
+    engine's bit for bit (the same arithmetic in the same order), its
+    ``hbm_ledger()["per_device"]`` holds one card with the plain ledger's
+    totals, the pool's audit passes, and K1 launches 28 times a decode
+    step and K2 28 times a verify step; decode and verify step times of
+    both, in turns.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it has
 the card's name and power limit, the one before that the kernels' record.
@@ -4448,6 +4463,10 @@ TUNE_STEPS = 3
 PBT_INTERVAL = 2  # (b)'s perturbation interval: a trial checkpoints at its multiples only
 TUNE_INNER_STEPS = 2  # (c): the steps of each trainer run inside a trial
 TUNE_TIMEOUT_S = 600  # a Tuner run taking longer fails the phase
+#: the modules each of the phase's worker processes would import itself:
+#: torch, and torch._dynamo, which an optimizer's first add_param_group
+#: imports (chip_cuts.py 28 times the phase with and without them)
+TUNE_PRELOAD = "torch,torch._dynamo"
 
 
 def tune_batches() -> np.ndarray:
@@ -4723,10 +4742,11 @@ def tuner_over_trainer(card: str, storage: str) -> tuple:
 
 def tune_over_train(card: str) -> dict:
     """Phase 28: ``ray_tpu_torch.tune`` over the card as one ``GPU``:
-    ``tune_asha``, ``tune_pbt`` and ``tuner_over_trainer``."""
+    ``tune_asha``, ``tune_pbt`` and ``tuner_over_trainer``. Its cluster's
+    preload ends with it (``shutdown``)."""
     gc.collect()
     torch.cuda.empty_cache()
-    ray_tpu_torch.init()
+    ray_tpu_torch.init(_system_config={"preload_python_modules": TUNE_PRELOAD})
     storage = tempfile.mkdtemp(prefix="phase28_")
     try:
         asha, asha_s = tune_asha(card, storage)
@@ -6970,6 +6990,102 @@ def mesh_on_card(card: str, phase17: dict) -> dict:
     return dict(trained=trained, ckpt=ckpt, proof=proof, moe=moe, ring=ring, seconds=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------------------
+# phase 35: the tensor-parallel engine's runner at tp 1
+# ---------------------------------------------------------------------------
+
+TP1_ENGINE = dict(max_slots=S, block_size=BS, max_blocks_per_seq=64, num_blocks=S * 64 + 1, prefill_chunk=256)
+
+
+class TP1Engine(LLMEngine):
+    """``LLMEngine`` over ``llm.multichip``'s runner and pool at tp 1: the
+    tp path on a private group of one rank (``EngineConfig(tp=1)`` itself
+    takes the single-card pair)."""
+
+    def _substrate(self, model_cfg, params, cache_cfg):
+        return self._tp_substrate(model_cfg, params, cache_cfg, 1)
+
+
+def tp1_requests() -> list:
+    """8 (prompt, sampling): prompts of 192-480 ids from numpy seed 35, 32
+    new tokens, the first 4 greedy, the rest at temperature 0.8, seed 42."""
+    rng = np.random.default_rng(35)
+    return [(rng.integers(0, GPTJ_6B.vocab_size, int(n)).tolist(),
+             SamplingParams(max_tokens=32) if i < 4 else SamplingParams(max_tokens=32, temperature=0.8, seed=42))
+            for i, n in enumerate(rng.integers(192, 481, S))]
+
+
+def tp1_serve(eng: LLMEngine, requests) -> dict:
+    """Serve ``requests`` to the end by ``step()``: tokens, logprobs, step
+    times (host clock ending in the step's sync) and the kernels' launches
+    since the start."""
+    eng.warmup()
+    reset_counts(eng)
+    before = eng.stats()
+    reqs = [eng.submit(list(p), sp) for p, sp in requests]
+    while not all(r.finished for r in reqs):
+        eng.step()
+    st = eng.stats()
+    k1, k2 = check_counts("phase 35", eng)
+    d = st["decode_steps"] - before["decode_steps"]
+    v = st.get("verify_steps", 0) - before.get("verify_steps", 0)
+    if not eng.pool.audit()["ok"]:
+        raise AssertionError("phase 35: the pool's audit failed")
+    return dict(tokens=[list(r.out) for r in reqs], logprobs=[list(r.out_logprobs) for r in reqs], k1=k1, k2=k2,
+                decode_ms=(st["decode_s"] - before["decode_s"]) / max(d, 1) * 1e3, decode_steps=d,
+                verify_ms=(st.get("verify_s", 0.0) - before.get("verify_s", 0.0)) / max(v, 1) * 1e3,
+                verify_steps=v, ledger=eng.hbm_ledger())
+
+
+def tp1_runner(card: str, params) -> dict:
+    """Phase 35: the plain engine and the tp runner at tp 1 over phase 6's
+    weights, plain and speculating, in turns (plain, tp, tp, plain)."""
+    t_phase = time.perf_counter()
+    requests = tp1_requests()
+    out = {}
+    for spec in (0, 4):
+        runs = {"plain": [], "tp1": []}
+        for who in ("plain", "tp1", "tp1", "plain"):
+            cls = TP1Engine if who == "tp1" else LLMEngine
+            eng = cls(GPTJ_6B, params, EngineConfig(spec_k=spec, **TP1_ENGINE))
+            if who == "tp1":
+                pg = eng.runner.group.coll.pg
+                if type(pg).__name__ != "ProcessGroupNCCL" or eng.runner.group.procs:
+                    raise AssertionError(f"phase 35: the tp runner's group is {type(pg).__name__} with "
+                                         f"{len(eng.runner.group.procs)} followers")
+                if eng.runner.params.blocks[0].q.weight.data_ptr() != params.blocks[0].q.weight.data_ptr():
+                    raise AssertionError("phase 35: the tp runner copied the weights at tp 1")
+            runs[who].append(tp1_serve(eng, requests))
+            eng.shutdown()
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        plain, tp1 = runs["plain"][0], runs["tp1"][0]
+        for run in runs["plain"][1:] + runs["tp1"]:
+            if run["tokens"] != plain["tokens"] or run["logprobs"] != plain["logprobs"]:
+                raise AssertionError(f"phase 35 (spec_k={spec}): tokens or logprobs differ between runs")
+        led = tp1["ledger"]
+        per = led["per_device"]
+        want = {k: plain["ledger"][k] for k in ("params_bytes", "pool_bytes", "seq_bytes", "cache_bytes",
+                                                "free_bytes", "drafter_bytes")}
+        if list(per.values()) != [want]:
+            raise AssertionError(f"phase 35: per_device {per} against the plain ledger's {want}")
+        label = "spec" if spec else "plain"
+        steps = ("verify", tp1["verify_steps"], "K2", tp1["k2"]) if spec else ("decode", tp1["decode_steps"],
+                                                                              "K1", tp1["k1"])
+        print(f"(35 {label}) GPT-J-6B through the tp runner at tp 1 on a one-rank NCCL group [{card}]: "
+              f"{len(requests)} requests, tokens and logprobs equal the plain engine's bit for bit; "
+              f"per_device {per}; {steps[2]} {steps[3]} launches = 28 x {steps[1]} {steps[0]} steps "
+              f"(K1 {tp1['k1']}, K2 {tp1['k2']}); decode step tp runner "
+              f"{[round(r['decode_ms'], 3) for r in runs['tp1']]} ms against plain "
+              f"{[round(r['decode_ms'], 3) for r in runs['plain']]} ms in turns"
+              + (f"; verify step tp runner {[round(r['verify_ms'], 3) for r in runs['tp1']]} ms against plain "
+                 f"{[round(r['verify_ms'], 3) for r in runs['plain']]} ms" if spec else ""))
+        out[label] = dict(k1=sum(r["k1"] for r in runs["tp1"]), k2=sum(r["k2"] for r in runs["tp1"]))
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def share_bytecode() -> str:
     """Gives this process and every process it starts (workers, drivers,
     CLI processes: they inherit the environment) one bytecode cache in the
@@ -7039,7 +7155,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("11 GPT-J-6B spec serve")
-    spec = spec_serve_6b(served.pop("params"), card)
+    gptj_params = served.pop("params")  # phase 35 serves them again
+    spec = spec_serve_6b(gptj_params, card)
 
     phase("12 verify profile")
     profile_verify(spec.pop("engine"), card)
@@ -7154,6 +7271,11 @@ def main() -> int:
     meshed = mesh_on_card(card, trained)
     print(f"phase 34 [{card}]: {meshed['seconds']:.1f} s")
 
+    phase("35 the tensor-parallel runner at tp 1")
+    tp1 = tp1_runner(card, gptj_params)
+    del gptj_params
+    print(f"phase 35 [{card}]: {tp1['seconds']:.1f} s")
+
     kernels = [
         dict(
             name="paged_decode_attention",
@@ -7162,7 +7284,7 @@ def main() -> int:
             replaces="ray_tpu/ops/paged_attention.py:203",
             launches=(served["launches"] + gpt_served["k1"] + swapped["launches"] + production["k1"]
                       + runtime["k1"] + served24["k1_gptj"] + served24["k1_gpt"] + rl["k1"] + ops["k1"]
-                      + cli["k1"] + wf["k1"]),
+                      + cli["k1"] + wf["k1"] + tp1["plain"]["k1"] + tp1["spec"]["k1"]),
             max_abs_err=err,
             ms=timing["ms"],
             plain_ms=timing["plain_ms"],
@@ -7176,7 +7298,8 @@ def main() -> int:
                               "gptj_6b_serve_replica": served24["k1_gptj"],
                               "gpt_124m_serve_failover": served24["k1_gpt"],
                               "gpt_124m_rlhf_rollouts": rl["k1"], "gpt_124m_job": ops["k1"],
-                              "gpt_124m_cli_actors": cli["k1"], "gpt_124m_workflow": wf["k1"]},
+                              "gpt_124m_cli_actors": cli["k1"], "gpt_124m_workflow": wf["k1"],
+                              "gptj_6b_tp1_runner": tp1["plain"]["k1"] + tp1["spec"]["k1"]},
             at_head_dim_64=dict(timing64, bound_by="bytes"),
         ),
         dict(
@@ -7184,10 +7307,11 @@ def main() -> int:
             route="cuda",
             source="ray_tpu_torch/ops/csrc/paged_verify_attention.cu",
             replaces="ray_tpu/ops/paged_attention.py:304",
-            launches=spec["launches"] + gpt_served["k2"] + production["k2"] + runtime["k2"] + served24["k2"],
+            launches=(spec["launches"] + gpt_served["k2"] + production["k2"] + runtime["k2"] + served24["k2"]
+                      + tp1["spec"]["k2"]),
             launches_by_path={"gptj_6b_spec_serve": spec["launches"], "gpt_124m_spec_serve": gpt_served["k2"],
                               "gpt_124m_production": production["k2"], "gpt_124m_actor": runtime["k2"],
-                              "gpt_124m_serve_failover": served24["k2"]},
+                              "gpt_124m_serve_failover": served24["k2"], "gptj_6b_tp1_runner": tp1["spec"]["k2"]},
             max_abs_err=err2,
             ms=timing2["ms"],
             plain_ms=timing2["plain_ms"],

@@ -23,6 +23,26 @@ from ray_tpu_torch._private.runtime import DriverContext, ObjectRef
 
 _head: Optional[Head] = None
 _session_dir: Optional[str] = None
+#: ``preload_python_modules`` as it stood before ``init``: the option is one
+#: cluster's, so ``shutdown`` puts it back and the next cluster's workers
+#: import only what that cluster asks for
+_preload_outside = GLOBAL_CONFIG.preload_python_modules
+
+
+def _check_preload(names: str) -> None:
+    """Every module ``preload_python_modules`` names must exist: the
+    forkserver template imports them in a process whose errors no caller
+    reads, so a misspelt name raises here instead of silently preloading
+    nothing. (A dotted name's parents are imported to find it.)"""
+    import importlib.util
+
+    for name in filter(None, (n.strip() for n in names.split(","))):
+        try:
+            found = importlib.util.find_spec(name) is not None
+        except ImportError:  # a parent package is missing
+            found = False
+        if not found:
+            raise ValueError(f"preload_python_modules: no module named {name!r}")
 
 
 def init(
@@ -52,7 +72,14 @@ def init(
         if ignore_reinit_error:
             return _context_info()
         raise rex.RayError("ray_tpu_torch.init() called twice; pass ignore_reinit_error=True to ignore")
+    global _preload_outside
+    _preload_outside = GLOBAL_CONFIG.preload_python_modules
     GLOBAL_CONFIG.apply_overrides(_system_config)
+    try:
+        _check_preload(GLOBAL_CONFIG.preload_python_modules)
+    except ValueError:
+        GLOBAL_CONFIG.preload_python_modules = _preload_outside
+        raise
     if object_store_memory:
         # sizes both the node "memory" resource and the spill watermark
         GLOBAL_CONFIG.object_store_memory = int(object_store_memory)
@@ -209,6 +236,7 @@ def shutdown():
     if _head is not None:
         _head.shutdown()
         _head = None
+    GLOBAL_CONFIG.preload_python_modules = _preload_outside
 
 
 def put(value: Any) -> ObjectRef:

@@ -131,6 +131,17 @@ class Config:
     #: pre-started worker pool (worker_pool.h:152). Containerised workers
     #: always cold-spawn. Disable to debug spawn-path issues.
     worker_forkserver_enabled: bool = True
+    #: Comma-separated modules the forkserver template imports before it
+    #: forks any worker (reference: ``preload_python_modules``), so every
+    #: forked worker has them without paying their import: e.g.
+    #: ``"torch,torch._dynamo"`` for GPU trial workers whose optimizer's
+    #: first ``add_param_group`` imports ``torch._dynamo``. Nothing is
+    #: initialised by an import (no CUDA context), so forks stay usable on a
+    #: card. Empty: the template imports only the worker's own modules.
+    #: ``init`` raises on a name it cannot find, and ``shutdown`` restores
+    #: the value from before ``init``: a CPU cluster's workers stay free of
+    #: torch unless that cluster asks for it.
+    preload_python_modules: str = ""
 
     #: Pipeline up to this many plain tasks of identical scheduling
     #: signature onto one worker (followers ride the head task's resource

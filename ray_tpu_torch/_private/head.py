@@ -1628,6 +1628,8 @@ class Head:
     def _worker_env(self, pkg_root: str) -> dict:
         env = dict(os.environ)
         env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
+        if GLOBAL_CONFIG.preload_python_modules:  # the template reads it (worker_template.py)
+            env["RAY_TPU_PRELOAD_PYTHON_MODULES"] = GLOBAL_CONFIG.preload_python_modules
         if self.arena_name:
             env["RAY_TPU_ARENA"] = self.arena_name
         if self.tcp_address is not None:

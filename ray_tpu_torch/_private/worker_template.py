@@ -52,6 +52,17 @@ def main(
     import ray_tpu_torch._private.data_plane  # noqa: F401  (remote arg fetches)
     import ray_tpu_torch._private.runtime_env  # noqa: F401  (renv.applied per task)
 
+    # the cluster's ``preload_python_modules`` (config.py): imported once
+    # here, shared by every fork
+    import importlib
+
+    for name in os.environ.get("RAY_TPU_PRELOAD_PYTHON_MODULES", "").split(","):
+        if name.strip():
+            try:
+                importlib.import_module(name.strip())
+            except ImportError as e:
+                print(f"[ray_tpu_torch] worker_template: cannot preload {name.strip()}: {e}", file=sys.stderr)
+
     import threading
 
     if threading.active_count() != 1:  # pragma: no cover - fork-safety guard

@@ -1,5 +1,6 @@
 """ray_tpu_torch.llm: continuous-batching GPT and GPT-J serving over a
-paged KV cache, on one CUDA device, with speculative decoding, weight
+paged KV cache, on one CUDA device or tensor-parallel over several
+(``EngineConfig(tp=N)``, ``llm.multichip``), with speculative decoding, weight
 hot-swap, the watchdog, deadline-aware shedding and the metrics, events,
 phase and tracing hooks (port of ``ray_tpu.llm``).
 
@@ -28,6 +29,10 @@ LOCK_ORDER = (
 from ray_tpu_torch.llm.cache import CacheConfig, KVBlockPool  # noqa: F401
 from ray_tpu_torch.llm.drafter import NGramDrafter, SmallModelDrafter, make_drafter  # noqa: F401
 from ray_tpu_torch.llm.engine import EngineConfig, LLMEngine  # noqa: F401
+from ray_tpu_torch.llm.multichip import (  # noqa: F401
+    ShardedKVBlockPool,
+    TensorParallelPagedModelRunner,
+)
 from ray_tpu_torch.llm.prefix_cache import PrefixCache, PrefixMatch  # noqa: F401
 from ray_tpu_torch.llm.scheduler import Request, SamplingParams, Scheduler  # noqa: F401
 from ray_tpu_torch.llm.watchdog import EngineStalledError, EngineWatchdog  # noqa: F401

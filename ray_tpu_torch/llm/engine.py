@@ -1,8 +1,9 @@
 """LLMEngine: the continuous-batching step loop (port of
 ``ray_tpu/llm/engine.py``).
 
-One engine owns one GPT or GPT-J model, one paged KV pool on one device,
-and one scheduler. ``step()`` is the whole design:
+One engine owns one GPT or GPT-J model, one paged KV pool on one device
+(or, at ``EngineConfig(tp=N)``, on N cards: ``llm.multichip``), and one
+scheduler. ``step()`` is the whole design:
 
 1. reap cancellations and blown deadlines;
 2. admit waiting requests into free decode slots (FIFO, memory-gated, and
@@ -46,7 +47,12 @@ submitter threads can feed the engine while one loop thread
 (``run_loop``) turns the crank, and ``update_weights`` hot-swaps the
 parameters between two steps without draining in-flight requests.
 
-Not ported yet (ROADMAP.md): tensor parallelism (``tp > 1``).
+Tensor parallelism: ``tp > 1`` builds ``llm.multichip``'s runner and
+head-sharded pool instead of the single-card pair; this process is the
+leader and starts ``tp - 1`` follower processes, one a card
+(``shutdown()`` or the engine's collection stops them). Everything above
+the runner — scheduler, prefix cache, drafter, watchdog, hot swap — is
+unchanged.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ import torch
 
 from ray_tpu_torch._private import events as _events
 from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.llm._tp_worker import storage_bytes
 from ray_tpu_torch.llm.cache import CacheConfig, KVBlockPool
 from ray_tpu_torch.llm.drafter import make_drafter
 from ray_tpu_torch.llm.model_runner import PagedModelRunner, _row_noise, _sample_rows
@@ -170,9 +177,9 @@ def _metrics() -> dict:
             ),
             # HBM ledger gauges: params + pool + drafter is (about) the
             # resident footprint; the three kv_* gauges PARTITION the
-            # pool's usable blocks (seq-owned + cache-only + free). The
-            # device tag is the reference's per-device split under tp > 1
-            # (not ported): the untagged series is the pool-wide truth.
+            # pool's usable blocks (seq-owned + cache-only + free). Under
+            # tp > 1 the device tag splits each per card (hbm_ledger's
+            # per_device); the untagged series is the pool-wide truth.
             "hbm_params": Gauge(
                 "llm_hbm_params_bytes", "device bytes held by model params",
                 tag_keys=("device",),
@@ -212,13 +219,7 @@ def _tree_device_bytes(params) -> int:
     tensor is not counted twice; 0 for None (the n-gram drafter holds no
     device state). These are the fp32 masters the GPT runner casts at each
     use, not the step's bf16 temporaries."""
-    if params is None:
-        return 0
-    seen: dict[int, int] = {}
-    for p in params.parameters():
-        st = p.untyped_storage()
-        seen[st.data_ptr()] = st.nbytes()
-    return sum(seen.values())
+    return 0 if params is None else storage_bytes(params.parameters())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,8 +230,9 @@ class EngineConfig:
     Decode and verify attention run the CUDA kernels on the card and their
     plain versions on the CPU (``ops.paged_attention``). The prefix cache is
     always on: KV blocks are shared across requests through a radix tree
-    over block contents. ``tp`` exists so a reference configuration is
-    refused loudly: only 1 is ported.
+    over block contents. ``tp`` splits the model's heads and MLP over that
+    many cards, one process each (``llm.multichip``); ``n_heads`` must
+    divide by it, and a card engine needs ``tp`` visible cards.
 
     Speculative decoding: ``spec_k > 0`` turns it on — each step a drafter
     proposes ``spec_k`` tokens per running slot and the target model
@@ -290,29 +292,20 @@ class LLMEngine:
         self.cfg = engine_cfg or EngineConfig()
         if self.cfg.spec_k < 0:
             raise ValueError("spec_k must be >= 0")
-        if self.cfg.tp > 1:
-            raise NotImplementedError(
-                "tensor parallelism (tp > 1) is not ported yet: ROADMAP.md, queue A"
-            )
         self.device = resolve_device(device)
         pdev = params.lm_head.weight.device
-        if pdev != self.device:
-            raise ValueError(f"params are on {pdev}, the engine runs on {self.device}")
+        if pdev != self.device and not (self.cfg.tp > 1 and pdev.type == "cpu"):
+            raise ValueError(
+                f"params are on {pdev}, the engine runs on {self.device}"
+                + (" (under tp > 1 they may also be on the CPU)" if self.cfg.tp > 1 else "")
+            )
         self.model_cfg = model_cfg
         cache_cfg = CacheConfig(
             num_blocks=self.cfg.num_blocks,
             block_size=self.cfg.block_size,
             max_blocks_per_seq=self.cfg.max_blocks_per_seq,
         )
-        self.runner = PagedModelRunner(model_cfg, params, self.cfg.block_size)
-        self.pool = KVBlockPool(
-            cache_cfg,
-            n_layers=model_cfg.n_layers,
-            n_heads=model_cfg.n_heads,
-            head_dim=model_cfg.head_dim,
-            dtype=model_cfg.torch_dtype,
-            device=self.device,
-        )
+        self.runner, self.pool = self._substrate(model_cfg, params, cache_cfg)
         self.prefix_cache = PrefixCache(self.pool)
         self.scheduler = Scheduler(self.pool, self.cfg.max_slots, prefix_cache=self.prefix_cache)
         self._drafter = None
@@ -382,6 +375,54 @@ class LLMEngine:
         self.max_model_len = cache_cfg.max_seq_len
         if self.runner.arch == "gpt":
             self.max_model_len = min(self.max_model_len, model_cfg.seq_len)
+
+    def _substrate(self, model_cfg, params, cache_cfg: CacheConfig):
+        """The runner and the pool: a single-card pair at tp 1, the
+        tensor-parallel pair of ``llm.multichip`` over the same group
+        otherwise (everything above them — scheduler, prefix cache,
+        drafter, watchdog — is blind to tp)."""
+        if self.cfg.tp > 1:
+            return self._tp_substrate(model_cfg, params, cache_cfg, self.cfg.tp)
+        runner = PagedModelRunner(model_cfg, params, self.cfg.block_size)
+        pool = KVBlockPool(
+            cache_cfg,
+            n_layers=model_cfg.n_layers,
+            n_heads=model_cfg.n_heads,
+            head_dim=model_cfg.head_dim,
+            dtype=model_cfg.torch_dtype,
+            device=self.device,
+        )
+        return runner, pool
+
+    def _tp_substrate(self, model_cfg, params, cache_cfg: CacheConfig, tp: int):
+        """``TensorParallelPagedModelRunner`` (which starts the followers)
+        and ``ShardedKVBlockPool`` over its group, at ``tp``."""
+        from ray_tpu_torch.llm.multichip import ShardedKVBlockPool, TensorParallelPagedModelRunner
+
+        runner = TensorParallelPagedModelRunner(
+            model_cfg, params, self.cfg.block_size, tp=tp, device=self.device
+        )
+        try:
+            pool = ShardedKVBlockPool(
+                cache_cfg,
+                n_layers=model_cfg.n_layers,
+                n_heads=model_cfg.n_heads,
+                head_dim=model_cfg.head_dim,
+                dtype=model_cfg.torch_dtype,
+                device=self.device,
+                tp=tp,
+                group=runner.group,
+            )
+        except BaseException:
+            runner.close()
+            raise
+        return runner, pool
+
+    def shutdown(self) -> None:
+        """Stop what the engine started outside this process: the follower
+        processes of a tp engine (collection stops them too). The engine
+        takes no step after this."""
+        self.runner.close()
 
     # -- public API --------------------------------------------------------
 
@@ -561,7 +602,8 @@ class LLMEngine:
         (what ``rlhf.sync.apply_weight_update`` rebuilds from a pushed
         manifest): the same parameter names, shapes and dtypes, or
         ``ValueError``. Each new value is written INTO the existing
-        parameter storage with ``copy_``, under the engine lock, on the
+        parameter storage with ``copy_`` (under tp, each rank's slice into
+        its own: ``runner.load_weights``), under the engine lock, on the
         current stream (the steps' stream: the engine never switches
         streams), so the next step reads it; no tensor is rebound, so
         nothing that captured the storage can keep stale weights. In-flight
@@ -574,17 +616,17 @@ class LLMEngine:
         new = params if isinstance(params, Mapping) else params.state_dict()
         t0 = time.perf_counter()
         with self._caller_lock():
-            old = self.runner.params.state_dict(keep_vars=True)
+            old = self.runner.weight_specs()
             if list(new) != list(old):
                 raise ValueError(
                     f"update_weights parameter structure mismatch: {list(new)} != {list(old)}"
                 )
-            for name, dst in old.items():
+            for name, (shape, dtype) in old.items():
                 src = new[name]
-                if src.shape != dst.shape or src.dtype != dst.dtype:
+                if tuple(src.shape) != shape or src.dtype != dtype:
                     raise ValueError(
                         f"update_weights mismatch at {name}: {tuple(src.shape)}/{src.dtype} != "
-                        f"{tuple(dst.shape)}/{dst.dtype}"
+                        f"{shape}/{dtype}"
                     )
             if version is None:
                 version = self._weights_version + 1
@@ -592,9 +634,7 @@ class LLMEngine:
                 raise ValueError(
                     f"weights_version must not go backwards: {version} < {self._weights_version}"
                 )
-            with torch.no_grad():
-                for name, dst in old.items():
-                    dst.copy_(new[name])
+            self.runner.load_weights(new)
             self._weights_version = version
             # cached prefix KV was computed under the OLD weights: no new
             # request may seed from it (in-flight requests keep their own
@@ -1108,11 +1148,19 @@ class LLMEngine:
         """Live device-memory byte accounting (the gauges' source of truth,
         also read by ``stats()``): parameters, the pool's total, and the
         seq-owned / cache-only / free partition of its usable blocks x
-        block bytes, from ONE pool-lock snapshot. The reference's
-        per-device section under tp > 1 is not ported (tp > 1 raises)."""
+        block bytes, from ONE pool-lock snapshot.
+
+        Over a tensor-parallel pool a ``per_device`` section attributes the
+        same families per card (keyed by card index; by rank on the CPU):
+        pool and params from what each rank holds (head shards and its copy
+        of every replicated parameter — params per device EXCEED
+        ``params_bytes / tp`` — and the leader's head), the block partition
+        scaled by each rank's local block bytes, the drafter on the leader's
+        card. The top-level numbers stay pool-wide — the ledger is
+        host-global, block ids are not per-shard."""
         bb = self.pool.block_bytes
         counts = self.pool.ledger_counts()
-        return {
+        led = {
             "params_bytes": self._params_bytes,
             "pool_bytes": self.pool.device_bytes,
             "block_bytes": bb,
@@ -1125,6 +1173,23 @@ class LLMEngine:
             "free_blocks": counts["free"],
             "utilization": counts["seq_owned"] / max(self.pool.cfg.num_blocks - 1, 1),
         }
+        if hasattr(self.pool, "per_device_bytes"):
+            pool_dev = self.pool.per_device_bytes()
+            par_dev = self.runner.per_device_param_bytes()
+            nb = self.pool.cfg.num_blocks
+            first = next(iter(pool_dev))
+            led["per_device"] = {
+                dev: {
+                    "params_bytes": par_dev.get(dev, 0),
+                    "pool_bytes": pool_b,
+                    "seq_bytes": counts["seq_owned"] * (pool_b // nb),
+                    "cache_bytes": counts["cache_only"] * (pool_b // nb),
+                    "free_bytes": counts["free"] * (pool_b // nb),
+                    "drafter_bytes": self._drafter_bytes if dev == first else 0,
+                }
+                for dev, pool_b in pool_dev.items()
+            }
+        return led
 
     def _publish_gauges(self) -> None:
         m = _metrics()
@@ -1138,6 +1203,16 @@ class LLMEngine:
         m["hbm_cache"].set(led["cache_bytes"])
         m["hbm_free"].set(led["free_bytes"])
         m["hbm_drafter"].set(led["drafter_bytes"])
+        # tensor parallel: the same gauge NAMES split by a device tag; the
+        # untagged series above stays pool-wide for every existing consumer
+        for dev, row in led.get("per_device", {}).items():
+            tags = {"device": dev}
+            m["hbm_params"].set(row["params_bytes"], tags=tags)
+            m["hbm_pool"].set(row["pool_bytes"], tags=tags)
+            m["hbm_seq"].set(row["seq_bytes"], tags=tags)
+            m["hbm_cache"].set(row["cache_bytes"], tags=tags)
+            m["hbm_free"].set(row["free_bytes"], tags=tags)
+            m["hbm_drafter"].set(row["drafter_bytes"], tags=tags)
         done = self.scheduler.finish_count
         if done > self._finished_published:
             m["finished"].inc(done - self._finished_published)

@@ -181,7 +181,7 @@ class PagedModelRunner:
     with ``GPTJ`` parameters or a dense ``GPTConfig`` with ``GPT``
     parameters."""
 
-    def __init__(self, cfg, params, block_size: int):
+    def __init__(self, cfg, params, block_size: int, device=None):
         if isinstance(cfg, GPTJConfig):
             self.arch = "gptj"
         elif isinstance(cfg, GPTConfig):
@@ -193,7 +193,10 @@ class PagedModelRunner:
         self.cfg = cfg
         self.params = params
         self.block_size = block_size
-        self.device = params.lm_head.weight.device
+        self.device = params.lm_head.weight.device if device is None else torch.device(device)
+        #: the heads this runner's q/k/v projections yield: all of them here,
+        #: a tp rank's share in ``llm.multichip``
+        self.n_heads = cfg.n_heads
         #: step calls per site; a decode step launches the paged decode
         #: kernel once per layer, a verify step the paged verify kernel
         self.launches = {"decode": 0, "prefill": 0, "fork": 0, "verify": 0}
@@ -246,31 +249,51 @@ class PagedModelRunner:
         """h: (n, d) post-ln hidden → q/k/v (n, heads, hd), rotary applied
         for GPT-J."""
         n = h.shape[0]
-        nh, hd = self.cfg.n_heads, self.cfg.head_dim
+        nh, hd = self.n_heads, self.cfg.head_dim
         if self.arch == "gptj":
             r = self.cfg.rotary_dim
             q = _rotary_rows(layer.q(h).view(n, nh, hd), positions, r)
             k = _rotary_rows(layer.k(h).view(n, nh, hd), positions, r)
             return q, k, layer.v(h).view(n, nh, hd)
-        q, k, v = _linear(h, layer.attn_qkv).split(self.cfg.d_model, dim=-1)
+        q, k, v = _linear(h, layer.attn_qkv).split(nh * hd, dim=-1)
         # the split leaves strided views; the attention kernels take q
         # contiguous (k and v are scattered into the pools)
         return q.reshape(n, nh, hd).contiguous(), k.reshape(n, nh, hd), v.reshape(n, nh, hd)
 
+    #: the reduction of the row-parallel partials over ``llm.multichip``'s
+    #: ranks (None: one card, nothing to reduce) and this runner's rank
+    coll = None
+    rank = 0
+
+    def _reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.coll is None else self.coll.all_reduce(t)
+
     def _layer(self, layer, x, positions, attend):
         """One block over rows ``x`` (n, d) at ``positions``; ``attend(q, k,
         v)`` writes the rows' k/v into this layer's pools and returns their
-        attention (n, heads, hd)."""
+        attention (n, heads, hd). Under tensor parallelism
+        (``llm.multichip``) the heads and the MLP's middle are this rank's
+        share and ``_reduce`` sums the row-parallel partials; rank 0's
+        partial carries ``x`` and the row-parallel biases, added in the
+        one-card order, so one card is the same arithmetic."""
         n = x.shape[0]
+        first = self.rank == 0
+        h = layer.ln1(x)
+        att = attend(*self._qkv_rows(layer, h, positions)).to(x.dtype).reshape(n, -1)
         if self.arch == "gptj":
-            h = layer.ln1(x)
-            att = attend(*self._qkv_rows(layer, h, positions))
-            att = layer.attn_out(att.to(x.dtype).reshape(n, self.cfg.d_model))
-            return x + att + layer.mlp(h)  # parallel residual
-        att = attend(*self._qkv_rows(layer, layer.ln1(x), positions))
-        h = x + _linear(att.to(x.dtype).reshape(n, self.cfg.d_model), layer.attn_out)
+            att = F.linear(att, layer.attn_out.weight)
+            mid = F.gelu(layer.mlp_in(h), approximate="tanh")
+            mlp = F.linear(mid, layer.mlp_out.weight, layer.mlp_out.bias if first else None)
+            # parallel residual: attention and MLP share one reduction
+            return self._reduce(x + att + mlp if first else att + mlp)
+        dt = x.dtype
+        out = layer.attn_out
+        att = F.linear(att, out.weight.to(dt), out.bias.to(dt) if first else None)
+        h = self._reduce(x + att if first else att)
         mid = F.gelu(_linear(layer.ln2(h), layer.mlp_in), approximate="tanh")
-        return h + _linear(mid, layer.mlp_out)  # sequential residual
+        out = layer.mlp_out
+        mlp = F.linear(mid, out.weight.to(dt), out.bias.to(dt) if first else None)
+        return self._reduce(h + mlp if first else mlp)  # sequential residual
 
     # -- decode step -------------------------------------------------------
 
@@ -283,6 +306,14 @@ class PagedModelRunner:
         t0 = time.perf_counter()
         self.launches["decode"] += 1
         noise = _row_noise(seeds, counters, temp, self.cfg.vocab_size, self.device)
+        x = self._decode_hidden(k_pool, v_pool, tokens, positions, tables)
+        out = _sample_rows(self._logits(x), noise, temp, top_k, top_p)
+        self._note_compile("decode", len(tokens), t0)
+        self.prof.note("decode", self._steps["decode"], time.perf_counter() - t0)
+        return out
+
+    def _decode_hidden(self, k_pool, v_pool, tokens, positions, tables):
+        """The decode step's layers: the slots' last hidden rows (S, d)."""
         tok = self._dev(tokens, torch.int64)
         pos = self._dev(positions, torch.int64)
         tbl = self._dev(tables, torch.int32)
@@ -299,10 +330,7 @@ class PagedModelRunner:
                 return paged_attention(q, k_pool[li], v_pool[li], tbl, lengths)
 
             x = self._layer(layer, x, pos, attend)
-        out = _sample_rows(self._logits(x), noise, temp, top_k, top_p)
-        self._note_compile("decode", len(tokens), t0)
-        self.prof.note("decode", self._steps["decode"], time.perf_counter() - t0)
-        return out
+        return x
 
     # -- speculative verification step -------------------------------------
 
@@ -316,10 +344,21 @@ class PagedModelRunner:
         tokens (slots, w), their logprobs (slots, w)) as device tensors."""
         t0 = time.perf_counter()
         self.launches["verify"] += 1
-        cfg = self.cfg
         S, W = np.shape(tokens)
         # the host noise first, so the layers queue behind it
-        noise = _window_noise(seeds, counters, temp, W, cfg.vocab_size, self.device)
+        noise = _window_noise(seeds, counters, temp, W, self.cfg.vocab_size, self.device)
+        x, tok = self._verify_hidden(k_pool, v_pool, tokens, base_pos, tables)
+        logits = self._logits(x).view(S, W, -1)
+        out = _verify_rows(logits, tok[:, 1:], noise, temp, top_k, top_p)
+        self._note_compile("verify", (S, W), t0)
+        self.prof.note("verify", self._steps["verify"], time.perf_counter() - t0)
+        return out
+
+    def _verify_hidden(self, k_pool, v_pool, tokens, base_pos, tables):
+        """The verify step's layers: the windows' hidden rows (S*W, d) and
+        the tokens on the device (S, W)."""
+        cfg = self.cfg
+        S, W = np.shape(tokens)
         tok = self._dev(tokens, torch.int64)
         base = self._dev(base_pos, torch.int64)
         tbl = self._dev(tables, torch.int32)
@@ -343,21 +382,18 @@ class PagedModelRunner:
         # cuBLAS may pick other kernels: in bf16 a verify and a plain step
         # can round differently and part at near-ties; fp32 stays identical
         x = self._embed(tok.reshape(-1), pos_flat)  # (S*W, d)
+        nh = self.n_heads
         for li, layer in enumerate(self.params.blocks):
 
             def attend(q, k, v, li=li):
                 _scatter_kv(k_pool[li], k, phys, off)
                 _scatter_kv(v_pool[li], v, phys, off)
                 return paged_verify_attention(
-                    q.view(S, W, cfg.n_heads, cfg.head_dim), k_pool[li], v_pool[li], tbl, pos32
-                ).reshape(S * W, cfg.n_heads, cfg.head_dim)
+                    q.view(S, W, nh, cfg.head_dim), k_pool[li], v_pool[li], tbl, pos32
+                ).reshape(S * W, nh, cfg.head_dim)
 
             x = self._layer(layer, x, pos_flat, attend)
-        logits = self._logits(x).view(S, W, -1)
-        out = _verify_rows(logits, tok[:, 1:], noise, temp, top_k, top_p)
-        self._note_compile("verify", (S, W), t0)
-        self.prof.note("verify", self._steps["verify"], time.perf_counter() - t0)
-        return out
+        return x, tok
 
     # -- copy-on-write block fork (llm.prefix_cache) -----------------------
 
@@ -382,6 +418,14 @@ class PagedModelRunner:
         valid position's logits (vocab,) fp32 on the device."""
         t0 = time.perf_counter()
         self.launches["prefill"] += 1
+        x = self._prefill_hidden(k_pool, v_pool, tokens, start, n_valid, table)
+        out = self._logits(x[max(n_valid - 1, 0)][None, :])[0]
+        self._note_compile("prefill", len(tokens), t0)
+        self.prof.note("prefill", self._steps["prefill"], time.perf_counter() - t0)
+        return out
+
+    def _prefill_hidden(self, k_pool, v_pool, tokens, start: int, n_valid: int, table):
+        """The prefill chunk's layers: its hidden rows (chunk, d)."""
         chunk = len(tokens)
         bs = self.block_size
         tbl = self._dev(table, torch.int32)
@@ -401,7 +445,25 @@ class PagedModelRunner:
                 return paged_prefill_attention_torch(q, k_pool[li], v_pool[li], tbl, positions)
 
             x = self._layer(layer, x, positions, attend)
-        out = self._logits(x[max(n_valid - 1, 0)][None, :])[0]
-        self._note_compile("prefill", chunk, t0)
-        self.prof.note("prefill", self._steps["prefill"], time.perf_counter() - t0)
-        return out
+        return x
+
+    # -- weights -----------------------------------------------------------
+
+    def weight_specs(self) -> dict:
+        """``{name: (shape, dtype)}`` of the model's parameters, in
+        ``state_dict`` order: what ``LLMEngine.update_weights`` holds a new
+        set against."""
+        return {n: (tuple(t.shape), t.dtype) for n, t in self.params.state_dict(keep_vars=True).items()}
+
+    @torch.no_grad()
+    def load_weights(self, new) -> None:
+        """Write a validated ``{name: tensor}`` set INTO the parameter
+        storage (``copy_`` on the current stream, the steps' stream), so
+        the next step reads it and nothing that captured a storage keeps
+        stale weights."""
+        for name, dst in self.params.state_dict(keep_vars=True).items():
+            dst.copy_(new[name])
+
+    def close(self) -> None:
+        """Release what the runner holds beyond its tensors: nothing here,
+        the follower processes of ``llm.multichip``'s runner."""

@@ -48,8 +48,6 @@ from __future__ import annotations
 import threading
 from typing import Optional
 
-_TP_NOT_PORTED = "tensor parallelism (tp > 1) is not ported yet: ROADMAP.md, queue A"
-
 
 def on_card(device) -> bool:
     """Whether ``device`` names the card (``None`` means the card)."""
@@ -104,9 +102,14 @@ class LLMDeployment:
         draft_model_cfg=None,
         draft_params=None,
         device=None,
+        tp: Optional[int] = None,
     ):
-        from ray_tpu_torch.llm.engine import LLMEngine
+        from ray_tpu_torch.llm.engine import EngineConfig, LLMEngine
 
+        if tp is not None:  # build_llm_app's overlay, applied here so its caller needs no torch
+            import dataclasses
+
+            engine_config = dataclasses.replace(engine_config or EngineConfig(), tp=tp)
         cfg, params, dev = _build_model(model, model_cfg, params, seed, device)
         # speculative decoding with the small-model drafter
         # (engine_config.spec_drafter == "model"): the draft model's
@@ -315,10 +318,15 @@ def build_llm_app(
     (``ray_actor_options={"num_gpus": 1}``); ``"cpu"`` runs the engines on
     the CPU (tests) and asks for none.
 
-    ``tp`` — tensor parallelism per replica in the reference
-    (``llm.multichip``); not ported, so ``tp > 1`` (here or in
-    ``engine_config``) raises ``NotImplementedError`` before anything is
-    deployed.
+    ``tp`` — tensor parallelism per replica (``llm.multichip``): a
+    convenience overlay on ``engine_config.tp``. Each replica's engine
+    starts ``tp - 1`` follower processes on the cards after its own; on
+    the card the replica asks the runtime for ``num_gpus: tp``, so its node
+    has those cards and the replica's process sees them (the runtime
+    counts GPUs but binds a replica to no card index, ROADMAP §A8.1).
+    ``autoscaling_metrics`` keeps reporting the POOL-WIDE
+    ``kv_utilization`` — the block ledger is host-global under tp (every
+    rank holds the same blocks' local heads).
 
     ``max_ongoing_requests`` should comfortably exceed the engine's
     ``max_slots`` — the whole point of continuous batching is holding
@@ -335,18 +343,17 @@ def build_llm_app(
     """
     from ray_tpu_torch.serve.api import deployment
 
-    if tp is not None and tp > 1:
-        raise NotImplementedError(_TP_NOT_PORTED)
-    if engine_config is not None and getattr(engine_config, "tp", 1) > 1:
-        raise NotImplementedError(_TP_NOT_PORTED)
+    # the overlay itself is applied in the replica (``LLMDeployment``), so
+    # this caller loads no torch
+    cards = tp if tp is not None else getattr(engine_config, "tp", 1)
     dep = deployment(
         LLMDeployment,
         name=name,
         num_replicas=num_replicas,
         max_ongoing_requests=max_ongoing_requests,
         autoscaling_config=autoscaling_config,
-        # one card per replica on the card; none on the CPU
-        ray_actor_options={"num_gpus": 1} if on_card(device) else {},
+        # a card per tp rank of a replica on the card; none on the CPU
+        ray_actor_options={"num_gpus": cards} if on_card(device) else {},
         # mid-stream failover contract: a stream whose replica dies is
         # re-submitted with resume_tokens=<delivered tokens> and resumes
         # token-identically; deadline_s is re-submitted MINUS the time
@@ -357,5 +364,5 @@ def build_llm_app(
     )
     return dep.bind(
         model=model, model_cfg=model_cfg, engine_config=engine_config,
-        seed=seed, warmup=warmup, device=device,
+        seed=seed, warmup=warmup, device=device, tp=tp,
     )

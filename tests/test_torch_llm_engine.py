@@ -217,8 +217,8 @@ def test_submit_validation(port_params, engine):
         tiny_pool.submit(_prompt(20), SamplingParams(max_tokens=10))
     spec = _engine(port_params, spec_k=2)  # speculative decoding is ported
     assert spec.stats()["spec_proposed"] == 0 and spec._drafter.k == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _engine(port_params, tp=2)
+    with pytest.raises(ValueError, match="not divisible"):  # tp is ported; its heads must divide
+        _engine(port_params, tp=3)
     assert engine.stats()["waiting"] == 0
 
 

@@ -12,8 +12,8 @@ the replica serving a stream. Around that: dict payloads,
 ``resume_tokens``, the deadline shed as 429, ``update_weights`` with a
 module and a version (tokens then equal a reference engine born on seed
 1) and with a port ``rlhf`` ``WeightUpdate`` manifest, the refusals (the
-reference's manifest, ``tp=2``, a GPU-asking app on a cluster without a
-GPU), a control plane that never
+reference's manifest, a ``tp`` that does not divide the heads, a
+GPU-asking app on a cluster without a GPU), the ``tp=`` overlay, a control plane that never
 loads torch, an open-loop ``loadgen.run_curve`` through the proxy with its
 latency attribution, and the Serve parts of ``tests/test_llm_engine.py``
 (the streaming deployment, ``@serve.batch``'s gauges) and of
@@ -325,13 +325,16 @@ def test_weight_update_manifest_and_tp_raise(weights, cluster):
     finally:
         dep._stop.set()
         dep._engine._watchdog.stop()
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        build_llm_app(model="gptj", model_cfg=GPTJConfig(**ARCHS["gptj"]), tp=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        build_llm_app(model="gptj", engine_config=EngineConfig(**GEOMETRY, tp=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    # tp is ported (llm.multichip): the overlay sets engine_config.tp, and a
+    # replica on the card asks for a card per rank; a tp that does not
+    # divide the heads raises before any follower starts
+    app = build_llm_app(model="gptj", model_cfg=GPTJConfig(**ARCHS["gptj"]), tp=2, device="cpu")
+    assert app.kwargs["tp"] == 2 and app.deployment.config.ray_actor_options == {}
+    app = build_llm_app(model="gptj", engine_config=EngineConfig(**GEOMETRY, tp=2))
+    assert app.deployment.config.ray_actor_options == {"num_gpus": 2}
+    with pytest.raises(ValueError, match="not divisible"):
         LLMDeployment(model="gptj", model_cfg=GPTJConfig(**ARCHS["gptj"]),
-                      engine_config=EngineConfig(**GEOMETRY, tp=2), device="cpu")
+                      engine_config=EngineConfig(**GEOMETRY, tp=3), device="cpu")
 
 
 def test_gpu_app_without_a_gpu_fails_at_run(serve_instance):
