@@ -4,6 +4,7 @@ the script, in turns, on one GPU.
 
     python3 chip_cuts.py PARENT_DIR        # phases 7, 12 and 20
     python3 chip_cuts.py PARENT_DIR 28     # phase 28
+    python3 chip_cuts.py PARENT_DIR 25     # phase 25
 
 Loads ``PARENT_DIR/chip_smoke.py`` beside this checkout's (both drive this
 checkout's ``ray_tpu_torch``) and runs each phase of the two versions in
@@ -14,7 +15,11 @@ phase 7 (GPT-J-6B decode profile), phase 12 (its verify profile) and phase
 20 (GPT-124M's decode and verify profiles). Phase 28: builds the flash
 kernels once and runs ``tune_over_train`` (three ``Tuner`` runs, each a
 fresh cluster of trial processes; the phase's own checks hold in every
-turn). Exits non-zero without a CUDA device.
+turn). Phase 25: builds the flash kernels, runs phase 17 (the 406M
+training the phase is held against) once, then ``train_over_runtime``
+(a ``TorchTrainer`` run whose worker dies and restarts from a checkpoint,
+on a fresh cluster; the phase's own checks hold in every turn). Exits
+non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ def load_by_value(name: str, path: str):
 def main() -> int:
     import torch
 
-    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([], ["28"]):
+    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([], ["28"], ["25"]):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -60,7 +65,7 @@ def main() -> int:
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
-    if sys.argv[2:] == ["28"]:  # the phase's trainables run in worker processes
+    if sys.argv[2:] in (["28"], ["25"]):  # the phase's loops run in worker processes
         cs = load_by_value("chip_smoke_change", os.path.join(here, "chip_smoke.py"))
         parent = load_by_value("chip_smoke_parent", os.path.join(os.path.abspath(sys.argv[1]), "chip_smoke.py"))
     else:
@@ -85,6 +90,15 @@ def main() -> int:
     if sys.argv[2:] == ["28"]:
         cs._kernels.build("flash_attention")
         turns("28", lambda: parent.tune_over_train(card), lambda: cs.tune_over_train(card))
+        print(f"card: {card}")
+        print("CUTS " + json.dumps(times))
+        return 0
+    if sys.argv[2:] == ["25"]:
+        cs._kernels.build("flash_attention")
+        cs.phase("17 406M training")
+        trained = cs.train_406m(card)
+        torch.cuda.empty_cache()
+        turns("25", lambda: parent.train_over_runtime(card, trained), lambda: cs.train_over_runtime(card, trained))
         print(f"card: {card}")
         print("CUTS " + json.dumps(times))
         return 0

@@ -60,6 +60,27 @@ killed: the step must raise within ``KILL_DEADLINE_S``, and so must the
 next one. It prints ``TP`` and a JSON object of it all. ``--tp-models``
 serves only the named models, in the order named (the kill check rides
 with GPT-124M fp32).
+
+``--dp-only`` runs the data-parallel part instead (``python3 chip_mesh.py
+--dp-only``, or ``--device cpu --tiny --dp-only`` on gloo): the ``WORLD``
+ranks run the 406M step on dp 4 fed ``STEPS`` batches two ways, the
+global batch as a host tensor and ``data.read_numpy`` through
+``iter_torch_batches(sharding=NamedSharding(mesh, batch_spec()))``, whose
+losses must be equal bit for bit; then the launcher's process drives the
+data-parallel ``Learner`` (``rl._dp_worker``: a leader on card 0 and a
+follower process on each further card) for PPO and APPO at their defaults
+and the RLHF learner at ``chip_smoke.py`` phase 29's shape (``GPTConfig()``,
+32 sequences of 64-128 prompt ids and 128 new ids): at 1 card (the plain
+learner), 2 and 4, 3 fp32 updates whose metrics must lie within
+``DP_TOL`` (relative to max(1, |1 card's|)) of the 1-card learner's and
+whose parameters within ``DP_PARAM_TOL`` of its (the qkv bias's key slice,
+whose gradient is rounding noise, within 2 x lr x updates), every rank's
+parameters bit for bit alike (a digest); each count's update ms (the RLHF
+learner in bf16) and one traced update on every rank (device busy, NCCL,
+idle share). Last, one follower stopped with SIGSTOP (never killed by the
+script): a tp 2 GPT-124M engine's decode step and a 2-card PPO update must
+each raise within the heartbeat's bound (``STALE_S`` + 5 s), naming the
+rank. It prints ``DP`` and a JSON object of it all.
 """
 
 from __future__ import annotations
@@ -285,6 +306,14 @@ def rank_main(args) -> None:
 
     out = {"device": "cpu" if cpu else torch.cuda.get_device_name(dev), "world": WORLD}
     failures = []
+    if args.dp_only:
+        out["sharded_feed"] = sharded_feed(cfg, tokens_of(cfg, BATCH), mesh_of({"dp": WORLD}), run, failures)
+        dist.destroy_process_group()
+        if args.rank == 0:
+            print(json.dumps(out), flush=True)
+        if failures:
+            raise AssertionError("; ".join(failures))
+        return
     out["gpt_406m"] = parity("gpt_406m", cfg, tokens_of(cfg, BATCH), MESHES, failures)
     moe32 = moe_config(args.tiny, "float32")
     out["moe_fp32"] = parity("moe_fp32", moe32, tokens_of(moe32, MOE_BATCH), MOE_MESHES, failures)
@@ -332,6 +361,377 @@ def rank_main(args) -> None:
         print(json.dumps(out), flush=True)
     if failures:
         raise AssertionError("; ".join(failures))
+
+
+def sharded_feed(cfg, tokens, mesh, run, failures) -> dict:
+    """``--dp-only`` on the ranks: the mesh step fed ``STEPS`` times with the
+    global batch as a host tensor (the step slices it), then from the same
+    rows written to ``.npy`` files, read back by ``data.read_numpy`` and
+    placed by ``iter_torch_batches(sharding=NamedSharding(mesh,
+    batch_spec()))``; the losses must be equal bit for bit and equal on
+    every rank."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import ray_tpu_torch
+    from ray_tpu_torch import data
+    from ray_tpu_torch.models.gpt import gpt_init, gpt_loss
+    from ray_tpu_torch.parallel import NamedSharding, adamw, batch_spec, build_train_step
+    from ray_tpu_torch.parallel.sharding import is_dtensor
+
+    dev = tokens.device
+
+    def fresh():
+        init_m, step_m = build_train_step(lambda p, t: gpt_loss(cfg, p, t, mesh), adamw(1e-4), mesh)
+        return init_m(gpt_init(cfg, torch.Generator(device=dev.type).manual_seed(0), device=dev)), step_m
+
+    state, step_m = fresh()
+    host_losses, host_ms, state = run(step_m, state, "sharded_feed host", tokens)
+    del state
+    corpus = tempfile.mkdtemp(prefix="chip_mesh_feed_")
+    for i in range(STEPS):
+        np.save(os.path.join(corpus, f"part-{i:03d}.npy"), tokens.cpu().numpy())
+    ray_tpu_torch.init(num_cpus=1, num_gpus=0)
+    try:
+        state, step_m = fresh()
+        sharding = NamedSharding(mesh, batch_spec())
+        feed_losses, feed_ms, kinds = [], [], set()
+        for batch in data.read_numpy(corpus, column="tokens").iter_torch_batches(
+                batch_size=tokens.shape[0], drop_last=True, sharding=sharding, dtypes={"tokens": torch.int64}):
+            x = batch["tokens"]
+            kinds.add((is_dtensor(x), str(x.dtype), tuple(x.shape), tuple(x.to_local().shape)))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, loss = step_m(state, x)
+            feed_losses.append(loss.item())
+            feed_ms.append((time.perf_counter() - t0) * 1e3)
+        del state
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(corpus, ignore_errors=True)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, feed_losses)
+    res = dict(host_losses=host_losses, feed_losses=feed_losses, host_ms=host_ms, feed_ms=feed_ms,
+               batches=sorted(map(str, kinds)), same_on_every_rank=all(e == every[0] for e in every))
+    if feed_losses != host_losses or not res["same_on_every_rank"]:
+        failures.append(f"sharded feed: losses {every} against the host feed's {host_losses}")
+    if len(kinds) != 1 or not next(iter(kinds))[0]:
+        failures.append(f"sharded feed: batches {kinds}")
+    return res
+
+
+# -- the data-parallel learner (rl._dp_worker), from one process -------------
+
+DP_COUNTS = (1, 2, 4)
+DP_UPDATES = 3
+#: fp32 metrics at 2 and 4 cards against 1 card's, |a - b| / max(1, |b|),
+#: and parameters after DP_UPDATES updates (absolute)
+DP_TOL = 1e-5
+DP_PARAM_TOL = 1e-4
+#: seconds past the heartbeat's STALE_S a step may take to raise for a
+#: follower that was stopped
+STOP_GRACE_S = 5.0
+
+
+def dp_models(tiny: bool) -> list:
+    """(label, learner kwargs, batches, bf16 kwargs or None): PPO and APPO at
+    their defaults on CartPole's spaces, the RLHF learner at chip_smoke.py
+    phase 29's shape (fp32 for parity, bf16 for the times)."""
+    import dataclasses as dc
+    from functools import partial
+
+    import numpy as np
+
+    from ray_tpu_torch.models.gpt import GPTConfig
+    from ray_tpu_torch.rl import SampleBatch
+    from ray_tpu_torch.rl.algorithms.appo import APPOConfig, appo_loss
+    from ray_tpu_torch.rl.algorithms.ppo import PPOConfig, ppo_loss
+    from ray_tpu_torch.rl.rl_module import ActorCriticModule, RLModuleSpec
+    from ray_tpu_torch.rl.spaces import Box, Discrete
+    from ray_tpu_torch.rlhf.learner import GPTPolicyModule, rlhf_loss
+
+    rng = np.random.default_rng(9)
+    spec = RLModuleSpec(Box(-4.8, 4.8, shape=(4,)), Discrete(2), (64, 64))
+    ppo = PPOConfig()
+    n = ppo.minibatch_size
+    ppo_batches = [SampleBatch({"obs": rng.standard_normal((n, 4)).astype(np.float32),
+                                "actions": rng.integers(0, 2, n),
+                                "logp": (np.log(0.5) + 0.3 * rng.standard_normal(n)).astype(np.float32),
+                                "advantages": rng.standard_normal(n).astype(np.float32),
+                                "value_targets": (3 * rng.standard_normal(n)).astype(np.float32)})
+                   for _ in range(DP_UPDATES)]
+    appo = APPOConfig()
+    seqs, t = 32, appo.rollout_fragment_length
+    appo_batches = [SampleBatch({"obs": rng.standard_normal((seqs, t, 4)).astype(np.float32),
+                                 "actions": rng.integers(0, 2, (seqs, t)),
+                                 "rewards": rng.standard_normal((seqs, t)).astype(np.float32),
+                                 "terminateds": rng.random((seqs, t)) < 0.05,
+                                 "logp": (np.log(0.5) + 0.3 * rng.standard_normal((seqs, t))).astype(np.float32),
+                                 "bootstrap_value": rng.standard_normal(seqs).astype(np.float32)})
+                    for _ in range(DP_UPDATES)]
+    if tiny:
+        gpt = GPTConfig(vocab_size=256, seq_len=48, d_model=64, n_layers=2, n_heads=4, dtype="float32")
+        B, T, O, lo, hi = 16, 48, 16, 8, 24
+    else:
+        gpt = GPTConfig(dtype="float32")
+        B, T, O, lo, hi = 32, 256, 128, 64, 129  # chip_smoke.py phase 29
+    rlhf_batches = []
+    for _ in range(DP_UPDATES):
+        prompt_len = rng.integers(lo, hi, B).astype(np.int32)
+        out_len = rng.integers(O // 2, O + 1, B).astype(np.int32)
+        out_tokens = rng.integers(0, gpt.vocab_size, (B, O)).astype(np.int32)
+        tokens = np.zeros((B, T), np.int32)
+        for i in range(B):
+            tokens[i, :prompt_len[i]] = rng.integers(0, gpt.vocab_size, prompt_len[i])
+            tokens[i, prompt_len[i]:prompt_len[i] + out_len[i]] = out_tokens[i, :out_len[i]]
+        rlhf_batches.append(SampleBatch(dict(
+            tokens=tokens, prompt_len=prompt_len, out_tokens=out_tokens, out_len=out_len,
+            behavior_logp=rng.normal(-11.0, 0.5, (B, O)).astype(np.float32),
+            token_mask=(rng.random((B, O)) > 0.1).astype(np.float32),
+            advantage=rng.standard_normal(B).astype(np.float32),
+            weight=rng.choice([0.25, 0.5, 1.0], B).astype(np.float32),
+            temperature=np.ones(B, np.float32), top_k=np.zeros(B, np.int32), top_p=np.ones(B, np.float32))))
+    rlhf = dict(module_factory=partial(GPTPolicyModule, gpt), loss_fn=rlhf_loss(0.2, 0.1), lr=1e-4,
+                grad_clip=1.0, seed=0)
+    rlhf16 = dict(rlhf, module_factory=partial(GPTPolicyModule, dc.replace(gpt, dtype="bfloat16")))
+    return [
+        ("ppo", dict(module_factory=partial(ActorCriticModule, spec),
+                     loss_fn=ppo_loss(ppo.clip_param, ppo.vf_clip_param, ppo.vf_loss_coeff, ppo.entropy_coeff),
+                     lr=ppo.lr, grad_clip=ppo.grad_clip, seed=9), ppo_batches, None),
+        ("appo", dict(module_factory=partial(ActorCriticModule, spec),
+                      loss_fn=appo_loss(appo.gamma, appo.vtrace_clip_rho_threshold, appo.vtrace_clip_c_threshold,
+                                        appo.vf_loss_coeff, appo.entropy_coeff, appo.clip_param,
+                                        appo.use_kl_loss, appo.kl_coeff),
+                      lr=appo.lr, grad_clip=appo.grad_clip, seed=9), appo_batches, None),
+        ("rlhf", rlhf, rlhf_batches, rlhf16),
+    ]
+
+
+def dp_updates(learner, batches, dev) -> dict:
+    """``batches`` through ``learner.update``, each timed on the host clock
+    ending in its metrics' copy: the metrics and the ms."""
+    import torch
+
+    metrics, ms = [], []
+    for batch in batches:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        metrics.append(learner.update(batch))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(metrics=metrics, ms=ms)
+
+
+def dp_trace(learner, batch, dev) -> list:
+    """One more update traced on every rank: the leader's under
+    ``torch.profiler`` here, each follower's in its own process."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch._private.local_group import trace_summary
+
+    on_card = dev.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    for _ in range(2):  # the profiler's first use in a process pays its start: keep the second
+        if learner.group is not None:
+            learner.group.trace_next_update()
+        if on_card:
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with profile(activities=acts) as prof:
+            learner.update(batch)
+            if on_card:
+                torch.cuda.synchronize(dev)
+        ranks = [trace_summary(prof, (time.perf_counter() - t0) * 1e3)]
+        ranks += learner.group.replies("trace") if learner.group is not None else []
+    for r in ranks:
+        r["idle"] = 1 - r["busy_ms"] / r["wall_ms"] if on_card else None
+    return ranks
+
+
+def dp_param_gap(got: dict, want: dict, lr: float, steps: int) -> float:
+    """The largest |got - want| over the parameters; the key slice of a
+    fused qkv bias (its gradient is rounding noise: the softmax ignores a
+    shift of every key, so Adam steps it by up to lr a step) counts only
+    beyond 2 x lr x steps."""
+    import numpy as np
+
+    gap = 0.0
+    for name, w in want.items():
+        diff = np.abs(got[name].astype(np.float64) - w.astype(np.float64))
+        if name.endswith("attn_qkv.bias"):
+            d = w.shape[0] // 3
+            diff[d:2 * d] = np.maximum(diff[d:2 * d] - 2 * lr * steps, 0.0)
+        gap = max(gap, float(diff.max()))
+    return gap
+
+
+def dp_stopped_follower(kind: str, dev, tiny: bool) -> dict:
+    """A follower stopped with SIGSTOP (and never killed here) while the
+    leader's step or update waits for it: the call must raise within
+    ``STALE_S`` + ``STOP_GRACE_S``, naming rank 1. ``kind`` "tp": a tp 2
+    GPT-124M engine's decode step; "dp": a 2-card PPO update."""
+    import signal
+    import threading
+
+    import torch
+
+    from ray_tpu_torch._private.local_group import STALE_S
+
+    if kind == "tp":
+        from ray_tpu_torch.llm import EngineConfig, LLMEngine, SamplingParams
+        from ray_tpu_torch.models.gpt import GPTConfig, gpt_init
+
+        cfg = (GPTConfig(vocab_size=128, seq_len=64, d_model=64, n_layers=2, n_heads=4, dtype="float32") if tiny
+               else GPTConfig())
+        params = gpt_init(cfg, torch.Generator(device=dev.type).manual_seed(0), dev)
+        geo = dict(max_slots=4, block_size=16, max_blocks_per_seq=4, num_blocks=17, prefill_chunk=64)
+        owner = LLMEngine(cfg, params, EngineConfig(tp=2, **geo), device=dev)
+        owner.generate([1, 2, 3], SamplingParams(max_tokens=2))
+        owner.submit([4, 5, 6], SamplingParams(max_tokens=8))
+        owner.step()  # its prefill: the next step is a decode step
+        group, call = owner.runner.group, owner.step
+    else:
+        from ray_tpu_torch.rl.learner import Learner
+
+        label, kw, batches, _ = dp_models(tiny)[0]
+        owner = Learner(**kw, data_parallel=2, device=dev)
+        owner.update(batches[0])
+        group, call = owner.group, lambda: owner.update(batches[1])
+    proc = group.procs[0]
+    caught = []
+
+    def run():
+        try:
+            call()
+        except RuntimeError as e:
+            caught.append((time.monotonic(), str(e)))
+
+    out = {}
+    try:
+        proc.send_signal(signal.SIGSTOP)
+        stopped = time.monotonic()
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        t.join(STALE_S + STOP_GRACE_S + 30.0)
+        out = dict(raised=bool(caught), raise_s=caught[0][0] - stopped if caught else None,
+                   error=caught[0][1][:240] if caught else None, stale_s=STALE_S, hung=t.is_alive())
+        try:
+            call()
+            out["next"] = "returned"
+        except RuntimeError as e:
+            out["next"] = str(e)[:200]
+        return out
+    finally:
+        proc.send_signal(signal.SIGCONT)
+        proc.kill()
+        if not out.get("hung"):
+            (owner.shutdown if kind == "tp" else owner.close)()
+
+
+def dp_main(args) -> dict:
+    """The data-parallel learner's part (module doc); returns its summary
+    and raises when a check fails."""
+    import torch
+
+    from ray_tpu_torch._private.local_group import STALE_S
+    from ray_tpu_torch.ops.flash_attention import flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda
+    from ray_tpu_torch.rl._dp_worker import learner_report
+    from ray_tpu_torch.rl.learner import Learner, host_weights
+
+    def reset_flash_launches():
+        # followers are fresh processes, counting from 0; the leader's
+        # counts restart with each learner
+        flash_fwd_cuda.launches = flash_bwd_dq_cuda.launches = flash_bwd_dkv_cuda.launches = 0
+
+    cpu = args.device == "cpu"
+    dev = torch.device("cpu" if cpu else "cuda:0")
+    if cpu:
+        torch.set_num_threads(1)
+    else:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    summary, failures = {}, []
+    for label, kw, batches, kw16 in dp_models(args.tiny):
+        t_model = time.perf_counter()
+        rows = {}
+        for n in DP_COUNTS:
+            learner = Learner(**kw, data_parallel=False if n == 1 else n, device=dev)
+            try:
+                reset_flash_launches()
+                row = dp_updates(learner, batches, dev)
+                row["params"] = host_weights(learner.params)
+                reports = learner.group.reports() if n > 1 else [learner_report(learner)]
+                row["digests"] = [r["params_sha256"] for r in reports] if n > 1 else []
+                row["flash_by_rank"] = [r["flash"] for r in reports]
+                if kw16 is None:
+                    row["trace"] = dp_trace(learner, batches[0], dev)
+            finally:
+                learner.close()
+                del learner
+                if not cpu:
+                    torch.cuda.empty_cache()
+            rows[n] = row
+        base = rows[1]
+        for n in DP_COUNTS[1:]:
+            row = rows[n]
+            row["metric_gap"] = max(abs(g[k] - w[k]) / max(1.0, abs(w[k]))
+                                    for g, w in zip(row["metrics"], base["metrics"]) for k in w)
+            row["param_gap"] = dp_param_gap(row["params"], base["params"], kw["lr"], DP_UPDATES)
+            row["ranks_alike"] = len(set(row["digests"])) == 1 and len(row["digests"]) == n
+            if row["metric_gap"] > DP_TOL or row["param_gap"] > DP_PARAM_TOL or not row["ranks_alike"]:
+                failures.append(f"{label} at {n} cards: metric gap {row['metric_gap']}, parameter gap "
+                                f"{row['param_gap']}, digests {row['digests']}")
+        if label == "rlhf" and not cpu:  # every rank runs the GPT's attention through K3-K5 on its slice
+            for n, row in rows.items():
+                if len({tuple(f) for f in row["flash_by_rank"]}) != 1 or min(row["flash_by_rank"][0]) == 0:
+                    failures.append(f"rlhf at {n} cards: K3/K4/K5 by rank {row['flash_by_rank']}")
+        if kw16 is not None:  # the RLHF learner's times in bf16
+            for n in DP_COUNTS:
+                learner = Learner(**kw16, data_parallel=False if n == 1 else n, device=dev)
+                try:
+                    reset_flash_launches()
+                    timed = dp_updates(learner, batches, dev)
+                    rows[n]["bf16_ms"] = timed["ms"]
+                    reports = learner.group.reports() if n > 1 else [learner_report(learner)]
+                    rows[n]["bf16_flash_by_rank"] = [r["flash"] for r in reports]
+                    rows[n]["trace"] = dp_trace(learner, batches[0], dev)
+                finally:
+                    learner.close()
+                    del learner
+                    if not cpu:
+                        torch.cuda.empty_cache()
+        for n, row in rows.items():
+            row.pop("params")
+            ms = row.get("bf16_ms", row["ms"])
+            print(f"DP {label} at {n} card(s): update ms {[round(x, 3) for x in ms]}"
+                  + (" (bf16)" if "bf16_ms" in row else "")
+                  + f"; K3/K4/K5 by rank over the fp32 updates {row['flash_by_rank']}"
+                  + (f", the bf16 updates {row['bf16_flash_by_rank']}" if "bf16_flash_by_rank" in row else "")
+                  + (f", fp32 metric gap {row['metric_gap']:.3e}, parameter gap {row['param_gap']:.3e}, ranks "
+                     f"alike {row['ranks_alike']}" if n > 1 else "")
+                  + "; traced update: " + ", ".join(
+                      f"rank {i} wall {r['wall_ms']:.3f} busy {r['busy_ms']:.3f} nccl {r['nccl_ms']:.3f} ms idle "
+                      + (f"{r['idle']:.4f}" if r["idle"] is not None else "not measured")
+                      for i, r in enumerate(row["trace"])), flush=True)
+        summary[label] = {n: {k: v for k, v in row.items() if k != "metrics"} for n, row in rows.items()}
+        summary[label]["seconds"] = time.perf_counter() - t_model
+    for kind in ("tp", "dp"):
+        stop = dp_stopped_follower(kind, dev, args.tiny)
+        summary[f"stopped_{kind}_follower"] = stop
+        print(f"DP a stopped {kind} follower at 2 ranks: {stop}", flush=True)
+        if not (stop["raised"] and stop["raise_s"] < STALE_S + STOP_GRACE_S and "rank 1" in stop["error"]
+                and "rank 1" in stop["next"]):
+            failures.append(f"a stopped {kind} follower: {stop}")
+    if failures:
+        print("DP " + json.dumps(summary, default=str), flush=True)
+        raise AssertionError("; ".join(failures))
+    return summary
 
 
 # -- the tensor-parallel serving engine (llm.multichip), from one process ----
@@ -442,7 +842,7 @@ def tp_trace(eng, requests, dev) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from ray_tpu_torch.llm import SamplingParams
-    from ray_tpu_torch.llm._tp_worker import trace_summary
+    from ray_tpu_torch._private.local_group import trace_summary
     from ray_tpu_torch.llm.scheduler import RUNNING
 
     reqs = [eng.submit(list(p), SamplingParams(max_tokens=min(64, eng.max_model_len - len(p))))
@@ -679,7 +1079,7 @@ def launch(args) -> int:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     common = (["--device", args.device, "--init", f"tcp://127.0.0.1:{port}"] + (["--tiny"] if args.tiny else [])
-              + (["--profile"] if args.profile else []))
+              + (["--profile"] if args.profile else []) + (["--dp-only"] if args.dp_only else []))
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (os.path.dirname(os.path.abspath(__file__)),
                                                     env.get("PYTHONPATH")) if p)
@@ -695,6 +1095,14 @@ def launch(args) -> int:
                     p.kill()
         print(f"chip_mesh: rank exit codes {rcs}")
     t0 = time.perf_counter()
+    if args.dp_only:
+        summary = dp_main(args)
+        print(f"chip_mesh: the data-parallel learner's part took {time.perf_counter() - t0:.1f} s")
+        print("DP " + json.dumps(summary, default=str), flush=True)
+        stops = [summary[f"stopped_{k}_follower"] for k in ("tp", "dp")]
+        if any(s.get("hung") for s in stops):
+            os._exit(1)  # a call still waits on a stopped rank: leave without joining it
+        return 0 if all(rc == 0 for rc in rcs) else 1
     summary = tp_main(args)
     print(f"chip_mesh: the tp part took {time.perf_counter() - t0:.1f} s")
     print("TP " + json.dumps(summary, default=str), flush=True)
@@ -710,6 +1118,8 @@ def main() -> int:
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--profile", action="store_true", help="rank 0 profiles one more step of each run")
     ap.add_argument("--tp-only", action="store_true", help="only the tensor-parallel serving part")
+    ap.add_argument("--dp-only", action="store_true",
+                    help="only the data-parallel part: the sharded feed on the ranks, then the learner")
     ap.add_argument("--tp-models", default="",
                     help="comma-separated labels of tp_models to serve (default: all of them)")
     ap.add_argument("--rank", type=int)

@@ -167,7 +167,9 @@ Phases, each of which raises on failure:
     ``serve.shutdown()`` and ``shutdown()`` leave no runtime process and no
     store segment;
 25. Train over the runtime (``ray_tpu_torch.train``): ``init()`` with the card
-    as one ``GPU``, then ``TorchTrainer(ScalingConfig(num_workers=1,
+    as one ``GPU`` and ``preload_python_modules`` ``TRAIN25_PRELOAD`` (both
+    workers fork from a template that imported the train loop's modules
+    once), then ``TorchTrainer(ScalingConfig(num_workers=1,
     use_gpu=True), FailureConfig(max_failures=1))`` trains phase 17's model
     (``TRAIN_406M``, batch 26, weights from a CUDA generator seeded 0 built
     in the worker, phase 17's tokens through ``get_dataset_shard("train")``)
@@ -394,7 +396,22 @@ Phases, each of which raises on failure:
     ``hbm_ledger()["per_device"]`` holds one card with the plain ledger's
     totals, the pool's audit passes, and K1 launches 28 times a decode
     step and K2 28 times a verify step; decode and verify step times of
-    both, in turns.
+    both, in turns;
+36. data parallelism on a one-rank group (``rl.learner``, ``rl._dp_worker``,
+    ``data.iterator``): (a) ``Learner(data_parallel=1)`` (the learner's
+    private NCCL group of one rank, the data-parallel update's padding,
+    slicing, gradient and metric reductions and ``batch_sum``) beside the
+    plain learner from the same seed, 3 fp32 updates each in turns: PPO at
+    its defaults (CartPole's spaces, hidden 64x64, minibatches of 128) and
+    the RLHF learner at phase 29's shape (``GPTConfig()`` in fp32, 32
+    sequences of 64-128 prompt ids and 128 new ids, K3-K5 in every
+    update): metrics and parameters equal bit for bit, the K3/K4/K5
+    launches of the group's updates, both update times; (b) phase 34's
+    one-card mesh (a fresh NCCL group of one) fed phase 17's batch from
+    ``data.read_numpy`` through ``iter_torch_batches(sharding=
+    NamedSharding(mesh, batch_spec()))``: every batch a ``DTensor``, the
+    losses of ``MESH34_STEPS`` mesh steps equal phase 34 (a)'s bit for
+    bit, K3/K4/K5 24 each a step.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it has
 the card's name and power limit, the one before that the kernels' record.
@@ -478,6 +495,7 @@ from ray_tpu_torch.rl.algorithms.ppo import ppo_loss
 from ray_tpu_torch.rl.algorithms.sac import polyak_update
 from ray_tpu_torch.rl.learner import Learner, host_weights
 from ray_tpu_torch.rl.rl_module import ActorCriticModule, RLModuleSpec
+from ray_tpu_torch.rl.spaces import Box, Discrete
 from ray_tpu_torch.rlhf import Algorithm as RLHFAlgorithm
 from ray_tpu_torch.rlhf import RLHFConfig, RolloutWorker, group_advantages
 from ray_tpu_torch.rlhf import rollout as rollout_mod
@@ -3775,6 +3793,12 @@ TRAIN25_STEPS = 6  # steps 0-5, phase 17's six (0-11, over two runs, until phase
 TRAIN25_CKPT_AT = 2  # the step after which the train state is checkpointed (3 steps in)
 TRAIN25_DIE_AFTER = 3  # the first worker dies right after reporting this step
 COLLECTIVE_BYTES = 64 << 20  # (d): each rank's fp32 tensor
+#: the modules each of the phase's worker processes would import itself: the
+#: train loop's (torch, the trainer, the model, the step) and torch._dynamo,
+#: which the optimizer's first add_param_group imports (chip_cuts.py 25
+#: times the phase with and without them)
+TRAIN25_PRELOAD = ("torch,torch._dynamo,ray_tpu_torch.train,ray_tpu_torch.models.gpt,"
+                   "ray_tpu_torch.parallel.train_step,ray_tpu_torch.ops.flash_attention")
 
 
 def train_loop_406m(config: dict) -> None:
@@ -3964,7 +3988,7 @@ def train_over_runtime(card: str, phase17: dict) -> dict:
     torch.cuda.synchronize()
     free_before = torch.cuda.mem_get_info()[0]
     cache_bytes = max(torch.cuda.memory_reserved() - torch.cuda.memory_allocated(), 64 << 20)
-    ray_tpu_torch.init()
+    ray_tpu_torch.init(_system_config={"preload_python_modules": TRAIN25_PRELOAD})
     res = ray_tpu_torch.cluster_resources()
     if res.get("GPU") != 1.0:
         raise AssertionError(f"ray_tpu_torch.init() offers GPU {res.get('GPU')}, expected 1")
@@ -6687,8 +6711,8 @@ def mesh_train_406m(card: str, phase17: dict, mesh) -> dict:
     if tuple(launches) != want or plain_calls != 0:
         raise AssertionError(f"(b) K3/K4/K5 launched {launches} times (expected {want}), the plain attention "
                              f"{plain_calls} times (expected 0)")
-    return dict(launches=dict(zip(("K3", "K4", "K5"), launches)), mesh_ms=float(mesh_ms),
-                plain_ms=float(plain_ms))
+    return dict(launches=dict(zip(("K3", "K4", "K5"), launches)), losses=runs["mesh"]["losses"],
+                mesh_ms=float(mesh_ms), plain_ms=float(plain_ms))
 
 
 def mesh_allreduce_exact(card: str, mesh) -> None:
@@ -7086,6 +7110,182 @@ def tp1_runner(card: str, params) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 36: data parallelism on a one-rank group
+# ---------------------------------------------------------------------------
+
+DP36_UPDATES = 3
+DP36_PPO_ROWS = 128  # PPOConfig's minibatch_size
+
+
+def dp36_ppo() -> tuple:
+    """PPO at its defaults on CartPole's spaces: the learner's arguments and
+    3 minibatches (numpy seed 36)."""
+    cfg = PPOConfig()
+    spec = RLModuleSpec(Box(-4.8, 4.8, shape=(4,)), Discrete(2), tuple(cfg.hidden))
+    kw = dict(module_factory=partial(ActorCriticModule, spec),
+              loss_fn=ppo_loss(cfg.clip_param, cfg.vf_clip_param, cfg.vf_loss_coeff, cfg.entropy_coeff),
+              lr=cfg.lr, grad_clip=cfg.grad_clip, seed=36)
+    rng = np.random.default_rng(36)
+    n = DP36_PPO_ROWS
+    batches = [SampleBatch({"obs": rng.standard_normal((n, 4)).astype(np.float32),
+                            "actions": rng.integers(0, 2, n),
+                            "logp": (np.log(0.5) + 0.3 * rng.standard_normal(n)).astype(np.float32),
+                            "advantages": rng.standard_normal(n).astype(np.float32),
+                            "value_targets": (3 * rng.standard_normal(n)).astype(np.float32)})
+               for _ in range(DP36_UPDATES)]
+    return kw, batches
+
+
+def dp36_rlhf(cfg) -> tuple:
+    """The RLHF learner at phase 29's shape: the learner's arguments and 3
+    batches of 32 trajectories (phase 29's prompts, 128 new ids, numpy seed
+    36), weights and masks varying by row."""
+    from ray_tpu_torch.rlhf.learner import GPTPolicyModule, rlhf_loss
+
+    kw = dict(module_factory=partial(GPTPolicyModule, cfg), loss_fn=rlhf_loss(0.2, 0.1), lr=RLHF_LR,
+              grad_clip=1.0, seed=0)
+    rng = np.random.default_rng(36)
+    prompts = rlhf_prompts()
+    B, T, O = len(prompts), RLHF_T, RLHF_O
+    batches = []
+    for _ in range(DP36_UPDATES):
+        tokens = np.zeros((B, T), np.int32)
+        out_tokens = rng.integers(0, cfg.vocab_size, (B, O)).astype(np.int32)
+        out_len = rng.integers(O // 2, O + 1, B).astype(np.int32)
+        for i, p in enumerate(prompts):
+            tokens[i, :len(p)] = p
+            tokens[i, len(p):len(p) + out_len[i]] = out_tokens[i, :out_len[i]]
+        batches.append(SampleBatch(dict(
+            tokens=tokens, prompt_len=np.asarray([len(p) for p in prompts], np.int32), out_tokens=out_tokens,
+            out_len=out_len, behavior_logp=rng.normal(-11.0, 0.5, (B, O)).astype(np.float32),
+            token_mask=(rng.random((B, O)) > 0.1).astype(np.float32),
+            advantage=rng.standard_normal(B).astype(np.float32),
+            weight=rng.choice([0.25, 0.5, 1.0], B).astype(np.float32),
+            temperature=np.ones(B, np.float32), top_k=np.zeros(B, np.int32), top_p=np.ones(B, np.float32))))
+    return kw, batches
+
+
+def dp36_pair(label: str, kw: dict, batches: list, card: str) -> dict:
+    """(a): the plain learner and ``Learner(data_parallel=1)`` from the same
+    seed, an update of each in turns (the order alternating), each timed on
+    the host clock ending in its metrics' copy: equal metrics and
+    parameters bit for bit; the K3/K4/K5 launches of the group's updates."""
+    plain = Learner(**kw, data_parallel=False)
+    dp = Learner(**kw, data_parallel=1)
+    try:
+        pg = dp.group.coll.pg
+        backend = "ProcessGroupNCCL" if dp.device.type == "cuda" else "ProcessGroupGloo"
+        if type(pg).__name__ != backend or dp.group.procs:
+            raise AssertionError(f"(36 a) {label}: the learner's group is {type(pg).__name__} with "
+                                 f"{len(dp.group.procs)} followers")
+        for name, value in plain.get_weights().items():
+            if not torch.equal(value, dp.params.state_dict()[name]):
+                raise AssertionError(f"(36 a) {label}: the two learners start apart at {name}")
+        ms = {"plain": [], "dp": []}
+        launches = [0, 0, 0]
+        plain_launches = [0, 0, 0]
+        for i, batch in enumerate(batches):
+            got = {}
+            for who in (("plain", "dp") if i % 2 == 0 else ("dp", "plain")):
+                learner = plain if who == "plain" else dp
+                torch.cuda.synchronize()
+                before = flash_launches()
+                t0 = time.perf_counter()
+                got[who] = learner.update(batch)  # ends in the metrics' copy to the host
+                ms[who].append((time.perf_counter() - t0) * 1e3)
+                count = launches if who == "dp" else plain_launches
+                count[:] = [c + a - b for c, a, b in zip(count, flash_launches(), before)]
+            if got["dp"] != got["plain"]:
+                raise AssertionError(f"(36 a) {label} update {i}: metrics {got['dp']} against the plain "
+                                     f"learner's {got['plain']}")
+        want = plain.get_weights()
+        same = all(torch.equal(v, want[k]) for k, v in dp.params.state_dict().items())
+        print(f"(36 a) {label} [{card}]: Learner(data_parallel=1) on a one-rank NCCL group against the plain "
+              f"learner, {len(batches)} fp32 updates: metrics equal bit for bit ({sorted(got['dp'])}), "
+              f"parameters equal bit for bit {same}; K3/K4/K5 launches in the group's updates {tuple(launches)} "
+              f"(the plain learner's {tuple(plain_launches)}); update ms in turns: group "
+              f"{[round(x, 3) for x in ms['dp']]}, plain {[round(x, 3) for x in ms['plain']]}")
+        if not same:
+            raise AssertionError(f"(36 a) {label}: parameters differ after {len(batches)} updates")
+        if launches != plain_launches:
+            raise AssertionError(f"(36 a) {label}: K3/K4/K5 {launches} in the group's updates, the plain "
+                                 f"learner's {plain_launches}")
+        return dict(flash=tuple(launches), ms=ms)
+    finally:
+        dp.close()
+        del plain, dp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def dp36_sharded_feed(card: str, phase34: dict) -> dict:
+    """(b): phase 34 (a)'s mesh step fed from a Dataset through
+    ``iter_torch_batches(sharding=NamedSharding(mesh, batch_spec()))``."""
+    from ray_tpu_torch import data
+    from ray_tpu_torch.parallel import NamedSharding, batch_spec
+    from ray_tpu_torch.parallel.sharding import is_dtensor
+
+    cfg = TRAIN_406M
+    corpus = tempfile.mkdtemp(prefix="phase36_")
+    tokens = train_406m_tokens()
+    for i in range(MESH34_STEPS):  # one file a batch
+        np.save(os.path.join(corpus, f"part-{i:03d}.npy"), tokens)
+    ray_tpu_torch.init(num_cpus=2, num_gpus=0)
+    mesh = make_mesh(MeshConfig())
+    try:
+        sharding = NamedSharding(mesh, batch_spec())
+        ds = data.read_numpy(corpus, column="tokens")
+        init_m, step_m = build_train_step(lambda p, t: gpt_loss(cfg, p, t, mesh), adamw(1e-4), mesh)
+        state = init_m(gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0)))
+        losses, kinds, launches = [], set(), [0, 0, 0]
+        for batch in ds.iter_torch_batches(batch_size=TRAIN_B, drop_last=True, sharding=sharding,
+                                           dtypes={"tokens": torch.int64}):
+            x = batch["tokens"]
+            kinds.add((is_dtensor(x), str(x.dtype), x.to_local().device.type, tuple(x.shape)))
+            before = flash_launches()
+            state, loss = step_m(state, x)
+            losses.append(loss.item())
+            launches = [c + a - b for c, a, b in zip(launches, flash_launches(), before)]
+        want = phase34["losses"]
+        print(f"(36 b) phase 34's one-card mesh fed from read_numpy through iter_torch_batches(sharding="
+              f"NamedSharding(mesh, batch_spec())) [{card}]: batches {sorted(kinds)} (DTensor, dtype, the "
+              f"shard's device, the global shape); losses {[f'{x:.6f}' for x in losses]} "
+              f"{'equal' if losses == want else 'DIFFER from'} phase 34 (a)'s bit for bit; K3/K4/K5 "
+              f"{tuple(launches)}")
+        if losses != want:
+            raise AssertionError(f"(36 b) losses {losses} against phase 34 (a)'s {want}")
+        if kinds != {(True, "torch.int64", "cuda", (TRAIN_B, cfg.seq_len + 1))}:
+            raise AssertionError(f"(36 b) the batches arrived as {kinds}")
+        if tuple(launches) != expected_flash_launches(cfg, MESH34_STEPS):
+            raise AssertionError(f"(36 b) K3/K4/K5 {launches}, expected "
+                                 f"{expected_flash_launches(cfg, MESH34_STEPS)}")
+        del state
+        return dict(flash=tuple(launches))
+    finally:
+        dist.destroy_process_group()
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(corpus, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def data_parallel_on_card(card: str, phase34: dict) -> dict:
+    """Phase 36: (a) ``dp36_pair`` for PPO and the RLHF learner, (b)
+    ``dp36_sharded_feed``."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    kw, batches = dp36_ppo()
+    ppo = dp36_pair("PPO", kw, batches, card)
+    kw, batches = dp36_rlhf(dataclasses.replace(GPT_124M, dtype="float32"))
+    rlhf = dp36_pair("RLHF learner, GPT-124M fp32", kw, batches, card)
+    if min(rlhf["flash"]) == 0:
+        raise AssertionError(f"(36 a) the RLHF learner's group launched K3/K4/K5 {rlhf['flash']} times")
+    feed = dp36_sharded_feed(card, phase34)
+    return dict(ppo=ppo, rlhf=rlhf, feed=feed, seconds=time.perf_counter() - t_phase)
+
+
 def share_bytecode() -> str:
     """Gives this process and every process it starts (workers, drivers,
     CLI processes: they inherit the environment) one bytecode cache in the
@@ -7276,6 +7476,10 @@ def main() -> int:
     del gptj_params
     print(f"phase 35 [{card}]: {tp1['seconds']:.1f} s")
 
+    phase("36 data parallelism on a one-rank group")
+    dp36 = data_parallel_on_card(card, meshed["trained"])
+    print(f"phase 36 [{card}]: {dp36['seconds']:.1f} s")
+
     kernels = [
         dict(
             name="paged_decode_attention",
@@ -7338,7 +7542,9 @@ def main() -> int:
                    "gpt_406m_mesh_checkpoint_trainer": meshed["ckpt"]["trainer"][i],
                    "gpt_406m_mesh_checkpoint_here": meshed["ckpt"]["here"][i],
                    "gpt_406m_fit_report": meshed["proof"]["launches"][i],
-                   "gpt_124m_moe_mesh_train_step": meshed["moe"]["launches"][i]}
+                   "gpt_124m_moe_mesh_train_step": meshed["moe"]["launches"][i],
+                   "gpt_124m_rlhf_learner_data_parallel": dp36["rlhf"]["flash"][i],
+                   "gpt_406m_mesh_sharded_feed": dp36["feed"]["flash"][i]}
         kernels.append(dict(
             name=kernel_name,
             route="cuda",

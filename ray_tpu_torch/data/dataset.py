@@ -7,8 +7,9 @@ plan; consumption triggers the streaming executor), ``grouped_data.py``
 are lazy and fused where legal; consumption streams bundles out of the
 executor without materializing the whole dataset in the driver.
 
-``iter_torch_batches`` feeds torch (the card by default); there is no
-``iter_jax_batches``. ``to_pandas`` and ``to_arrow_refs`` import their
+``iter_torch_batches`` feeds torch (the card by default), or a device
+mesh with ``sharding=NamedSharding(mesh, spec)`` (the reference's
+``iter_jax_batches(sharding=...)``); there is no ``iter_jax_batches``. ``to_pandas`` and ``to_arrow_refs`` import their
 package when called. ``split`` and ``train_test_split`` execute the plan in
 the driver and hand out materialized shares, where upstream streams.
 """

@@ -148,20 +148,40 @@ class DataIterator:
         ``"cpu"`` or any torch device otherwise. ``dtypes`` maps a column to
         a torch dtype, applied on the device. A batch moved to the CPU is a
         copy whenever its arrays are views of the object store, so the
-        tensors handed out may be written in place."""
-        if sharding is not None:
-            raise NotImplementedError(
-                "iter_torch_batches(sharding=...) needs the port's multi-device "
-                "mesh, which is not ported yet (ROADMAP.md, queue A8)"
-            )
-        from ray_tpu_torch.device import resolve_device
+        tensors handed out may be written in place.
 
-        dev = resolve_device(device)
+        ``sharding`` (a ``parallel.sharding.NamedSharding``, the reference's
+        ``jax.sharding.NamedSharding``) places each column on its mesh
+        instead: ``dtypes`` applied on the host first, as the reference's
+        ``astype``, then a ``DTensor`` of this rank's shard (``global_put``:
+        no communication, so every rank must read the same rows; blocks
+        come in dispatch order, and a local shuffle over more than one
+        process needs a ``local_shuffle_seed``). ``device`` is then the
+        mesh's."""
+        if sharding is not None:
+            from ray_tpu_torch.parallel.sharding import NamedSharding
+
+            if not isinstance(sharding, NamedSharding):
+                raise TypeError(f"iter_torch_batches(sharding=...) takes a "
+                                f"ray_tpu_torch.parallel.sharding.NamedSharding, got {type(sharding).__name__}")
+            if local_shuffle_buffer_size and local_shuffle_seed is None and sharding.mesh.size() > 1:
+                raise ValueError(f"a local shuffle feeding a mesh of {sharding.mesh.size()} processes needs a "
+                                 "local_shuffle_seed: every rank must read the same rows")
+            import torch
+
+            dev = torch.device("cpu")
+        else:
+            from ray_tpu_torch.device import resolve_device
+
+            dev = resolve_device(device)
         source = self._batch_blocks(
             batch_size, drop_last, local_shuffle_buffer_size, local_shuffle_seed, prefetch_batches
         )
         blocks = _bg_prefetch(lambda: source, prefetch_batches) if prefetch_batches > 0 else source
-        return _torch_batches(blocks, dtypes or {}, dev)
+        batches = _torch_batches(blocks, dtypes or {}, dev)
+        if sharding is None:
+            return batches
+        return ({k: sharding.put(v) for k, v in b.items()} for b in batches)
 
     def materialize(self):
         """Collect this iterator's shard into a materialized Dataset."""

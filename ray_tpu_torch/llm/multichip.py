@@ -30,8 +30,8 @@ free:
 One process per card, where the reference drives every device from one
 controller: the engine's process is rank 0, the leader, and ``tp - 1``
 follower processes run the same layers on their shards
-(``llm._tp_worker``: the private process group, the step protocol, the
-follower loop). Each step the leader sends the followers the step's host
+(``llm._tp_worker``: the step protocol and the follower loop, over
+``_private.local_group``'s private process group). Each step the leader sends the followers the step's host
 arrays, then every rank runs the step; the reductions are ``all_reduce``
 over the private group, where the reference ``psum``s over its mesh.
 
@@ -59,6 +59,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ray_tpu_torch._private import local_group as lg
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.llm import _tp_worker as tpw
 from ray_tpu_torch.llm.cache import CacheConfig, KVBlockPool
@@ -129,7 +130,7 @@ class ShardedKVBlockPool(KVBlockPool):
                  tpw.DTYPES.index(str(dtype).removeprefix("torch."))),
             )
             self._reports = group.replies("pool")
-        self._labels = group.label if group is not None else [tpw._label(str(self.k.device), 0)]
+        self._labels = group.label if group is not None else [lg._label(str(self.k.device), 0)]
 
     @property
     def block_bytes(self) -> int:
@@ -233,7 +234,7 @@ class TensorParallelPagedModelRunner(PagedModelRunner):
     def trace_next_step(self) -> None:
         """Have each follower run its next step under the profiler; after
         the step, ``group.replies("trace")`` gives each one's host time,
-        device busy time and NCCL time (``_tp_worker.traced``)."""
+        device busy time and NCCL time (``local_group.traced``)."""
         self.group.command(tpw.OP_TRACE)
 
     def close(self) -> None:
@@ -241,50 +242,25 @@ class TensorParallelPagedModelRunner(PagedModelRunner):
 
     # -- steps: tell the followers, then run the base step -------------------
 
-    def _guarded(self, step, *args):
-        """Run a base step. Over several ranks, wait for its device work
-        and check the group before returning: a follower that died during
-        the step makes it raise, never hand the engine what an aborted
-        reduction left (the engine reads the step's results at once, so the
-        wait costs only the overlap of a prefill chunk with the decode
-        step queued after it). A failure inside the step (a collective
-        whose peer died) marks the group broken, so every later step
-        raises too."""
-        try:
-            out = step(*args)
-            if self.tp > 1:
-                if self.device.type == "cuda":
-                    torch.cuda.current_stream(self.device).synchronize()
-                self.group.check()
-            return out
-        except RuntimeError as e:
-            if self.group.broken is None and self.tp > 1:
-                try:
-                    self.group.check(wait_s=2.0)  # names a follower that exited
-                except RuntimeError:
-                    pass
-                self.group.broken = self.group.broken or f"a tp step failed: {e}"
-            raise
-
     def decode_step(self, k_pool, v_pool, tokens, positions, tables, *sampling):
         tables = np.asarray(tables)
         self.group.command(tpw.OP_DECODE, (len(tokens), tables.shape[1]), (tokens, positions, tables))
-        return self._guarded(super().decode_step, k_pool, v_pool, tokens, positions, tables, *sampling)
+        return self.group.guarded(super().decode_step, k_pool, v_pool, tokens, positions, tables, *sampling)
 
     def verify_step(self, k_pool, v_pool, tokens, base_pos, tables, *sampling):
         tables = np.asarray(tables)
         S, W = np.shape(tokens)
         self.group.command(tpw.OP_VERIFY, (S, W, tables.shape[1]), (tokens, base_pos, tables))
-        return self._guarded(super().verify_step, k_pool, v_pool, tokens, base_pos, tables, *sampling)
+        return self.group.guarded(super().verify_step, k_pool, v_pool, tokens, base_pos, tables, *sampling)
 
     def prefill_chunk(self, k_pool, v_pool, tokens, start: int, n_valid: int, table):
         table = np.asarray(table)
         self.group.command(tpw.OP_PREFILL, (len(tokens), len(table), start, n_valid), (tokens, table))
-        return self._guarded(super().prefill_chunk, k_pool, v_pool, tokens, start, n_valid, table)
+        return self.group.guarded(super().prefill_chunk, k_pool, v_pool, tokens, start, n_valid, table)
 
     def fork_blocks(self, k_pool, v_pool, src, dst):
         self.group.command(tpw.OP_FORK, (len(src),), (src, dst))
-        return self._guarded(super().fork_blocks, k_pool, v_pool, src, dst)
+        return self.group.guarded(super().fork_blocks, k_pool, v_pool, src, dst)
 
 
 class _Follower(PagedModelRunner):
@@ -296,10 +272,10 @@ class _Follower(PagedModelRunner):
         cfg = (GPTJConfig if spec["arch"] == "gptj" else GPTConfig)(**spec["cfg"])
         dev = torch.device(spec["device"])
         tp, rank = spec["tp"], spec["rank"]
-        _, pg = tpw.make_group(spec["backend"], spec["port"], rank, tp)
+        _, pg = lg.make_group(spec["backend"], spec["port"], rank, tp)
         local = tpw.local_module(cfg, tp, dev, leader=False)
         super().__init__(cfg, local, spec["block_size"], device=dev)
-        self.tp, self.rank, self.coll = tp, rank, tpw.Collectives(pg)
+        self.tp, self.rank, self.coll = tp, rank, lg.Collectives(pg)
         self.n_heads = cfg.n_heads // tp
         self.k = self.v = None
 

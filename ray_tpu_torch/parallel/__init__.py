@@ -19,6 +19,7 @@ without a mesh the one-device step with ``adamw``.
 
 from ray_tpu_torch.parallel.mesh import MeshConfig, make_mesh  # noqa: F401
 from ray_tpu_torch.parallel.sharding import (  # noqa: F401
+    NamedSharding,
     batch_spec,
     constrain,
     param_sharding_rules,

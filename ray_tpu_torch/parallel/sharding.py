@@ -161,6 +161,24 @@ def global_put(x: torch.Tensor, mesh, spec: tuple):
                               shape=x.shape, stride=x.contiguous().stride())
 
 
+class NamedSharding:
+    """A ``DeviceMesh`` and a spec in the rule table's tuple form: the
+    port's counterpart of ``jax.sharding.NamedSharding`` (``P("data")`` is
+    ``("data",)``, ``P(("dp", "fsdp"))`` is ``batch_spec()``). ``put``
+    places a host value as ``global_put`` does: a ``DTensor`` of this
+    rank's shard, with no communication, so every rank must hold the same
+    value. ``iter_torch_batches(sharding=...)`` places each column so."""
+
+    def __init__(self, mesh, spec: tuple = ()):
+        self.mesh, self.spec = mesh, tuple(spec)
+
+    def put(self, x: torch.Tensor):
+        return global_put(x, self.mesh, self.spec)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding(mesh={self.mesh!r}, spec={self.spec!r})"
+
+
 def qkv_order(rows: int, tp: int) -> torch.Tensor:
     """Row order of a fused (q; k; v) weight with ``rows`` = 3h rows under
     ``tp``: tp shard ``r`` holds ``[q_r; k_r; v_r]``, each ``h / tp`` rows."""

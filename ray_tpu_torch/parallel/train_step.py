@@ -213,11 +213,15 @@ def train_state_dict(state: TrainState) -> dict:
 
 def _local_batch(batch, mesh):
     """This rank's ``(dp, fsdp)`` slice of a global batch (a tensor, a numpy
-    array, or a dict, list or tuple of them) on the mesh's device."""
+    array, or a dict, list or tuple of them) on the mesh's device. A value
+    already placed on the mesh (a ``DTensor``: ``iter_torch_batches(
+    sharding=NamedSharding(mesh, batch_spec()))``) is its local shard."""
     if isinstance(batch, dict):
         return {k: _local_batch(v, mesh) for k, v in batch.items()}
     if isinstance(batch, list | tuple):
         return type(batch)(_local_batch(v, mesh) for v in batch)
+    if is_dtensor(batch):
+        return batch.to_local()
     x = torch.as_tensor(batch)
     x = x[local_slices(x.shape, batch_spec(), mesh)]
     return x if x.is_meta else x.to(mesh.device_type, non_blocking=True)

@@ -13,6 +13,7 @@ from __future__ import annotations
 from ray_tpu_torch.rl import sample_batch as sb
 from ray_tpu_torch.rl.algorithm import register_algorithm
 from ray_tpu_torch.rl.algorithms.impala import IMPALA, IMPALAConfig, vtrace
+from ray_tpu_torch.rl.learner import batch_sum
 
 
 class APPOConfig(IMPALAConfig):
@@ -35,8 +36,14 @@ def appo_loss(gamma: float, rho_bar: float, c_bar: float, vf_coeff: float,
             batch[sb.LOGP], logp.detach(), batch[sb.REWARDS], batch[sb.TERMINATEDS],
             values.detach(), batch["bootstrap_value"], gamma, rho_bar, c_bar,
         )
-        # normalize advantages like synchronous PPO (jnp.std: the population std)
-        pg_adv = (pg_adv - pg_adv.mean()) / (pg_adv.std(correction=0) + 1e-8)
+        # normalize advantages like synchronous PPO (jnp.std: the population
+        # std), over the whole batch: a data-parallel update sums the count,
+        # the sum and the squared deviations over its ranks (``batch_sum``)
+        count, total = batch_sum(torch.stack([torch.tensor(float(pg_adv.numel()), device=pg_adv.device),
+                                              pg_adv.sum()]))
+        mean = total / count
+        std = torch.sqrt(batch_sum(((pg_adv - mean) ** 2).sum()) / count)
+        pg_adv = (pg_adv - mean) / (std + 1e-8)
 
         ratio = torch.exp(logp - batch[sb.LOGP])
         surr = torch.minimum(

@@ -57,11 +57,12 @@ class CQLLoss(SACLoss):
 
         # OOD action set: uniform-random + current-policy samples per state
         low, high = params.bounds(obs.device)
-        rand_a = draws.uniform("cql_random", (n, B, params.act_dim), low, high)
+        # the draws' rows are dim 1: a data-parallel rank keeps its own
+        rand_a = draws.uniform("cql_random", (n, B, params.act_dim), low, high, row_dim=1)
         with torch.no_grad():
             pol_a, _ = params.sample_action_logp(
                 obs.expand((n,) + obs.shape),
-                draws.normal("cql_policy", (n, B, params.act_dim), obs.device),
+                draws.normal("cql_policy", (n, B, params.act_dim), obs.device, row_dim=1),
             )
         cand = torch.cat([rand_a, pol_a], dim=0)        # (2n, B, act)
         obs_rep = obs.expand((2 * n,) + obs.shape)

@@ -3,12 +3,33 @@
 
 Reference: ``rllib/core/learner/learner.py:105`` (per-algorithm loss over an
 RLModule + optimizer) and ``learner_group.py:71`` (N learner actors with
-DDP-wrapped modules). A ``Learner`` drives one device; ``LearnerGroup``
-places it in the driver or in a remote actor, or runs N learner actors that
-average their shard gradients on the host (the DDP semantics). The
-reference's ``data_parallel`` mesh over several local devices is not
-ported (ROADMAP.md, queue A8): with more than one card visible a
-``data_parallel`` learner raises.
+DDP-wrapped modules). A ``Learner`` drives one device, or all the local
+cards it is given: the reference puts the batch over a ``("data",)`` mesh
+of every local device and lets XLA reduce the gradients inside one jitted
+step; here a data-parallel learner is the leader of a group of one process
+per card (``rl._dp_worker`` over ``_private.local_group``): each update
+cycle-pads the batch to a multiple of the ranks, as the reference does,
+every rank runs the loss's backward on its contiguous slice, the gradients
+are averaged over the group, and every rank applies the same clip and Adam
+step, so the parameters stay identical without a broadcast.
+``LearnerGroup`` places the learner in the driver or in a remote actor, or
+runs N learner actors that average their shard gradients on the host (the
+DDP semantics).
+
+``data_parallel``: ``True`` (the reference's default) means every visible
+card, and the group only when there is more than one; ``False`` one
+device; an int N exactly N ranks through the group (on the CPU, N gloo
+processes; N = 1 is the group of one).
+
+**Whole-batch reductions.** Each rank's loss is the mean over its slice,
+and the slices are equal, so averaging the ranks' gradients gives the
+gradient of the mean over the whole padded batch. A loss that reduces over
+rows otherwise (a normalization, a weighted mean's denominator) takes the
+total over every rank from ``batch_sum``: the identity outside a
+data-parallel update, a sum over the group inside one, whose gradient is
+the group's sum of the ranks' gradients, so a value every rank holds alike
+averages back to itself. Scalar metrics are averaged over the ranks;
+per-sample arrays are gathered to the leader in row order.
 
 Batches reach the learner's device with float64 columns as float32, as
 ``jnp.asarray`` makes them. A loss that draws random numbers takes them
@@ -24,13 +45,15 @@ The optimizer is ``torch.optim.Adam`` with ``optax.adam``'s defaults (β
 Device adaptation: ``device=None`` means the card; a remote learner asks
 the runtime for ``num_gpus`` of a GPU (``GPU_SHARE`` unless set; none when
 ``device="cpu"``) and is bound to that share of its node's cards by its
-index in the group (``accelerators.gpu.card_share_options``).
+index in the group (``accelerators.gpu.card_share_options``): given two
+or more, it sees that many cards and runs data-parallel inside its actor.
 Nothing here imports torch at module import: the runtime's control plane
 loads this module to place learner actors.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -115,13 +138,123 @@ def ravel_names(names) -> list:
     return sorted(names, key=tree_path)
 
 
+# -- data parallelism over the local cards ------------------------------------
+
+
+class DataParallelUpdate:
+    """The update a rank is inside: its group (``local_group.Collectives``),
+    its rank of ``size``, and the padded batch's ``rows`` over all ranks
+    (``rows / size`` on each)."""
+
+    def __init__(self, coll, rank: int, size: int, rows: int):
+        self.coll, self.rank, self.size, self.rows = coll, rank, size, rows
+
+    def local_rows(self, x, dim: int = 0):
+        """This rank's rows of ``x``, whose dim ``dim`` holds the whole
+        batch's rows (unpadded or padded): cycle-padded to ``rows`` as the
+        batch is, then this rank's contiguous slice."""
+        import torch
+
+        n = x.shape[dim]
+        if n != self.rows:
+            x = x.index_select(dim, torch.arange(self.rows, device=x.device) % n)
+        per = self.rows // self.size
+        return x.narrow(dim, self.rank * per, per)
+
+
+#: the data-parallel update this thread is inside, if any (``batch_sum``,
+#: ``UpdateDraws``): set by ``Learner.update_slice`` around its loss call,
+#: since the losses' signature carries no group
+_CURRENT = threading.local()
+
+
+def _update() -> Optional[DataParallelUpdate]:
+    return getattr(_CURRENT, "update", None)
+
+
+def batch_sum(x):
+    """``x`` summed over the ranks of a data-parallel update (every rank
+    gets the total), with a gradient: the group's sum of the gradients
+    flowing back. Outside an update, ``x`` itself. A loss takes every
+    reduction over rows that is not a plain mean from it (see the module
+    doc)."""
+    if _update() is None:
+        return x
+    return _batch_sum_fn().apply(x)
+
+
+_BATCH_SUM = None
+
+
+def _batch_sum_fn():
+    global _BATCH_SUM
+    if _BATCH_SUM is None:
+        import torch
+
+        class _BatchSum(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x):
+                ctx.coll = _update().coll
+                return ctx.coll.all_reduce(x.detach().clone())
+
+            @staticmethod
+            def backward(ctx, g):
+                return ctx.coll.all_reduce(g.contiguous().clone())
+
+        _BATCH_SUM = _BatchSum
+    return _BATCH_SUM
+
+
+def data_parallel_ranks(data_parallel, device) -> Optional[int]:
+    """The ranks a learner on ``device`` updates over, or None for one
+    device without a group: ``True`` every visible card when there is more
+    than one, ``False`` none, an int exactly that many."""
+    if isinstance(data_parallel, bool):
+        if not data_parallel or device.type != "cuda":
+            return None
+        import torch
+
+        n = torch.cuda.device_count()
+        return n if n > 1 else None
+    n = int(data_parallel)
+    if n < 1:
+        raise ValueError(f"data_parallel must be a bool or a rank count >= 1, got {data_parallel!r}")
+    if device.type == "cuda":
+        import torch
+
+        visible = torch.cuda.device_count()
+        if n > visible:
+            raise ValueError(f"data_parallel={n} needs {n} visible cards, {visible} visible")
+    return n
+
+
+def pad_and_split(batch, size: int) -> tuple:
+    """(each rank's contiguous slice of ``batch`` cycle-padded to a multiple
+    of ``size``, as host arrays; the ``"draw/..."`` columns whole; the
+    padded rows). The reference pads so (``ray_tpu/rl/learner.py:133-139``),
+    also a batch smaller than ``size``."""
+    arrays = {k: np.asarray(v) for k, v in batch.items()}
+    draws = {k: arrays.pop(k) for k in list(arrays) if k.startswith("draw/")}
+    rows = len(next(iter(arrays.values())))
+    target = -(-rows // size) * size
+    if target != rows:
+        idx = np.arange(target) % rows
+        arrays = {k: v[idx] for k, v in arrays.items()}
+    per = target // size
+    return [{k: v[r * per:(r + 1) * per] for k, v in arrays.items()} for r in range(size)], draws, target
+
+
 class UpdateDraws:
     """The random draws of one update, taken in one place. A batch that
     carries a draw under ``"draw/<name>"`` hands it over (a test gives the
     reference's ``jax.random`` draws so; a card-versus-CPU check gives both
     sides the same); otherwise it comes from a ``torch.Generator`` on the
     batch's device seeded from ``(base, step)``, as the reference folds the
-    step into ``PRNGKey(base)``."""
+    step into ``PRNGKey(base)``. ``row_dim`` is the dim of the draw that
+    runs over the batch's rows: inside a data-parallel update a draw is
+    taken at the whole padded batch's shape, from the same seed on every
+    rank, and each rank keeps its own rows (a handed draw is padded and
+    sliced the same way)."""
 
     def __init__(self, base: int, step: int, batch: dict):
         self._batch = batch
@@ -135,23 +268,37 @@ class UpdateDraws:
             self._gen = torch.Generator(device=device).manual_seed(self._seed)
         return self._gen
 
-    def normal(self, name: str, shape: tuple, device):
+    @staticmethod
+    def _global(shape: tuple, row_dim: int) -> tuple:
+        update = _update()
+        if update is None:
+            return tuple(shape)
+        shape = list(shape)
+        shape[row_dim] = update.rows
+        return tuple(shape)
+
+    @staticmethod
+    def _local(x, row_dim: int):
+        update = _update()
+        return x if update is None else update.local_rows(x, row_dim)
+
+    def normal(self, name: str, shape: tuple, device, row_dim: int = 0):
         import torch
 
         got = self._batch.get(f"draw/{name}")
-        if got is not None:
-            return got
-        return torch.randn(shape, generator=self._generator(device), device=device)
+        if got is None:
+            got = torch.randn(self._global(shape, row_dim), generator=self._generator(device), device=device)
+        return self._local(got, row_dim)
 
-    def uniform(self, name: str, shape: tuple, low, high):
+    def uniform(self, name: str, shape: tuple, low, high, row_dim: int = 0):
         """Uniform in [low, high) (tensors broadcasting against ``shape``)."""
         import torch
 
         got = self._batch.get(f"draw/{name}")
         if got is not None:
-            return got
-        u = torch.rand(shape, generator=self._generator(low.device), device=low.device)
-        return low + (high - low) * u
+            return self._local(got, row_dim)
+        u = torch.rand(self._global(shape, row_dim), generator=self._generator(low.device), device=low.device)
+        return low + (high - low) * self._local(u, row_dim)
 
 
 class CountingLoss:
@@ -193,7 +340,7 @@ class Learner:
         lr: float = 3e-4,
         grad_clip: Optional[float] = 0.5,
         seed: int = 0,
-        data_parallel: bool = True,
+        data_parallel: bool | int = True,
         device=None,
     ):
         import torch
@@ -201,12 +348,7 @@ class Learner:
         from ray_tpu_torch.device import resolve_device
 
         self.device = resolve_device(device)
-        if data_parallel and self.device.type == "cuda" and torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                f"a data-parallel learner over {torch.cuda.device_count()} cards is not ported "
-                "yet (ROADMAP.md, queue A8): make the learner see one card, or use "
-                "LearnerGroup(num_learners=N)"
-            )
+        ranks = data_parallel_ranks(data_parallel, self.device)
         self.module = module_factory()
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self.params = self.module.init(self._generator, self.device)
@@ -215,6 +357,13 @@ class Learner:
             self.params.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8
         )
         self._loss_fn = loss_fn
+        #: the followers of a data-parallel learner (``rl._dp_worker``)
+        self.group = None
+        if ranks is not None:
+            from ray_tpu_torch.rl._dp_worker import DPGroup
+
+            self.group = DPGroup(self, ranks, dict(module_factory=module_factory, loss_fn=loss_fn, lr=lr,
+                                                   grad_clip=grad_clip, seed=seed))
 
     def _device_batch(self, batch: SampleBatch) -> dict:
         return {k: _to_tensor(v, self.device) for k, v in batch.items()}
@@ -271,24 +420,90 @@ class Learner:
         """Gradients of the loss on this learner's batch shard, WITHOUT
         applying them — the data-parallel LearnerGroup averages shard
         grads across learners before anyone applies (reference:
-        learner_group.py DDP semantics). Returns ({name: np.ndarray},
-        metrics)."""
-        loss, metrics = self._grads(batch)
+        learner_group.py DDP semantics); over a group of cards, the
+        group's reduced gradient. Returns ({name: np.ndarray}, metrics)."""
+        if self.group is not None:
+            metrics = self.group.update(batch, apply=False)
+        else:
+            loss, metrics = self._grads(batch)
+            metrics = {"loss": loss, **metrics}
         grads = {n: p.grad for n, p in self.params.named_parameters()}
-        host = self._host_metrics({"loss": loss, **metrics}, batch.count)
-        return host_weights(grads), host
+        return host_weights(grads), self._host_metrics(metrics, batch.count)
 
     def apply_grads(self, grads) -> bool:
-        named = dict(self.params.named_parameters())
-        for name, g in grads.items():
-            named[name].grad = _to_tensor(g, self.device)
+        if self.group is not None:
+            grads = host_weights(grads)
+            self.group.apply_grads(grads)
+        self._set_grads(grads)
         self._clip_and_step()
         return True
 
+    def _set_grads(self, grads) -> None:
+        named = dict(self.params.named_parameters())
+        for name, g in grads.items():
+            named[name].grad = _to_tensor(g, self.device)
+
     def update(self, batch: SampleBatch) -> dict:
+        if self.group is not None:
+            return self._host_metrics(self.group.update(batch, apply=True), batch.count)
         loss, metrics = self._grads(batch)
         norm = self._clip_and_step()
         return self._host_metrics({"loss": loss, "grad_norm": norm, **metrics}, batch.count)
+
+    def update_slice(self, local: dict, draws: dict, update: DataParallelUpdate, apply: bool) -> dict:
+        """One rank's part of a data-parallel update (the leader's and each
+        follower's alike): the backward on its slice ``local`` (with the
+        batch's draws whole), the gradients averaged over the group, the
+        scalar metrics averaged and the per-sample ones gathered in row
+        order; with ``apply``, the clip and the Adam step. Returns the
+        metrics on the device, ``"grad_norm"`` too when applied."""
+        _CURRENT.update = update
+        try:
+            loss, metrics = self._grads({**local, **draws})
+        finally:
+            _CURRENT.update = None
+        self._reduce_grads(update)
+        metrics = self._reduce_metrics({"loss": loss, **metrics}, update)
+        if apply:
+            norm = self._clip_and_step()
+            metrics = {"loss": metrics.pop("loss"), "grad_norm": norm, **metrics}
+        return metrics
+
+    def _reduce_grads(self, update: DataParallelUpdate) -> None:
+        """Average the ``.grad``s over the group: one all-reduce per dtype
+        of one flat buffer."""
+        import torch
+
+        by_dtype: dict = {}
+        for p in self.params.parameters():
+            by_dtype.setdefault(p.grad.dtype, []).append(p)
+        for ps in by_dtype.values():
+            flat = torch.cat([p.grad.reshape(-1) for p in ps])
+            update.coll.all_reduce(flat)
+            if update.size > 1:
+                flat.div_(update.size)
+            off = 0
+            for p in ps:
+                p.grad.copy_(flat[off:off + p.numel()].view_as(p.grad))
+                off += p.numel()
+
+    def _reduce_metrics(self, metrics: dict, update: DataParallelUpdate) -> dict:
+        """Scalars averaged over the group (one all-reduce); arrays gathered
+        along their first dim, in rank order (one all-gather each)."""
+        import torch
+
+        metrics = {k: torch.as_tensor(v, device=self.device).detach() for k, v in metrics.items()}
+        scalars = [k for k, v in metrics.items() if v.ndim == 0]
+        out = {}
+        if scalars:
+            stacked = update.coll.all_reduce(torch.stack([metrics[k].float() for k in scalars]))
+            if update.size > 1:
+                stacked.div_(update.size)
+            out = dict(zip(scalars, stacked))
+        for k, v in metrics.items():
+            if k not in out:
+                out[k] = torch.cat(update.coll.all_gather(v)) if update.size > 1 else v
+        return {k: out[k] for k in metrics}
 
     def get_weights(self) -> dict:
         """``{name: tensor}`` on the learner's device: a snapshot, as the
@@ -307,13 +522,27 @@ class Learner:
         return host_weights(self.params)
 
     def set_weights(self, params) -> bool:
+        if self.group is not None:
+            params = host_weights(params)
+            self.group.set_weights(params)
         load_weights(self.params, params)
         return True
 
     def apply(self, fn: Callable, *args) -> Any:
         """Run an arbitrary function against (learner, *args) — the remote
-        escape hatch LearnerGroup uses for target-net sync etc."""
+        escape hatch LearnerGroup uses for target-net sync etc. A
+        data-parallel learner runs it on every rank (its followers get
+        ``fn`` and ``args`` by cloudpickle) and returns the leader's
+        result."""
+        if self.group is not None:
+            self.group.apply(fn, args)
         return fn(self, *args)
+
+    def close(self) -> None:
+        """Stop a data-parallel learner's followers (idempotent; also at
+        collection)."""
+        if self.group is not None:
+            self.group.close()
 
 
 class LearnerGroup:
@@ -440,9 +669,10 @@ class LearnerGroup:
 
     def shutdown(self):
         import ray_tpu_torch
-
         from ray_tpu_torch._private.log_util import warn_throttled
 
+        if self._local is not None:
+            self._local.close()
         for a in self._actors:
             try:
                 ray_tpu_torch.kill(a)

@@ -43,7 +43,7 @@ from __future__ import annotations
 from functools import partial
 from typing import Optional
 
-from ray_tpu_torch.rl.learner import LearnerGroup
+from ray_tpu_torch.rl.learner import LearnerGroup, batch_sum
 
 
 class GPTPolicyModule:
@@ -109,7 +109,10 @@ def rlhf_loss(clip_param: float = 0.2, kl_coeff: float = 0.0):
         # excluded, not scored as probability 1)
         mask = mask * batch["token_mask"].float()
         w = batch["weight"].float()[:, None] * mask
-        denom = torch.clamp(w.sum(), min=1.0)
+        # every mean is over the whole batch's weights: a data-parallel
+        # update sums the numerators and the denominator over its ranks
+        # (``batch_sum``)
+        denom = torch.clamp(batch_sum(w.sum()), min=1.0)
 
         # masked positions are selected out (a NaN behavior logprob there
         # would survive a multiplication by 0)
@@ -120,18 +123,22 @@ def rlhf_loss(clip_param: float = 0.2, kl_coeff: float = 0.0):
             ratio * adv,
             torch.clamp(ratio, 1.0 - clip_param, 1.0 + clip_param) * adv,
         )
-        pi_loss = -(surr * w).sum() / denom
         # KL in clamped log space: a behavior token the CURRENT filter
         # masks out scores ~-1e30 (token_logprobs doc) — correct for the
         # ratio (exp -> 0, clipped) but it would blow the log-space KL
         # term (and a kl_coeff-weighted loss) to ~1e30 from one token
-        approx_kl = -(torch.clamp(log_ratio, -20.0, 20.0) * w).sum() / denom
-        clip_frac = (((ratio - 1.0).abs() > clip_param).float() * w).sum() / denom
+        sums = batch_sum(torch.stack([
+            -(surr * w).sum(),
+            -(torch.clamp(log_ratio, -20.0, 20.0) * w).sum(),
+            (((ratio - 1.0).abs() > clip_param).float() * w).sum(),
+            (ratio * w).sum(),
+        ]))
+        pi_loss, approx_kl, clip_frac, mean_ratio = sums / denom
         total = pi_loss + kl_coeff * approx_kl
         return total, {
             "policy_loss": pi_loss,
             "kl": approx_kl,
-            "mean_ratio": (ratio * w).sum() / denom,
+            "mean_ratio": mean_ratio,
             "clip_frac": clip_frac,
         }
 

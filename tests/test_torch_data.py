@@ -454,7 +454,7 @@ def test_iter_torch_batches_equal_iter_batches(ray_start_regular):
         assert g["id"].dtype == torch.int64 and g["x"].dtype == torch.float64
         np.testing.assert_array_equal(g["id"].numpy(), w["id"])
         np.testing.assert_array_equal(g["x"].numpy(), w["x"].astype(np.float64))
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(TypeError, match="NamedSharding"):
         ds.iter_torch_batches(sharding=object(), device="cpu")
 
 

@@ -29,6 +29,7 @@ seeds from it.
 
 import functools
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -505,6 +506,46 @@ def test_follower_killed_during_a_step_raises():
             eng.step()
     finally:
         eng.shutdown()
+
+
+def test_stopped_follower_raises_within_the_stale_bound():
+    """A follower stopped (SIGSTOP) while the leader's step waits in its
+    reduction, and never killed by the test: its heartbeats stop, so the
+    leader's watcher counts it dead after ``STALE_S`` and the step raises,
+    naming the rank, within ``STALE_S`` + 5 s (without the heartbeat it
+    waited out the group's 600 s timeout). The leader then closes cleanly."""
+    import threading
+
+    from ray_tpu_torch._private.local_group import STALE_S
+
+    eng = _engine(tp=2)
+    proc = eng.runner.group.procs[0]
+    try:
+        eng.generate([1, 2, 3], SamplingParams(max_tokens=2))
+        eng.submit([4, 5, 6], SamplingParams(max_tokens=8))
+        caught = []
+
+        def step():
+            try:
+                eng.step()
+            except RuntimeError as e:
+                caught.append((time.monotonic(), e))
+
+        proc.send_signal(signal.SIGSTOP)
+        stopped = time.monotonic()
+        t = threading.Thread(target=step, daemon=True)
+        t.start()
+        t.join(STALE_S + 5.0)
+        assert not t.is_alive() and caught, "the step did not raise for the stopped follower"
+        assert caught[0][0] - stopped < STALE_S + 5.0
+        assert re.search(r"tp follower rank 1 \(pid \d+\) sent no heartbeat", str(caught[0][1]))
+        with pytest.raises(RuntimeError, match="rank 1"):
+            eng.step()
+    finally:
+        proc.send_signal(signal.SIGCONT)
+        proc.kill()
+        eng.shutdown()
+    assert not _alive(proc.pid)
 
 
 def test_a_follower_exit_seen_late_is_still_named():

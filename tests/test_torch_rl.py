@@ -485,19 +485,28 @@ def test_every_rl_algorithm_name_resolves_in_tune(name):
 
 
 def test_data_parallel_learner_over_several_cards_raises_citing_a8(monkeypatch):
-    """The reference's ``data`` mesh over local devices is not ported: with
-    two cards visible a data-parallel learner raises before it builds
-    anything (the cards are faked); ``data_parallel=False`` gets past the
-    check and stops only at the fake card."""
+    """With two cards visible (faked) a learner at the default
+    ``data_parallel=True`` chooses the group path over both, as the
+    reference's ``data`` mesh spans every local device; ``False`` keeps one
+    device, an int asks for exactly that many ranks, and more ranks than
+    cards raises before the learner builds anything. (Until the
+    data-parallel learner was ported, the first case raised citing queue
+    A8.)"""
+    from ray_tpu_torch.rl.learner import data_parallel_ranks
+
     spec = RLModuleSpec(Box(-1, 1, shape=(4,)), Discrete(2))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A8"):
-        Learner(lambda: ActorCriticModule(spec), ppo_loss(*LOSS_ARGS))
-    with pytest.raises(Exception) as err:
-        Learner(lambda: ActorCriticModule(spec), ppo_loss(*LOSS_ARGS), data_parallel=False)
-    assert not isinstance(err.value, NotImplementedError)
+    card, cpu = torch.device("cuda", 0), torch.device("cpu")
+    assert data_parallel_ranks(True, card) == 2
+    assert data_parallel_ranks(False, card) is None
+    assert data_parallel_ranks(1, card) == 1 and data_parallel_ranks(2, card) == 2
+    assert data_parallel_ranks(True, cpu) is None and data_parallel_ranks(4, cpu) == 4
+    with pytest.raises(ValueError, match="data_parallel=3 needs 3 visible cards, 2 visible"):
+        Learner(lambda: ActorCriticModule(spec), ppo_loss(*LOSS_ARGS), data_parallel=3)
+    with pytest.raises(ValueError, match="rank count"):
+        Learner(lambda: ActorCriticModule(spec), ppo_loss(*LOSS_ARGS), data_parallel=0)
 
 
 def test_multi_agent_env_makes_a_multi_agent_vector_env():

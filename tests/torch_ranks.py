@@ -415,6 +415,66 @@ BODIES = {"parallel_modes": parallel_modes, "flash_sharded": flash_sharded, "pip
           "ring_cases": ring_cases}
 
 
+def sharded_batches(rank: int, payload) -> dict:
+    """test_torch_data_sharding.py: on the dp meshes of the first 2 and of
+    all 4 ranks, ``read_numpy(payload["files"], column="tokens")`` through
+    ``iter_torch_batches(sharding=NamedSharding(mesh, batch_spec()))``:
+    each batch's global shape and this rank's shard; the tiny GPT's
+    ``build_train_step(..., mesh)`` fed those batches and fed the same
+    batches as host arrays (the losses of both); the errors of an unseeded
+    local shuffle and of a sharding that is not a ``NamedSharding``."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import data
+    from ray_tpu_torch.parallel import MeshConfig, NamedSharding, batch_spec, make_mesh
+    from ray_tpu_torch.parallel.sharding import is_dtensor
+
+    ray_tpu_torch.init(num_cpus=1)
+    out = {}
+    try:
+        for n in (2, 4):
+            mesh = make_mesh(MeshConfig(dp=n), devices=("cpu", list(range(n))))
+            if rank >= n:
+                continue
+            ds = data.read_numpy(payload["files"], column="tokens")
+            sharding = NamedSharding(mesh, batch_spec())
+            kw = dict(batch_size=payload["batch"], drop_last=True)
+            batches = list(ds.iter_torch_batches(sharding=sharding, dtypes={"tokens": torch.int64}, **kw))
+            res = dict(dtensor=all(is_dtensor(b["tokens"]) for b in batches),
+                       shapes=[tuple(b["tokens"].shape) for b in batches],
+                       dtypes={str(b["tokens"].dtype) for b in batches},
+                       local=[b["tokens"].to_local().numpy().copy() for b in batches])
+            losses = {}
+            for feed in ("sharded", "host"):
+                state, step_fn = _tiny_state(payload, mesh)
+                losses[feed] = []
+                for b in batches:
+                    batch = b["tokens"] if feed == "sharded" else b["tokens"].full_tensor()
+                    state, loss = step_fn(state, batch)
+                    losses[feed].append(loss.item())
+            res["losses"] = losses
+            try:
+                ds.iter_torch_batches(sharding=sharding, local_shuffle_buffer_size=8, **kw)
+            except ValueError as e:
+                res["unseeded_shuffle"] = str(e)
+            try:
+                ds.iter_torch_batches(sharding=(mesh, batch_spec()), **kw)
+            except TypeError as e:
+                res["wrong_type"] = str(e)
+            seeded = [np.array(b["tokens"].to_local().numpy()) for b in ds.iter_torch_batches(
+                sharding=sharding, local_shuffle_buffer_size=8, local_shuffle_seed=5, **kw)]
+            res["seeded_rows"] = [x.tolist() for x in seeded]
+            out[n] = res
+    finally:
+        ray_tpu_torch.shutdown()
+    return out
+
+
+BODIES["sharded_batches"] = sharded_batches
+
+
 def several(rank: int, payload) -> list:
     """Each ``(body, payload)`` of ``payload`` in turn, in one launch."""
     return [BODIES[name](rank, p) for name, p in payload]
